@@ -7,18 +7,22 @@ script exits nonzero without the final ``ok`` line:
 
 0. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
    refuses to run without CUDA;
-1. builds the three CUDA kernels from ``usip_tpu_torch/csrc`` into a clean
-   build directory;
+1. builds the five CUDA kernels from ``usip_tpu_torch/csrc`` into a clean
+   build directory, one nvcc each, side by side;
 2. holds each kernel against its plain PyTorch version on the card at the
-   serving path's shapes (FPS and min/argmin exactly, the fused chain within
-   a stated tolerance);
-3. runs the whole fp32 forward at full KITTI width (B=2) on the card and on
-   the CPU with the same seeded weights, draws and input, and compares;
+   serving paths' shapes (FPS, min/argmin, smallest-k and scatter-max
+   exactly, the fused chain within a stated tolerance);
+3. runs the whole fp32 forward at full width (B=2) on the card and on the
+   CPU with the same seeded weights, draws and input, and compares: the
+   KITTI SOM detector, the Oxford ball detector and its knn twin;
 4. serves 3 requests through ``python -m usip_tpu_torch.cli serve --device
-   cuda`` and drives ``KeypointPipeline.detect`` in process, with the kernel
-   launch counts reset before and read after;
+   cuda`` for the KITTI SOM detector and for the Oxford ball detector, then
+   drives ``KeypointPipeline.detect`` in process on each path (SOM, ball,
+   knn), with the kernel launch counts reset before and read after each, and
+   checks the kernels each path must launch;
 5. times each kernel against its plain version, the stages of the batch-8
-   forward, and detect clouds/s with the bench protocol (bf16 preset).
+   forwards, detect clouds/s with the bench protocol (bf16 presets) and the
+   ball path's peak memory.
 
 The second-to-last line is a JSON object with one entry per kernel; the last
 is ``{"ok": true, "device": {...}}``.
@@ -44,11 +48,18 @@ from usip_tpu_torch.inference import KeypointPipeline  # noqa: E402
 from usip_tpu_torch.models import Detector  # noqa: E402
 from usip_tpu_torch.models.detector import knn_group  # noqa: E402
 from usip_tpu_torch.models.fused_infer import detector_infer_fused  # noqa: E402
-from usip_tpu_torch.ops import kernels, sample_nodes  # noqa: E402
+from usip_tpu_torch.ops import kernels, pairwise_sqdist, sample_nodes  # noqa: E402
+from usip_tpu_torch.ops.grouping import ball_scores, ball_select  # noqa: E402
 from usip_tpu_torch.weights import seeded_state_dict  # noqa: E402
 
 B_BENCH = 8
 SEED = 0
+# the kernels each main path must launch
+PATH_KERNELS = {
+    "som": ("fps", "min_argmin", "scatter_max", "fusion_chain", "smallest_k"),
+    "ball": ("fps", "smallest_k", "fusion_chain"),
+    "knn": ("fps", "smallest_k", "fusion_chain"),
+}
 
 
 def check(cond, msg):
@@ -87,6 +98,36 @@ def kitti_cloud(rng, b, n):
     nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
     sn = np.concatenate([nrm, rng.uniform(size=(b, n, 1))], -1)
     return pc, sn.astype(np.float32)
+
+
+def oxford_cloud(rng, b, n):
+    """Dense urban-like clouds: 60% ground over a 25 m disc whose density
+    falls with range (r uniform, as a LiDAR's rings), 40% in 40 poles of
+    radius 0.5 m and height 4 m. Near the centre and at the poles a 2 m
+    ball holds more than 64 points, far out on the ground fewer."""
+    ng = int(n * 0.6)
+    r = 25.0 * rng.uniform(size=(b, ng))
+    t = rng.uniform(0, 2 * np.pi, size=(b, ng))
+    ground = np.stack([r * np.cos(t), r * np.sin(t),
+                       rng.normal(0, 0.1, size=(b, ng))], -1)
+    centres = rng.uniform(-18, 18, size=(b, 40, 2))
+    pole = rng.integers(0, 40, size=(b, n - ng))
+    cxy = np.take_along_axis(centres, pole[..., None], axis=1)
+    pr = 0.5 * np.sqrt(rng.uniform(size=(b, n - ng)))
+    pt = rng.uniform(0, 2 * np.pi, size=(b, n - ng))
+    poles = np.stack([cxy[..., 0] + pr * np.cos(pt),
+                      cxy[..., 1] + pr * np.sin(pt),
+                      rng.uniform(0, 4, size=(b, n - ng))], -1)
+    pc = rng.permuted(np.concatenate([ground, poles], 1), axis=1)
+    nrm = rng.normal(size=(b, n, 3))
+    nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
+    sn = np.concatenate([nrm, rng.uniform(size=(b, n, 1))], -1)
+    return pc.astype(np.float32), sn.astype(np.float32)
+
+
+def oxford_config(grouping, **overrides):
+    return get_config("oxford", **{"detector.grouping": grouping,
+                                   **overrides})
 
 
 def seeded_detector(cfg, device):
@@ -193,18 +234,72 @@ def phase2(cfg):
     check(float(err.median()) <= 1e-3 * scale, "fusion_chain median |diff| "
           "<= 1e-3 max|plain|")
     errs["fusion_chain"] = float(err.max())
+
+    # K4: (8, 512, 16384) k=64 on knn distances of a cloud whose points all
+    # appear twice, on ball scores (mostly +inf), on integer rows full of
+    # ties; and the node kNN's (8, 512, 512) k=16
+    half, _ = kitti_cloud(rng, B_BENCH, 8192)
+    dup = torch.from_numpy(np.concatenate([half, half], 1)).to(dev)
+    opc = torch.from_numpy(oxford_cloud(rng, B_BENCH, 16384)[0]).to(dev)
+    onodes = opc[:, :512].contiguous()
+    cases = {
+        "knn distances, duplicated points": (
+            pairwise_sqdist(dup[:, :512], dup), 64),
+        "ball scores r=2": (ball_scores(opc, onodes, 2.0), 64),
+        "integer rows with ties": (torch.from_numpy(rng.integers(
+            0, 50, size=(B_BENCH, 512, 16384)).astype(np.float32)).to(dev),
+            64),
+        "node knn distances": (pairwise_sqdist(onodes, onodes), 16),
+    }
+    worst = 0.0
+    for name, (scores, k) in cases.items():
+        vals, idx = kernels.smallest_k(scores, k)
+        rvals, ridx = kernels.smallest_k_plain(scores, k)
+        sync()
+        mism = int((idx != ridx).sum())
+        fin = torch.isfinite(rvals)
+        err = float((vals[fin] - rvals[fin]).abs().max()) if fin.any() else 0.0
+        print(f"[2] K4 smallest_k {name}: {tuple(scores.shape)} k={k}, "
+              f"{mism} indices differ, max |value diff| {err}, "
+              f"{float((~fin).float().mean()):.4f} of picks +inf", flush=True)
+        check(torch.equal(idx, ridx) and torch.equal(vals, rvals),
+              f"smallest_k {name}: values and indices identical")
+        worst = max(worst, err)
+    errs["smallest_k"] = worst
+    del cases, scores
+
+    # K5: (8, 16384, C) onto 512 nodes, the last 12 nodes empty
+    ids = torch.from_numpy(rng.integers(0, 500, size=(B_BENCH, 16384))).to(dev)
+    worst = 0.0
+    for c in (64, 128):
+        f = torch.from_numpy(rng.normal(size=(B_BENCH, 16384, c)).astype(
+            np.float32)).to(dev)
+        got = kernels.scatter_max(f, ids, 512)
+        ref = kernels.scatter_max_plain(f, ids, 512)
+        sync()
+        err = float((got - ref).abs().max())
+        print(f"[2] K5 scatter_max C={c}: (8, 16384, {c}) -> (8, 512, {c}), "
+              f"max |diff| {err}, empty nodes 0: "
+              f"{bool((got[:, 500:] == 0).all())}", flush=True)
+        check(torch.equal(got, ref), f"scatter_max C={c} equals "
+              "scatter_reduce amax")
+        check(bool((got[:, 500:] == 0).all()), "empty nodes are 0")
+        worst = max(worst, err)
+    errs["scatter_max"] = worst
     return errs
 
 
-def phase3():
-    """Full-width fp32 forward, card (kernels) against CPU (plain)."""
-    cfg = get_config("kitti", **{"detector.compute_dtype": "float32"})
-    rng = np.random.default_rng(2)
+def compare_slice(label, cfg, cloud_fn, rng):
+    """One full-width fp32 forward (B=2) on the card and on the CPU with the
+    same seeded weights, draws and input; nodes (and for the grouped trunks
+    the group indices) identical, keypoints and sigmas within 2e-2 x
+    max|ref| at the maximum and 2e-3 x max|ref| at the median."""
     b, n = 2, cfg.data.input_pc_num
     sub = n // cfg.data.fps_subsample_ratio
-    pc, sn = kitti_cloud(rng, b, n)
+    pc, sn = cloud_fn(rng, b, n)
     subset = np.stack([rng.permutation(n)[:sub] for _ in range(b)])
     first = rng.integers(0, sub, b).astype(np.int32)
+    grouped = cfg.detector.grouping != "som"
     outs = []
     for device in ("cuda", "cpu"):
         det = seeded_detector(cfg, device)
@@ -214,50 +309,69 @@ def phase3():
                                 cfg.data.fps_subsample_ratio,
                                 subset_idx=to(subset), first=to(first))
             res = detector_infer_fused(det, to(pc), to(sn), node)
-        outs.append([t.cpu() for t in (node,) + tuple(res)])
-    (node_g, anc_g, kp_g, sig_g), (node_c, anc_c, kp_c, sig_c) = outs
-    check(torch.equal(node_g, node_c), "nodes identical on card and CPU")
-    anc_err = float((anc_g - anc_c).abs().max())
-    print(f"[3] slice fp32 (2, 16384) -> 512: nodes identical, anchors max "
-          f"|diff| {anc_err}", flush=True)
-    check(anc_err <= 1e-4, "anchors within 1e-4")
-    for name, g, c in (("keypoints", kp_g, kp_c), ("sigmas", sig_g, sig_c)):
-        check(bool(torch.isfinite(g).all()), f"{name} finite")
+            extra = (det.group_indices(to(pc), node),) if grouped else ()
+            if device == "cuda" and cfg.detector.grouping == "ball":
+                r, k = cfg.detector.group_radius, cfg.detector.group_k
+                inside = (pairwise_sqdist(node, to(pc)) <= r * r).sum(-1)
+                print(f"[3] {label}: balls holding more than {k} points "
+                      f"{float((inside > k).float().mean()):.4f}, fewer "
+                      f"(padded) {float((inside < k).float().mean()):.4f}, "
+                      f"empty {float((inside == 0).float().mean()):.4f}",
+                      flush=True)
+                check(bool((inside > k).any() and (inside < k).any()),
+                      "some balls overflow K and some do not")
+        outs.append([t.cpu() for t in (node,) + tuple(res) + extra])
+    gpu, cpu = outs
+    check(torch.equal(gpu[0], cpu[0]), f"{label}: nodes identical on card "
+          "and CPU")
+    anc_err = float((gpu[1] - cpu[1]).abs().max())
+    if grouped:
+        check(torch.equal(gpu[4], cpu[4]), f"{label}: group indices "
+              "identical on card and CPU")
+    print(f"[3] {label} fp32 (2, {n}) -> {cfg.data.node_num}: nodes "
+          f"identical{', group indices identical' if grouped else ''}, "
+          f"anchors max |diff| {anc_err}", flush=True)
+    check(anc_err <= 1e-4, f"{label}: anchors within 1e-4")
+    for name, g, c in (("keypoints", gpu[2], cpu[2]),
+                       ("sigmas", gpu[3], cpu[3])):
+        check(bool(torch.isfinite(g).all()), f"{label}: {name} finite")
         scale = float(c.abs().max())
         err = (g - c).abs()
-        print(f"[3] {name}: max|ref| {scale}, max |diff| {float(err.max())},"
-              f" median |diff| {float(err.median())}", flush=True)
-        check(float(err.max()) <= 2e-2 * scale, f"{name} max within 2e-2")
-        check(float(err.median()) <= 2e-3 * scale, f"{name} median within "
-              "2e-3")
+        print(f"[3] {label} {name}: max|ref| {scale}, max |diff| "
+              f"{float(err.max())}, median |diff| {float(err.median())}",
+              flush=True)
+        check(float(err.max()) <= 2e-2 * scale, f"{label}: {name} max "
+              "within 2e-2")
+        check(float(err.median()) <= 2e-3 * scale, f"{label}: {name} median "
+              "within 2e-3")
     # the offsets depend on the trunk: keypoints are not just the anchors
-    off = float((kp_c - anc_c).abs().max())
-    check(off > 1e-2, "keypoint offsets nontrivial")
-    print(f"[3] max |keypoint - anchor| {off}", flush=True)
+    off = float((cpu[2] - cpu[1]).abs().max())
+    check(off > 1e-2, f"{label}: keypoint offsets nontrivial")
+    print(f"[3] {label}: max |keypoint - anchor| {off}", flush=True)
 
 
-def phase4(cfg, tmp):
-    """Serve 3 requests over the CLI, then the in-process main path with the
-    launch counts reset before and read after."""
-    ckpt = os.path.join(tmp, "detector.pth")
-    torch.save({k: torch.tensor(v) for k, v in
-                seeded_state_dict(cfg.detector, SEED).items()}, ckpt)
-    rng = np.random.default_rng(3)
-    clouds = []
-    for i in range(3):
-        pc, sn = kitti_cloud(rng, 1, 20000)
-        path = os.path.join(tmp, f"cloud{i}.npy")
-        np.save(path, np.concatenate([pc[0], sn[0]], -1))
-        clouds.append(path)
+def phase3():
+    """Full-width fp32 forwards, card (kernels) against CPU (plain)."""
+    fp32 = {"detector.compute_dtype": "float32"}
+    rng = np.random.default_rng(2)
+    compare_slice("kitti som", get_config("kitti", **fp32), kitti_cloud, rng)
+    for grouping in ("ball", "knn"):
+        compare_slice(f"oxford {grouping}", oxford_config(grouping, **fp32),
+                      oxford_cloud, rng)
+
+
+def serve_cli(tag, tmp, ckpt, clouds, cli_args):
+    """Serve 3 requests through ``python -m usip_tpu_torch.cli serve
+    --device cuda`` and check every reply's .bin file."""
     nk = 128
-    out_dir = os.path.join(tmp, "served")
+    out_dir = os.path.join(tmp, f"served_{tag}")
     reqs = [{"id": i, "input": c, "out": out_dir, "num_keypoints": nk}
             for i, c in enumerate(clouds)] + [{"cmd": "shutdown"}]
     env = dict(os.environ, PYTHONPATH=REPO)
     t0 = time.perf_counter()
     proc = subprocess.Popen(
         [sys.executable, "-m", "usip_tpu_torch.cli", "serve", "--device",
-         "cuda", "--dataset", "kitti", "--checkpoint", ckpt],
+         "cuda", *cli_args, "--checkpoint", ckpt],
         stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
         text=True, cwd=REPO, env=env)
     try:
@@ -267,7 +381,7 @@ def phase4(cfg, tmp):
         if proc.poll() is None:
             proc.kill()
             proc.wait()
-    check(proc.returncode == 0, f"serve exited {proc.returncode}: "
+    check(proc.returncode == 0, f"serve {tag} exited {proc.returncode}: "
           f"{stderr[-2000:]}")
     replies = [json.loads(s) for s in stdout.splitlines()]
     check(replies[0].get("status") == "ready", f"serve ready: {replies[:1]}")
@@ -278,29 +392,79 @@ def phase4(cfg, tmp):
         check(kp.shape == (nk, 3) and np.isfinite(kp).all(),
               f"{rep['keypoints']} holds {nk} finite rows")
     check(len(replies) == 5, f"3 replies, got {replies}")
-    print(f"[4] serve --device cuda: 3 requests answered, {nk} keypoints "
-          f"each, .bin files written ({time.perf_counter() - t0:.1f} s with "
-          "start-up)", flush=True)
+    print(f"[4] serve {' '.join(cli_args)} --device cuda: 3 requests "
+          f"answered, {nk} keypoints each, .bin files written "
+          f"({time.perf_counter() - t0:.1f} s with start-up)", flush=True)
 
-    pipe = KeypointPipeline(cfg, ckpt, "cuda")
-    kernels.reset_launch_counts()
-    for c in clouds:
-        data = np.load(c)
-        kp, sig = pipe.detect(data[:, :3], data[:, 3:], num_keypoints=nk)
-        check(kp.shape == (nk, 3) and np.isfinite(kp).all(), "detect output")
+
+def phase4(tmp):
+    """Per main path: a seeded checkpoint and 3 clouds, 3 requests over the
+    CLI (SOM and ball), then ``KeypointPipeline.detect`` x3 in process with
+    the launch counts reset just before and read just after; each path must
+    have launched its kernels."""
+    rng = np.random.default_rng(3)
+    paths = {
+        "som": (get_config("kitti"), kitti_cloud, ["--dataset", "kitti"]),
+        "ball": (oxford_config("ball"), oxford_cloud,
+                 ["--dataset", "oxford", "--override",
+                  "detector.grouping=ball"]),
+        "knn": (oxford_config("knn"), oxford_cloud, None),
+    }
+    pipes, launches = {}, {}
+    for tag, (cfg, cloud_fn, cli_args) in paths.items():
+        ckpt = os.path.join(tmp, f"detector_{tag}.pth")
+        torch.save({k: torch.tensor(v) for k, v in
+                    seeded_state_dict(cfg.detector, SEED).items()}, ckpt)
+        clouds = []
+        for i in range(3):
+            pc, sn = cloud_fn(rng, 1, 20000)
+            path = os.path.join(tmp, f"{tag}_cloud{i}.npy")
+            np.save(path, np.concatenate([pc[0], sn[0]], -1))
+            clouds.append(path)
+        if cli_args:
+            serve_cli(tag, tmp, ckpt, clouds, cli_args)
+        pipe = KeypointPipeline(cfg, ckpt, "cuda")
+        kernels.reset_launch_counts()
+        for c in clouds:
+            data = np.load(c)
+            kp, _ = pipe.detect(data[:, :3], data[:, 3:], num_keypoints=128)
+            check(kp.shape == (128, 3) and np.isfinite(kp).all(),
+                  f"{tag} detect output")
+        sync()
+        launches[tag] = dict(kernels.LAUNCHES)
+        print(f"[4] {tag} path, KeypointPipeline.detect x3 in process: "
+              f"launches {launches[tag]}", flush=True)
+        for name in PATH_KERNELS[tag]:
+            check(launches[tag][name] > 0,
+                  f"kernel {name} launched on the {tag} path")
+        pipes[tag] = pipe
+    return pipes, launches
+
+
+def bench_rate(pipe, pc8, sn8, iters=50):
+    """bench.py protocol: batch 8, FPS + detect, best of 3 x ``iters``, one
+    synchronize per pass -> (clouds/s, ms per batch, peak MiB)."""
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):
+        pipe.infer(pc8, sn8)
     sync()
-    launches = dict(kernels.LAUNCHES)
-    print(f"[4] KeypointPipeline.detect x3 in process: launches {launches}",
-          flush=True)
-    for name, count in launches.items():
-        check(count > 0, f"kernel {name} launched on the main path")
-    return pipe, launches
+    best = float("inf")
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            out = pipe.infer(pc8, sn8)
+        sync()
+        best = min(best, time.perf_counter() - t0)
+    check(bool(torch.isfinite(out[0]).all()), "bench output finite")
+    return (B_BENCH * iters / best, best / iters * 1e3,
+            torch.cuda.max_memory_allocated() / 2**20)
 
 
-def phase5(cfg, pipe, card):
+def phase5(pipes, card):
     dev = torch.device("cuda")
     rng = np.random.default_rng(4)
     times = {}
+    kitti = get_config("kitti")
 
     pts = torch.from_numpy(kitti_cloud(rng, B_BENCH, 2048)[0]).to(dev)
     first = torch.from_numpy(rng.integers(0, 2048, B_BENCH).astype(
@@ -314,42 +478,71 @@ def phase5(cfg, pipe, card):
         time_ms(lambda: kernels.min_argmin(pc, nodes, True), 50),
         time_ms(lambda: kernels.min_argmin_plain(pc, nodes, True), 10))
 
-    ws, bs = pipe._chain
+    ws, bs = pipes["som"]._chain
     grouped = torch.from_numpy(np.abs(rng.normal(
-        size=(B_BENCH, 512, 16, 3 + cfg.detector.c1))).astype(
+        size=(B_BENCH, 512, 16, 3 + kitti.detector.c1))).astype(
             np.float32)).to(dev)
     times["fusion_chain"] = (
         time_ms(lambda: kernels.fusion_chain(grouped, ws, bs), 20),
         time_ms(lambda: kernels.fusion_chain_plain(grouped, ws, bs), 5))
+
+    # K4 at the ball selection's shape (the JSON line's time) and at the
+    # node kNN's
+    opc = torch.from_numpy(oxford_cloud(rng, B_BENCH, 16384)[0]).to(dev)
+    scores = ball_scores(opc, opc[:, :512].contiguous(), 2.0)
+    times["smallest_k"] = (
+        time_ms(lambda: kernels.smallest_k(scores, 64), 20),
+        time_ms(lambda: kernels.smallest_k_plain(scores, 64), 3))
+    del scores
+    nd = pairwise_sqdist(opc[:, :512], opc[:, :512])
+    knn_ms = (time_ms(lambda: kernels.smallest_k(nd, 16), 50),
+              time_ms(lambda: kernels.smallest_k_plain(nd, 16), 20))
+    # K5 at both calls of one SOM forward, C=64 and C=128 (the JSON line
+    # gives their sum)
+    ids = torch.from_numpy(rng.integers(0, 512, size=(B_BENCH, 16384))).to(dev)
+    k5 = {}
+    for c in (64, 128):
+        f = torch.from_numpy(rng.normal(size=(B_BENCH, 16384, c)).astype(
+            np.float32)).to(dev)
+        k5[c] = (time_ms(lambda: kernels.scatter_max(f, ids, 512), 50),
+                 time_ms(lambda: kernels.scatter_max_plain(f, ids, 512), 20))
+    times["scatter_max"] = (k5[64][0] + k5[128][0], k5[64][1] + k5[128][1])
     for name, (k_ms, p_ms) in times.items():
         print(f"[5] {card} | {name}: kernel {k_ms:.4f} ms, plain "
               f"{p_ms:.4f} ms (batch 8, main-path shapes)", flush=True)
+    print(f"[5] {card} | smallest_k node kNN (8, 512, 512) k=16: kernel "
+          f"{knn_ms[0]:.4f} ms, plain {knn_ms[1]:.4f} ms; scatter_max "
+          f"C=64 kernel {k5[64][0]:.4f} ms, plain {k5[64][1]:.4f} ms; C=128 "
+          f"kernel {k5[128][0]:.4f} ms, plain {k5[128][1]:.4f} ms",
+          flush=True)
 
-    # stages of the batch-8 bf16 forward, each timed alone
-    pc8_np, sn8_np = kitti_cloud(rng, B_BENCH, cfg.data.input_pc_num)
+    # stages of the batch-8 bf16 SOM forward, each timed alone
+    pipe = pipes["som"]
+    pc8_np, sn8_np = kitti_cloud(rng, B_BENCH, kitti.data.input_pc_num)
     pc8 = torch.from_numpy(pc8_np).to(dev)
     sn8 = torch.from_numpy(sn8_np).to(dev)
     det = pipe.detector
     with torch.inference_mode():
-        node = sample_nodes(pc8, cfg.data.node_num,
-                            cfg.data.fps_subsample_ratio,
+        node = sample_nodes(pc8, kitti.data.node_num,
+                            kitti.data.fps_subsample_ratio,
                             generator=pipe._gen)
         anchors, feat = det.som_trunk(pc8, sn8, node)
-        grouped8 = knn_group(anchors, anchors, feat, cfg.detector.node_knn_k)
+        grouped8 = knn_group(anchors, anchors, feat,
+                             kitti.detector.node_knn_k)
         knn_feat = kernels.fusion_chain(grouped8, ws, bs)
         agg = torch.cat([feat, knn_feat], -1)
         stages = {
             "sample_nodes": lambda: sample_nodes(
-                pc8, cfg.data.node_num, cfg.data.fps_subsample_ratio,
+                pc8, kitti.data.node_num, kitti.data.fps_subsample_ratio,
                 generator=pipe._gen),
             "som_trunk": lambda: det.som_trunk(pc8, sn8, node),
             "knn_group": lambda: knn_group(anchors, anchors, feat,
-                                           cfg.detector.node_knn_k),
+                                           kitti.detector.node_knn_k),
             "fusion_chain": lambda: kernels.fusion_chain(grouped8, ws, bs),
             "head": lambda: det.keypoint_head(agg, anchors),
         }
         parts = {k: time_ms(f, 20) for k, f in stages.items()}
-    print(f"[5] {card} | stages of the batch-8 bf16 forward (ms): "
+    print(f"[5] {card} | stages of the batch-8 bf16 SOM forward (ms): "
           + json.dumps({k: round(v, 4) for k, v in parts.items()}),
           flush=True)
 
@@ -362,44 +555,69 @@ def phase5(cfg, pipe, card):
         pipe.detect(one_pc[0], one_sn[0], num_keypoints=128)
         lat.append((time.perf_counter() - t0) * 1e3)
     lat = np.sort(lat[2:])
-    print(f"[5] {card} | detect latency, one 20000-point cloud, 128 "
+    print(f"[5] {card} | SOM detect latency, one 20000-point cloud, 128 "
           f"keypoints: median {np.median(lat):.3f} ms, max {lat[-1]:.3f} ms "
           f"over {lat.size} requests", flush=True)
+    rate, ms, peak = bench_rate(pipe, pc8, sn8)
+    print(f"[5] {card} | detect SOM (kitti) bf16 batch 8: {rate:.2f} "
+          f"clouds/s ({ms:.3f} ms per batch, best of 3 x 50); peak memory "
+          f"{peak:.0f} MiB", flush=True)
 
-    # bench.py protocol: batch 8, FPS + detect, best of 3 x 50, one
-    # synchronize per pass
-    for w in range(2):
-        pipe.infer(pc8, sn8)
-    sync()
-    iters, best = 50, float("inf")
-    for _ in range(3):
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            out = pipe.infer(pc8, sn8)
-        sync()
-        best = min(best, time.perf_counter() - t0)
-    check(bool(torch.isfinite(out[0]).all()), "bench output finite")
-    rate = B_BENCH * iters / best
-    print(f"[5] {card} | detect bf16 batch 8: {rate:.2f} clouds/s "
-          f"({best / iters * 1e3:.3f} ms per batch, best of 3 x {iters}); "
-          f"peak memory {torch.cuda.max_memory_allocated() / 2**20:.0f} MiB",
+    # the ball path: stages of its batch-8 bf16 forward, then its rate
+    pipe = pipes["ball"]
+    ox = pipe.cfg
+    r, gk = ox.detector.group_radius, ox.detector.group_k
+    pc8_np, sn8_np = oxford_cloud(rng, B_BENCH, ox.data.input_pc_num)
+    pc8 = torch.from_numpy(pc8_np).to(dev)
+    sn8 = torch.from_numpy(sn8_np).to(dev)
+    det = pipe.detector
+    ws, bs = pipe._chain
+    with torch.inference_mode():
+        node = sample_nodes(pc8, ox.data.node_num,
+                            ox.data.fps_subsample_ratio, generator=pipe._gen)
+        scores = ball_scores(pc8, node, r)
+        idx = ball_select(scores, gk).idx
+        feat = det.group_features(pc8, sn8, node, idx)
+        grouped8 = knn_group(node, node, feat, ox.detector.node_knn_k)
+        knn_feat = kernels.fusion_chain(grouped8, ws, bs)
+        agg = torch.cat([feat, knn_feat], -1)
+        stages = {
+            "sample_nodes": lambda: sample_nodes(
+                pc8, ox.data.node_num, ox.data.fps_subsample_ratio,
+                generator=pipe._gen),
+            "ball_distances": lambda: ball_scores(pc8, node, r),
+            "selection": lambda: ball_select(scores, gk),
+            "gather_conv1_5": lambda: det.group_features(pc8, sn8, node, idx),
+            "knn_group": lambda: knn_group(node, node, feat,
+                                           ox.detector.node_knn_k),
+            "fusion_chain": lambda: kernels.fusion_chain(grouped8, ws, bs),
+            "head": lambda: det.keypoint_head(agg, node),
+        }
+        parts = {k: time_ms(f, 20) for k, f in stages.items()}
+        del scores
+    print(f"[5] {card} | stages of the batch-8 bf16 ball forward (ms): "
+          + json.dumps({k: round(v, 4) for k, v in parts.items()}),
           flush=True)
+    for tag in ("ball", "knn"):
+        rate, ms, peak = bench_rate(pipes[tag], pc8, sn8)
+        print(f"[5] {card} | detect {tag} (oxford) bf16 batch 8: {rate:.2f} "
+              f"clouds/s ({ms:.3f} ms per batch, best of 3 x 50); peak "
+              f"memory {peak:.0f} MiB", flush=True)
     return times
 
 
 def main():
     card = phase0()
     phase1()
-    cfg = get_config("kitti")
-    errs = phase2(cfg)
+    errs = phase2(get_config("kitti"))
     sync()
     phase3()
     sync()
     tmp = tempfile.mkdtemp(prefix="usip_chip_smoke_")
     try:
-        pipe, launches = phase4(cfg, tmp)
+        pipes, launches = phase4(tmp)
         sync()
-        times = phase5(cfg, pipe, card)
+        times = phase5(pipes, card)
         sync()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -412,11 +630,17 @@ def main():
                        "usip_tpu/ops/pallas_kernels.py:56"),
         "fusion_chain": ("usip_tpu_torch/csrc/fusion_chain.cu",
                          "usip_tpu/ops/pallas_kernels.py:146"),
+        "smallest_k": ("usip_tpu_torch/csrc/smallest_k.cu",
+                       "usip_tpu/ops/pallas_kernels.py:327"),
+        "scatter_max": ("usip_tpu_torch/csrc/scatter_max.cu",
+                        "scripts/bench_scatter_pallas.py:69"),
     }
+    # launches: the sum over the main paths' runs (each counted from 0)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name], "max_abs_err": errs[name],
-         "ms": times[name][0], "plain_ms": times[name][1]}
+         "launches": sum(counts[name] for counts in launches.values()),
+         "max_abs_err": errs[name], "ms": times[name][0],
+         "plain_ms": times[name][1]}
         for name, (src, rep) in meta.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,7 +7,8 @@ is absent, run them without the suite's conftest (which sets jax up):
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 They cover shapes off the serving path: odd and ragged sizes, small widths,
-K that does not divide the 64-row tile.
+K that does not divide the 64-row tile, rows that are not a multiple of 32,
+channel counts that are not a multiple of the scatter tile.
 """
 
 import numpy as np
@@ -80,6 +81,57 @@ def test_fusion_chain_kernel_matches_plain(dev, bm, k, cin, c, c2):
     assert float(err.median()) <= 1e-3 * scale
 
 
+@pytest.mark.parametrize("rows,n", [(37, 1000), (5, 16384), (300, 7),
+                                    (3, 50000)])
+@pytest.mark.parametrize("k", [1, 7, 64, 128])
+def test_smallest_k_kernel_matches_plain(dev, rows, n, k):
+    """Values and indices identical to the plain version on rows with
+    integer ties, +inf runs, NaN and -inf, including k > N."""
+    rng = np.random.default_rng(rows * n + k)
+    s = rng.integers(-20, 20, size=(rows, n)).astype(np.float32)
+    kinds = rng.integers(0, 16, size=s.shape)
+    s[kinds == 0] = np.inf
+    s[kinds == 1] = np.nan
+    s[kinds == 2] = -np.inf
+    s[0] = np.inf
+    scores = torch.from_numpy(s).to(dev)
+    vals, idx = kernels.smallest_k(scores, k)
+    rvals, ridx = kernels.smallest_k_plain(scores, k)
+    torch.cuda.synchronize()
+    assert torch.equal(idx, ridx)
+    assert torch.equal(vals, rvals)
+
+
+def test_smallest_k_grad_on_card(dev):
+    """The autograd wrapper's backward on the card equals the CPU one."""
+    from usip_tpu_torch.ops.topk import smallest_k
+
+    s = torch.from_numpy(np.random.default_rng(0).normal(
+        size=(6, 777)).astype(np.float32))
+    g = torch.from_numpy(np.random.default_rng(1).normal(
+        size=(6, 9)).astype(np.float32))
+    grads = []
+    for d in (dev, torch.device("cpu")):
+        x = s.to(d).requires_grad_(True)
+        smallest_k(x, 9)[0].backward(g.to(d))
+        grads.append(x.grad.cpu())
+    assert torch.equal(*grads)
+
+
+@pytest.mark.parametrize("b,n,m,c", [(8, 16384, 512, 64), (2, 1000, 77, 13),
+                                     (3, 333, 5, 40), (1, 17, 600, 3)])
+def test_scatter_max_kernel_matches_plain(dev, b, n, m, c):
+    """Equal to scatter_reduce('amax') with empty nodes 0, including nodes no
+    point maps to and negative features."""
+    rng = np.random.default_rng(n + m + c)
+    f = _rand(rng, (b, n, c), dev, 3.0)
+    ids = torch.from_numpy(rng.integers(0, max(1, m - 3), size=(b, n))).to(dev)
+    got = kernels.scatter_max(f, ids, m)
+    ref = kernels.scatter_max_plain(f, ids, m)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+
+
 def test_wrappers_reject_bad_cuda_inputs(dev):
     pts = torch.zeros((2, 64, 3), device=dev)
     first = torch.zeros(2, dtype=torch.int32, device=dev)
@@ -97,3 +149,20 @@ def test_wrappers_reject_bad_cuda_inputs(dev):
         kernels.fusion_chain(x, [torch.zeros(d, device=dev) for d in dims],
                              [torch.zeros(d[1], device=dev)
                               for d in dims[:3] + dims[4:]])
+    scores = torch.zeros((4, 256), device=dev)
+    with pytest.raises(TypeError):
+        kernels.smallest_k(scores.double(), 8)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.smallest_k(scores.t(), 2)
+    with pytest.raises(ValueError, match="shared memory"):
+        kernels.smallest_k(torch.zeros((1, kernels.SMALLEST_K_MAX_N + 1),
+                                       device=dev), 8)
+    f = torch.zeros((2, 64, 8), device=dev)
+    ids = torch.zeros((2, 64), dtype=torch.int64, device=dev)
+    with pytest.raises(TypeError):
+        kernels.scatter_max(f.half(), ids, 4)
+    with pytest.raises(TypeError):
+        kernels.scatter_max(f, ids.int(), 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.scatter_max(f.transpose(0, 1).contiguous().transpose(0, 1),
+                            ids, 4)

@@ -18,7 +18,7 @@ import tempfile
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
-KERNELS = ("fps", "min_argmin", "fusion_chain")
+KERNELS = ("fps", "min_argmin", "fusion_chain", "smallest_k", "scatter_max")
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "usip_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",

@@ -3,9 +3,14 @@
   python -m usip_tpu_torch.cli detect --input clouds/ --checkpoint w.pth \
       --out served/ [--device cuda]
   python -m usip_tpu_torch.cli serve --checkpoint w.pth [--device cuda]
+  python -m usip_tpu_torch.cli serve --dataset oxford \
+      --override detector.grouping=ball --checkpoint w.pth
 
 Same request and reply protocol as ``usip_tpu.cli``; the checkpoint is a
-reference-named detector ``state_dict`` (``.pth``).
+reference-named detector ``state_dict`` (``.pth``): the SOM family
+(``first_pointnet.*``) under the presets as they are, the grouped family
+(``conv1..5``, e.g. the released Oxford ball model) with
+``detector.grouping=ball`` or ``knn``.
 """
 
 from __future__ import annotations

@@ -1,9 +1,10 @@
 """Keypoint inference over raw numpy clouds (port of ``usip_tpu/inference.py``).
 
-Loads the detector once, subsamples each cloud to the configured fixed size,
-samples nodes on the device (random subset + FPS kernel), runs the eval
-forward with the fusion stack on the fused chain kernel, and selects
-keypoints on the host exactly like the export tool.
+Loads the detector once (either trunk family: SOM, or the grouped knn/ball
+trunk), subsamples each cloud to the configured fixed size, samples nodes on
+the device (random subset + FPS kernel), runs the eval forward with the
+fusion stack on the fused chain kernel, and selects keypoints on the host
+exactly like the export tool.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ from usip_tpu_torch.models.detector import Detector
 from usip_tpu_torch.models.fused_infer import detector_infer_fused
 from usip_tpu_torch.ops.kernels import fusion_chain_params
 from usip_tpu_torch.ops.sampling import sample_nodes
-from usip_tpu_torch.weights import load_detector_weights
+from usip_tpu_torch.weights import detector_family, load_detector_weights
 
 
 def resolve_device(device) -> torch.device:
@@ -46,9 +47,17 @@ class KeypointPipeline:
         self.cfg = cfg
         self._rng = np.random.default_rng(seed)
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
+        sd = load_detector_weights(detector_checkpoint)
+        family = detector_family(sd)
+        if family != ("som" if cfg.detector.grouping == "som" else "group"):
+            raise ValueError(
+                f"{detector_checkpoint} holds a "
+                f"{'grouped (knn/ball)' if family == 'group' else 'som'} "
+                "detector but the config's detector.grouping is "
+                f"{cfg.detector.grouping!r}; the released Oxford model is "
+                "detector.grouping=ball")
         det = Detector(cfg.detector)
-        det.load_state_dict(load_detector_weights(detector_checkpoint),
-                            strict=True)
+        det.load_state_dict(sd, strict=True)
         self.detector = det.to(self.device).eval()
         ws, bs = fusion_chain_params(self.detector.knnlayer_1)
         self._chain = (tuple(w.to(torch.bfloat16) for w in ws), bs)

@@ -1,13 +1,22 @@
-"""USIP keypoint detector, SOM grouping (port of ``usip_tpu/models/detector.py``).
+"""USIP keypoint detector (port of ``usip_tpu/models/detector.py``), eval
+mode, with both trunk families:
+
+* ``som``: point->node assignment and scatter-max pooling (the reference's
+  ``RPN_Detector``; module names ``first_pointnet.layers.{i}``,
+  ``second_pointnet.layers.{i}``);
+* ``knn`` / ``ball``: a fixed-size neighbourhood of each node, by kNN or by a
+  natural-order ball query, through ``conv1..conv5`` (the reference's
+  ``RPN_Detector_KNN`` / ``RPN_Detector_Ball``, whose ``conv{i}`` weights are
+  ``(O, I, 1, 1)``; the released Oxford model is ``ball``, radius 2, K 64).
+
+Both share the kNN-fusion layer (``knnlayer_1.layers_before|after.{i}``) and
+the head (``mlp{1,2,3}``). With the reference's names, a reference
+``state_dict`` loads with ``strict=True``.
 
 Channels-last: pc ``(B, N, 3)``, sn ``(B, N, S)``, nodes ``(B, M, 3)``.
-Outputs: anchors (the recomputed nodes) ``(B, M, 3)``, keypoints ``(B, M, 3)``,
-sigmas ``(B, M)``.
-
-Module and parameter names are the reference ``RPN_Detector``'s
-(``first_pointnet.layers.{i}``, ``second_pointnet.layers.{i}``,
-``knnlayer_1.layers_before|after.{i}``, ``mlp{1,2,3}``), so a reference
-``state_dict`` loads with ``strict=True``. Eval mode only.
+Outputs: anchors ``(B, M, 3)`` (the recomputed nodes of the SOM trunk, the
+nodes themselves for the grouped trunks), keypoints ``(B, M, 3)``, sigmas
+``(B, M)``.
 """
 
 from __future__ import annotations
@@ -19,9 +28,9 @@ from torch import nn
 
 from usip_tpu_torch.config import DetectorConfig
 from usip_tpu_torch.nn.layers import PointwiseLayer, SharedMLP
-from usip_tpu_torch.ops import (assign_points_to_nodes, gather_points, knn,
-                                masked_scatter_max, scatter_back,
-                                segment_mean_count)
+from usip_tpu_torch.ops import (assign_points_to_nodes, ball_query,
+                                gather_points, knn, masked_scatter_max,
+                                scatter_back, segment_mean_count)
 
 Tensor = torch.Tensor
 
@@ -78,23 +87,35 @@ class KNNFusionOnNodes(nn.Module):
 
 
 class Detector(nn.Module):
-    """USIP keypoint detector with the SOM trunk (``RPN_Detector``)."""
+    """USIP keypoint detector; the trunk family is ``cfg.grouping``."""
 
     def __init__(self, cfg: DetectorConfig):
         super().__init__()
-        if cfg.grouping != "som":
-            raise NotImplementedError(
-                f"grouping {cfg.grouping!r}: only the som trunk is ported")
-        if cfg.k != 1:
+        if cfg.grouping not in ("som", "knn", "ball"):
+            raise ValueError(f"unknown grouping {cfg.grouping!r}")
+        if cfg.grouping == "som" and cfg.k != 1:
             raise NotImplementedError("only k=1 point->node assignment is "
                                       "wired into the som trunk")
+        if cfg.grouping != "som" and cfg.group_method != "exact":
+            raise NotImplementedError(
+                f"group_method {cfg.group_method!r} selects with "
+                "lax.approx_min_k, which has no torch analog; use 'exact'")
         self.cfg = cfg
         dt = compute_dtype(cfg)
         act, norm = cfg.activation, cfg.normalization
         c1, c2 = cfg.c1, cfg.c2
-        self.first_pointnet = SharedMLP(3 + cfg.surface_normal_len,
-                                        (c1 // 2,) * 3, act, norm, dt)
-        self.second_pointnet = SharedMLP(c1, (c1, c1), act, norm, dt)
+        if cfg.grouping == "som":
+            self.first_pointnet = SharedMLP(3 + cfg.surface_normal_len,
+                                            (c1 // 2,) * 3, act, norm, dt)
+            self.second_pointnet = SharedMLP(c1, (c1, c1), act, norm, dt)
+        else:
+            # conv1..3: [xyz - node, sn] -> c1/2; conv4 over (h, h_max)
+            # -> c1; conv5 c1 -> c1; every layer with norm and activation
+            cin = 3 + cfg.surface_normal_len
+            for i, cout in enumerate((c1 // 2,) * 3 + (c1, c1)):
+                setattr(self, f"conv{i + 1}", PointwiseLayer(
+                    cin, cout, act, norm, dt, kernel_dims=2))
+                cin = 2 * cout if i == 2 else cout
         self.knnlayer_1 = KNNFusionOnNodes(3 + c1, (c2 // 2,) * 3, (c2, c2),
                                            cfg.node_knn_k, act, norm, dt)
         # the head runs in fp32 whatever the compute dtype
@@ -102,6 +123,14 @@ class Detector(nn.Module):
         self.mlp2 = PointwiseLayer(512, 256, act, norm)
         self.mlp3 = PointwiseLayer(256, 4, None, None)
         nn.init.normal_(self.mlp3.conv.weight, std=HEAD_INIT_STD)
+
+    def trunk(self, pc: Tensor, sn: Tensor, node: Tensor
+              ) -> Tuple[Tensor, Tensor]:
+        """The trunk of ``cfg.grouping``: anchors ``(B, M, 3)`` and node
+        features ``(B, M, C1)`` fp32."""
+        if self.cfg.grouping == "som":
+            return self.som_trunk(pc, sn, node)
+        return self.group_trunk(pc, sn, node)
 
     def som_trunk(self, pc: Tensor, sn: Tensor, node: Tensor
                   ) -> Tuple[Tensor, Tensor]:
@@ -125,6 +154,35 @@ class Detector(nn.Module):
         n2 = masked_scatter_max(f2, ids, m) * occ
         return cluster_mean, n2
 
+    def group_indices(self, pc: Tensor, node: Tensor) -> Tensor:
+        """Each node's neighbourhood ``(B, M, group_k)`` int32: its kNN in
+        the cloud, or the first ``group_k`` points within ``group_radius``
+        in index order (the ball detector scans the cloud unpermuted)."""
+        cfg = self.cfg
+        if cfg.grouping == "knn":
+            return knn(node, pc, cfg.group_k)[1]
+        return ball_query(pc, node, cfg.group_radius, cfg.group_k).idx
+
+    def group_features(self, pc: Tensor, sn: Tensor, node: Tensor,
+                       idx: Tensor) -> Tensor:
+        """Gather ``[pc, sn]`` at ``idx``, decentre the xyz on the node, then
+        conv1..3, the split-kernel conv4 over ``(h, h_max)``, conv5 and a
+        max over the neighbourhood -> ``(B, M, C1)`` fp32."""
+        x_aug = (torch.cat([pc, sn], dim=-1) if self.cfg.surface_normal_len
+                 else pc)
+        g = gather_points(x_aug, idx)                          # (B, M, K, C0)
+        g = torch.cat([g[..., 0:3] - node[:, :, None, :], g[..., 3:]], dim=-1)
+        h = self.conv3(self.conv2(self.conv1(g)))
+        y = (h, h.amax(dim=-2, keepdim=True))  # virtual concat [h, h_max]
+        y = self.conv5(self.conv4(y))
+        return y.amax(dim=-2).float()
+
+    def group_trunk(self, pc: Tensor, sn: Tensor, node: Tensor
+                    ) -> Tuple[Tensor, Tensor]:
+        """kNN/ball trunk: anchors are the nodes themselves."""
+        return node, self.group_features(pc, sn, node,
+                                         self.group_indices(pc, node))
+
     def keypoint_head(self, feature: Tensor, anchors: Tensor
                       ) -> Tuple[Tensor, Tensor]:
         """The reference's KeypointHead: mlp1 -> mlp2 -> mlp3 giving keypoint
@@ -137,7 +195,7 @@ class Detector(nn.Module):
 
     def forward(self, pc: Tensor, sn: Tensor, node: Tensor
                 ) -> Tuple[Tensor, Tensor, Tensor]:
-        anchors, feat = self.som_trunk(pc, sn, node)
+        anchors, feat = self.trunk(pc, sn, node)
         knn_feature = self.knnlayer_1(anchors, anchors, feat)
         keypoints, sigmas = self.keypoint_head(
             torch.cat([feat, knn_feature], dim=-1), anchors)

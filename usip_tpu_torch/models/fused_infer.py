@@ -1,9 +1,11 @@
 """Eval-mode detector forward with the kNN-fusion stack on the fused chain
 kernel (port of ``usip_tpu/models/fused_infer.py``).
 
-The SOM trunk and the head are the ``Detector``'s own modules; the fusion
-stack's five dense layers run in ``ops.kernels.fusion_chain`` with BatchNorm
-folded into the weights. This is the port's serving forward.
+The trunk (SOM, knn or ball) and the head are the ``Detector``'s own
+modules; the fusion stack's five dense layers run in
+``ops.kernels.fusion_chain`` with BatchNorm folded into the weights, for
+every trunk family (usip_tpu's fused path is SOM-only because it replays the
+SOM trunk by name). This is the port's serving forward.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ def detector_infer_fused(det: Detector, pc: Tensor, sn: Tensor, node: Tensor,
     if det.training:
         raise ValueError("detector_infer_fused is the eval forward; call "
                          "det.eval() first")
-    anchors, feat = det.som_trunk(pc, sn, node)
+    anchors, feat = det.trunk(pc, sn, node)
     grouped = knn_group(anchors, anchors, feat, det.cfg.node_knn_k)
     ws, bs = chain if chain is not None else fusion_chain_params(det.knnlayer_1)
     knn_feature = fusion_chain(grouped.contiguous(), ws, bs)

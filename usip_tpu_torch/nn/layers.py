@@ -87,9 +87,14 @@ class PointwiseLayer(nn.Module):
     """Dense + optional BatchNorm + optional activation over the channel axis.
 
     ``dtype`` is the matmul compute dtype (None = fp32); parameters stay fp32.
-    ``forward`` also takes a pair ``(h_max (..., 1, C), h (..., K, C))``, the
-    virtual concatenation ``[h_max, h]`` of the split-kernel layer: the
-    kernel's first C rows act on the max once, the rest on each neighbour.
+    ``forward`` also takes a tuple of parts, the virtual concatenation of the
+    split-kernel layer in the tuple's order: the kernel's rows are cut at the
+    parts' widths, each block acting on its part, and a part of one row
+    (``(..., 1, C)``, the max over K) broadcasts over the K neighbours. The
+    kNN-fusion layer passes ``(h_max, h)`` (concat ``[h_max, h]``), the
+    grouped trunk's conv4 ``(h, h_max)`` (concat ``[h, h_max]``); the order
+    must be the reference's, since a flipped order loads the same weights
+    and computes something else.
     """
 
     def __init__(self, cin: int, cout: int, activation: Optional[str] = "relu",

@@ -45,15 +45,16 @@ def pairwise_sqdist(a: Tensor, b: Tensor, *, round_bf16: bool = False) -> Tensor
 
 
 def knn(query: Tensor, database: Tensor, k: int):
-    """k nearest neighbours of each query row: ``(sqdists, indices)``, each
-    ``(..., M, k)``, ascending by distance, ties to the lowest index.
+    """k nearest neighbours of each query row: ``(sqdists, indices int32)``,
+    each ``(..., M, k)``, ascending by distance, ties to the lowest index.
 
-    ``torch.topk`` documents no tie order, so this takes the first k of a
-    stable sort, which matches ``lax.top_k``'s lowest-index rule.
+    The selection is ``ops.topk.smallest_k`` (the smallest-k kernel for CUDA
+    tensors): ``torch.topk`` documents no tie order, and ``lax.top_k`` breaks
+    ties toward the lowest index.
     """
-    sq = pairwise_sqdist(query, database)
-    vals, idx = torch.sort(sq, dim=-1, stable=True)
-    return vals[..., :k], idx[..., :k]
+    # imported here: ops.kernels imports this module
+    from usip_tpu_torch.ops.topk import smallest_k
+    return smallest_k(pairwise_sqdist(query, database), k)
 
 
 def gather_points(points: Tensor, idx: Tensor) -> Tensor:

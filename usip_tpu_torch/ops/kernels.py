@@ -26,12 +26,21 @@ from usip_tpu_torch.ops.geometry import pairwise_sqdist
 
 Tensor = torch.Tensor
 
-LAUNCHES = {"fps": 0, "min_argmin": 0, "fusion_chain": 0}
+LAUNCHES = {"fps": 0, "min_argmin": 0, "fusion_chain": 0, "smallest_k": 0,
+            "scatter_max": 0}
 
 # the largest dynamic shared memory one block may take on Hopper
 _MAX_SMEM = 232448
 # rows (nodes x neighbours) one fusion-chain block keeps in shared memory
 _CHAIN_ROWS = 64
+# the longest row the smallest-k kernel keeps in shared memory (fp32), with
+# room left for the block's static reduction buffers
+SMALLEST_K_MAX_N = (_MAX_SMEM - 1024) // 4
+# row length that the smallest-k contract pads to (the TPU's lane width):
+# picks past the row's end, up to this padding, are clamped to N-1
+_LANES = 128
+# channels one scatter-max block accumulates (csrc/scatter_max.cu kTile)
+_SCATTER_TILE = 8
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -43,6 +52,10 @@ _SIGNATURES = {
     # x, w1, b1, w2, b2, w3, b3, w4m, w4h, b4, w5, b5, out,
     # BM, K, Cin, C, C2, stream
     "fusion_chain": ("usip_fusion_chain", [_P] * 13 + [_I] * 5 + [_P]),
+    # scores, vals, idx, rows, N, k, stream
+    "smallest_k": ("usip_smallest_k", [_P, _P, _P, _I, _I, _I, _P]),
+    # f, ids, out, B, N, M, C, stream
+    "scatter_max": ("usip_scatter_max", [_P, _P, _P, _I, _I, _I, _I, _P]),
 }
 _FNS = {}
 
@@ -303,4 +316,124 @@ def fusion_chain(grouped: Tensor, weights, biases) -> Tensor:
                 ws[3].data_ptr(), ws[4].data_ptr(), bs[3].data_ptr(),
                 ws[5].data_ptr(), bs[4].data_ptr(), out.data_ptr(),
                 b * m, k, cin, c, c2)
+    return out
+
+
+# ------------------------------------------------------------- smallest-k --
+
+def _check_k(n: int, k: int) -> None:
+    if n < 1:
+        raise ValueError("smallest_k: rows must hold at least one entry")
+    padded = -(-n // _LANES) * _LANES
+    if not 1 <= k <= padded:
+        raise ValueError(f"smallest_k: k={k} must lie in [1, {padded}] (N={n} "
+                         f"rounded up to {_LANES})")
+
+
+def smallest_k_plain(scores: Tensor, k: int) -> Tuple[Tensor, Tensor]:
+    """The k smallest entries of the last axis: ``(values ascending fp32,
+    indices int32)``, each ``(..., k)``.
+
+    The contract of ``pallas_kernels.smallest_k_pallas``: ties go to the
+    lowest index; non-finite entries (+inf, -inf, NaN) are absent and come
+    after every finite one, in ascending index order, with value +inf; picks
+    past the row's end (k > N, up to N rounded up to 128) get index N-1 and
+    value +inf. A stable sort of the fp32 scores with the non-finite entries
+    set to +inf, then the first k.
+    """
+    n = scores.shape[-1]
+    _check_k(n, k)
+    s = scores.float()
+    s = torch.where(torch.isfinite(s), s, torch.inf)
+    vals, idx = torch.sort(s, dim=-1, stable=True)
+    vals, idx = vals[..., :k], idx[..., :k].int()
+    if k > n:
+        pad = tuple(vals.shape[:-1]) + (k - n,)
+        vals = torch.cat([vals, vals.new_full(pad, torch.inf)], dim=-1)
+        idx = torch.cat([idx, idx.new_full(pad, n - 1)], dim=-1)
+    return vals, idx
+
+
+def smallest_k(scores: Tensor, k: int) -> Tuple[Tensor, Tensor]:
+    """Exact k smallest of each row of ``scores (..., N)`` fp32; kernel
+    ``csrc/smallest_k.cu`` for CUDA tensors (counterpart of
+    ``pallas_kernels.smallest_k_pallas``): one block per row, the row in
+    shared memory, k rounds of a block-wide argmin. Same contract and
+    results as ``smallest_k_plain``; rows longer than ``SMALLEST_K_MAX_N``
+    do not fit one block and raise."""
+    if scores.device.type == "cpu":
+        return smallest_k_plain(scores, k)
+    dev = _cuda_device(scores, "scores")
+    if scores.dim() < 1:
+        raise ValueError("smallest_k: scores must have a last axis")
+    n = scores.shape[-1]
+    _check(scores, "scores", torch.float32, scores.shape, dev)
+    _check_k(n, k)
+    if n > SMALLEST_K_MAX_N:
+        raise ValueError(f"smallest_k: rows of N={n} do not fit one block's "
+                         f"shared memory (at most {SMALLEST_K_MAX_N})")
+    shape = tuple(scores.shape[:-1]) + (k,)
+    vals = torch.empty(shape, dtype=torch.float32, device=dev)
+    idx = torch.empty(shape, dtype=torch.int32, device=dev)
+    rows = scores.numel() // n
+    if rows:
+        _launch("smallest_k", dev, scores.data_ptr(), vals.data_ptr(),
+                idx.data_ptr(), rows, n, k)
+    return vals, idx
+
+
+class SmallestK(torch.autograd.Function):
+    """``smallest_k`` of any float dtype (taken as fp32), differentiable in
+    the values: the backward scatters the value cotangent onto the selected
+    positions and returns it in the primal dtype, the custom VJP of
+    ``pallas_kernels.smallest_k_pallas``. The indices carry no gradient."""
+
+    @staticmethod
+    def forward(ctx, scores: Tensor, k: int):
+        vals, idx = smallest_k(scores.float().contiguous(), k)
+        ctx.save_for_backward(idx)
+        ctx.shape, ctx.dtype = scores.shape, scores.dtype
+        ctx.mark_non_differentiable(idx)
+        return vals, idx
+
+    @staticmethod
+    def backward(ctx, g_vals, _g_idx):
+        (idx,) = ctx.saved_tensors
+        grad = torch.zeros(ctx.shape, dtype=torch.float32, device=idx.device)
+        grad.scatter_add_(-1, idx.long(), g_vals.float())
+        return grad.to(ctx.dtype), None
+
+
+# ------------------------------------------------------------ scatter-max --
+
+def scatter_max_plain(f: Tensor, ids: Tensor, m: int) -> Tensor:
+    """Per-node channel max of point features: ``f (B, N, C)``, ``ids (B, N)``
+    int64 in ``[0, m)`` -> ``(B, m, C)``; a node no point maps to is 0."""
+    b, _, c = f.shape
+    out = torch.zeros((b, m, c), dtype=f.dtype, device=f.device)
+    return out.scatter_reduce(1, ids[..., None].expand(*ids.shape, c), f,
+                              "amax", include_self=False)
+
+
+def scatter_max(f: Tensor, ids: Tensor, m: int) -> Tensor:
+    """Masked scatter-max onto nodes; kernel ``csrc/scatter_max.cu`` for CUDA
+    tensors (counterpart of ``scripts/bench_scatter_pallas.py
+    scatter_max_pallas``): one block per (cloud, 8 channels) with the node
+    accumulator in shared memory. ``f`` fp32, ``ids`` int64; an id outside
+    ``[0, m)`` fails a device assertion."""
+    if f.device.type == "cpu":
+        return scatter_max_plain(f, ids, m)
+    dev = _cuda_device(f, "f")
+    if f.dim() != 3:
+        raise ValueError(f"f has shape {tuple(f.shape)}, expected (B, N, C)")
+    b, n, c = f.shape
+    _check(f, "f", torch.float32, (b, n, c), dev)
+    _check(ids, "ids", torch.int64, (b, n), dev)
+    if m < 1 or 4 * _SCATTER_TILE * m > _MAX_SMEM:
+        raise ValueError(f"scatter_max: M={m} nodes must be >= 1 and fit one "
+                         "block's shared memory")
+    out = torch.empty((b, m, c), dtype=torch.float32, device=dev)
+    if b and c:
+        _launch("scatter_max", dev, f.data_ptr(), ids.data_ptr(),
+                out.data_ptr(), b, n, m, c)
     return out

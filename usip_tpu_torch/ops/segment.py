@@ -1,7 +1,9 @@
 """Scatter/segment reductions onto nodes (port of ``usip_tpu/ops/segment.py``).
 
-The reference package has no Pallas kernel here; these are plain PyTorch
-scatters (``scatter_reduce``/``scatter_add``/gather).
+The masked scatter-max is the scatter-max kernel (``ops.kernels.scatter_max``,
+the counterpart of ``scripts/bench_scatter_pallas.py scatter_max_pallas``) for
+CUDA tensors; the sums and gathers are plain PyTorch
+(``scatter_add``/gather).
 """
 
 from __future__ import annotations
@@ -9,6 +11,8 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+
+from usip_tpu_torch.ops import kernels
 
 Tensor = torch.Tensor
 
@@ -19,11 +23,9 @@ def _expand(ids: Tensor, c: int) -> Tensor:
 
 def masked_scatter_max(f: Tensor, ids: Tensor, num_segments: int) -> Tensor:
     """Per-node channel max of point features, the ``fast`` semantics:
-    ``f (B, N, C)``, ``ids (B, N)`` -> ``(B, M, C)``; empty nodes are 0."""
-    b, _, c = f.shape
-    out = torch.zeros((b, num_segments, c), dtype=f.dtype, device=f.device)
-    return out.scatter_reduce(1, _expand(ids, c), f, "amax",
-                              include_self=False)
+    ``f (B, N, C)``, ``ids (B, N)`` int64 -> ``(B, M, C)``; empty nodes are
+    0. Forward only."""
+    return kernels.scatter_max(f, ids, num_segments)
 
 
 def segment_mean_count(x: Tensor, ids: Tensor, num_segments: int,

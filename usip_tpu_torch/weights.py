@@ -1,7 +1,8 @@
 """Detector weights: reference-named ``state_dict``s for the port.
 
 * ``state_dict_from_jax`` maps a usip_tpu variables tree (as numpy arrays,
-  ``{'params': ..., 'batch_stats': ...}``) onto the port's ``state_dict``;
+  ``{'params': ..., 'batch_stats': ...}``) of either trunk family onto the
+  port's ``state_dict``;
 * ``load_detector_weights`` reads a reference ``.pth`` (what the reference
   saves, ``<epoch>_net_detector.pth``);
 * ``seeded_state_dict`` makes random weights from a seed, with nontrivial
@@ -17,13 +18,8 @@ import torch
 
 from usip_tpu_torch.config import DetectorConfig
 
-# (reference module path, usip_tpu module, usip_tpu layer, conv kernel dims)
-DETECTOR_LAYOUT = (
-    ("first_pointnet.layers.0", "first_pointnet", "layer0", 1),
-    ("first_pointnet.layers.1", "first_pointnet", "layer1", 1),
-    ("first_pointnet.layers.2", "first_pointnet", "layer2", 1),
-    ("second_pointnet.layers.0", "second_pointnet", "layer0", 1),
-    ("second_pointnet.layers.1", "second_pointnet", "layer1", 1),
+# the kNN-fusion layer and the head, shared by both trunk families
+_SHARED_LAYOUT = (
     ("knnlayer_1.layers_before.0", "knnlayer", "before0", 2),
     ("knnlayer_1.layers_before.1", "knnlayer", "before1", 2),
     ("knnlayer_1.layers_before.2", "knnlayer", "before2", 2),
@@ -33,30 +29,56 @@ DETECTOR_LAYOUT = (
     ("mlp2", "head", "mlp2", 1),
     ("mlp3", "head", "mlp3", 1),
 )
+# (reference module path, usip_tpu module, usip_tpu layer or None for a
+# top-level layer, conv kernel dims): RPN_Detector's SOM trunk ...
+DETECTOR_LAYOUT = (
+    ("first_pointnet.layers.0", "first_pointnet", "layer0", 1),
+    ("first_pointnet.layers.1", "first_pointnet", "layer1", 1),
+    ("first_pointnet.layers.2", "first_pointnet", "layer2", 1),
+    ("second_pointnet.layers.0", "second_pointnet", "layer0", 1),
+    ("second_pointnet.layers.1", "second_pointnet", "layer1", 1),
+) + _SHARED_LAYOUT
+# ... and RPN_Detector_KNN / RPN_Detector_Ball's grouped trunk conv1..5,
+# whose state_dict keys are identical for knn and ball
+GROUP_DETECTOR_LAYOUT = tuple(
+    (f"conv{i}", f"conv{i}", None, 2) for i in range(1, 6)) + _SHARED_LAYOUT
 
 
 def state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
-    """usip_tpu SOM-detector variables -> the port's ``state_dict``."""
+    """usip_tpu detector variables -> the port's ``state_dict``. The trunk
+    family (SOM, or the grouped knn/ball trunk) is read from the tree, as
+    ``usip_tpu.train.torch_import.export_detector_state_dict`` does."""
     params = variables["params"]
     stats = variables.get("batch_stats", {})
+    layout = (DETECTOR_LAYOUT if "first_pointnet" in params
+              else GROUP_DETECTOR_LAYOUT)
     out: Dict[str, torch.Tensor] = {}
-    for src, module, layer, dims in DETECTOR_LAYOUT:
-        p = params[module][layer]
+    for src, module, layer, dims in layout:
+        p = params[module] if layer is None else params[module][layer]
         kern = np.asarray(p["dense"]["kernel"], np.float32).T
         out[f"{src}.conv.weight"] = torch.tensor(
             kern.reshape(kern.shape + (1,) * dims))
         out[f"{src}.conv.bias"] = torch.tensor(
             np.asarray(p["dense"]["bias"], np.float32))
         if "norm" in p:
-            s = stats[module][layer]["norm"]
+            s = (stats[module] if layer is None else stats[module][layer])
             for key, value in (("weight", p["norm"]["scale"]),
                                ("bias", p["norm"]["bias"]),
-                               ("running_mean", s["mean"]),
-                               ("running_var", s["var"])):
+                               ("running_mean", s["norm"]["mean"]),
+                               ("running_var", s["norm"]["var"])):
                 out[f"{src}.norm.{key}"] = torch.tensor(
                     np.asarray(value, np.float32))
             out[f"{src}.norm.num_batches_tracked"] = torch.tensor(0)
     return out
+
+
+def detector_family(state_dict: Mapping) -> str:
+    """``'som'`` for an RPN_Detector ``state_dict``, ``'group'`` for the
+    RPN_Detector_KNN / RPN_Detector_Ball family (``conv1..5``; knn and ball
+    have the same keys, the config's ``detector.grouping`` tells them
+    apart)."""
+    return "group" if f"{GROUP_DETECTOR_LAYOUT[0][0]}.conv.weight" in \
+        state_dict else "som"
 
 
 def load_detector_weights(path: str) -> Dict[str, torch.Tensor]:
