@@ -20,12 +20,17 @@ script exits nonzero without the final ``ok`` line:
    drives ``KeypointPipeline.detect`` in process on each path (SOM, ball,
    knn), with the kernel launch counts reset before and read after each, and
    checks the kernels each path must launch;
-5. times each kernel against its plain version, the stages of the batch-8
-   forwards, detect clouds/s with the bench protocol (bf16 presets) and the
-   ball path's peak memory.
+5. times each kernel against its plain version and, where one PyTorch call
+   computes the same function, that call (``torch.topk`` for smallest-k,
+   ``scatter_reduce`` for scatter-max: yardsticks the port never calls),
+   computes each kernel's bound from its shapes and the card's published
+   peaks, times the stages of the batch-8 forwards, detect clouds/s with
+   the bench protocol (bf16 presets) and the ball path's peak memory.
 
-The second-to-last line is a JSON object with one entry per kernel; the last
-is ``{"ok": true, "device": {...}}``.
+The second-to-last line is a JSON object with one entry per kernel (time,
+plain and library times, bound, launches); the last is ``{"ok": true,
+"device": {...}}``. The script imports nothing of JAX or of ``usip_tpu`` and
+checks that at its end.
 """
 
 import json
@@ -54,6 +59,47 @@ from usip_tpu_torch.weights import seeded_state_dict  # noqa: E402
 
 B_BENCH = 8
 SEED = 0
+# published peaks of an H100 SXM (NVIDIA's data sheet, dense, at 700 W):
+# device memory bytes/s, bf16 tensor-core and fp32 FLOP/s
+HBM_BPS, BF16_FLOPS, FP32_FLOPS = 3.35e12, 989e12, 67e12
+
+
+def bound(nbytes, flops, peak):
+    """The least time in ms the card could take: the larger of the bytes
+    moved (each input read once, each output written once) over the memory
+    rate and the operations over their peak; and which of the two sets it."""
+    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, flops / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def kernel_bounds(c1, c2, k_node):
+    """Each kernel's bound at the shapes phase 5 times (batch 8)."""
+    b, s, kf, n, m = B_BENCH, 2048, 512, 16384, 512
+    c, cin = c2 // 2, 3 + c1
+    rows = b * m * k_node
+    chain_flops = 2 * rows * (cin * c + 2 * c * c + c * c2 + c2 * c2) \
+        + 2 * b * m * c * c2  # the per-node side term of after0
+    chain_bytes = rows * cin * 4 + b * m * c2 * 4 + 2 * (
+        cin * c + 2 * c * c + 2 * c * c2 + c2 * c2)
+    return {
+        # 8 FLOP per point and step (3 differences, 3 squares, 2 sums)
+        "fps": bound(b * s * 12 + b * 4 + b * kf * 4,
+                     8 * b * (kf - 1) * s, FP32_FLOPS),
+        # p.n (5) and p^2 - 2 p.n + n^2 (2 more), the compare: 8 per pair
+        "min_argmin": bound(b * n * 12 + b * m * 12 + b * n * 8,
+                            8 * b * n * m, FP32_FLOPS),
+        "fusion_chain": bound(chain_bytes, chain_flops, BF16_FLOPS),
+        # the (8, 512, 16384) scores read once, k=64 values and indices
+        "smallest_k": bound(b * m * n * 4 + b * m * 64 * 8, 0, FP32_FLOPS),
+        # both calls of a SOM forward, C=64 and C=128, onto 512 nodes
+        "scatter_max": bound(sum(b * n * cc * 4 + b * n * 8 + b * m * cc * 4
+                                 for cc in (64, 128)), 0, FP32_FLOPS),
+    }
+
+
+# K4 at the node kNN's (8, 512, 512) k=16
+KNN_BOUND = bound(B_BENCH * 512 * 512 * 4 + B_BENCH * 512 * 16 * 8, 0,
+                  FP32_FLOPS)
 # the kernels each main path must launch
 PATH_KERNELS = {
     "som": ("fps", "min_argmin", "scatter_max", "fusion_chain", "smallest_k"),
@@ -85,6 +131,34 @@ def time_ms(fn, iters, warmup=2):
     end.record()
     sync()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters, replays=5):
+    """Mean device time of ``fn``: ``iters`` calls captured in one CUDA
+    graph, replayed ``replays`` times between CUDA events. Without the
+    host's launch cost, which back-to-back timing of a short kernel
+    (``time_ms``) measures instead."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    sync()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    sync()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    sync()
+    return start.elapsed_time(end) / (replays * iters)
 
 
 def kitti_cloud(rng, b, n):
@@ -214,14 +288,18 @@ def phase2(cfg):
     # K3: (8, 512, 16, 131) with the seeded detector's folded weights
     det = seeded_detector(cfg, dev)
     ws, bs = kernels.fusion_chain_params(det.knnlayer_1)
+    chain = kernels.prepare_chain(ws, bs)
     c1 = cfg.detector.c1
     grouped = np.concatenate(
         [rng.normal(0, 5, size=(B_BENCH, 512, 16, 3)),
          np.abs(rng.normal(size=(B_BENCH, 512, 16, c1)))], -1)
     grouped = torch.from_numpy(grouped.astype(np.float32)).to(dev)
-    got = kernels.fusion_chain(grouped, ws, bs)
+    got = kernels.fusion_chain(grouped, chain)
     ref = kernels.fusion_chain_plain(grouped, ws, bs)
     sync()
+    for w, u in zip(ws, kernels.unpack_chain(chain)):
+        check(torch.equal(u, w.to(torch.bfloat16)), "packed chain weights "
+              "read back as the folded bf16 weights")
     scale = float(ref.abs().max())
     err = (got - ref).abs()
     print(f"[2] K3 fusion_chain: (8, 512, 16, {3 + c1}) -> (8, 512, "
@@ -465,38 +543,58 @@ def phase5(pipes, card):
     rng = np.random.default_rng(4)
     times = {}
     kitti = get_config("kitti")
+    bounds = kernel_bounds(kitti.detector.c1, kitti.detector.c2,
+                           kitti.detector.node_knn_k)
 
     pts = torch.from_numpy(kitti_cloud(rng, B_BENCH, 2048)[0]).to(dev)
     first = torch.from_numpy(rng.integers(0, 2048, B_BENCH).astype(
         np.int32)).to(dev)
-    times["fps"] = (time_ms(lambda: kernels.fps(pts, first, 512), 50),
+    # kernels and library calls: CUDA-graph replay (device time), with the
+    # back-to-back event time beside it in `events`; plain versions:
+    # back-to-back events
+    events = {}
+    times["fps"] = (graph_ms(lambda: kernels.fps(pts, first, 512), 20),
                     time_ms(lambda: kernels.fps_plain(pts, first, 512), 3))
+    events["fps"] = time_ms(lambda: kernels.fps(pts, first, 512), 50)
 
     pc = torch.from_numpy(kitti_cloud(rng, B_BENCH, 16384)[0]).to(dev)
     nodes = pc[:, :512].contiguous()
     times["min_argmin"] = (
-        time_ms(lambda: kernels.min_argmin(pc, nodes, True), 50),
+        graph_ms(lambda: kernels.min_argmin(pc, nodes, True), 50),
         time_ms(lambda: kernels.min_argmin_plain(pc, nodes, True), 10))
+    events["min_argmin"] = time_ms(
+        lambda: kernels.min_argmin(pc, nodes, True), 50)
 
-    ws, bs = pipes["som"]._chain
+    chain = pipes["som"]._chain
     grouped = torch.from_numpy(np.abs(rng.normal(
         size=(B_BENCH, 512, 16, 3 + kitti.detector.c1))).astype(
             np.float32)).to(dev)
     times["fusion_chain"] = (
-        time_ms(lambda: kernels.fusion_chain(grouped, ws, bs), 20),
-        time_ms(lambda: kernels.fusion_chain_plain(grouped, ws, bs), 5))
+        graph_ms(lambda: kernels.fusion_chain(grouped, chain), 20),
+        time_ms(lambda: kernels.fusion_chain_plain(grouped, *chain[:2]), 5))
+    events["fusion_chain"] = time_ms(
+        lambda: kernels.fusion_chain(grouped, chain), 50)
 
     # K4 at the ball selection's shape (the JSON line's time) and at the
     # node kNN's
     opc = torch.from_numpy(oxford_cloud(rng, B_BENCH, 16384)[0]).to(dev)
+    # torch.topk is the one PyTorch call for the same selection: a
+    # yardstick only (the port never calls it; it documents no tie order)
     scores = ball_scores(opc, opc[:, :512].contiguous(), 2.0)
     times["smallest_k"] = (
-        time_ms(lambda: kernels.smallest_k(scores, 64), 20),
+        graph_ms(lambda: kernels.smallest_k(scores, 64), 20),
         time_ms(lambda: kernels.smallest_k_plain(scores, 64), 3))
+    events["smallest_k"] = time_ms(lambda: kernels.smallest_k(scores, 64),
+                                   50)
+    library = {"smallest_k": graph_ms(lambda: torch.topk(
+        scores, 64, dim=-1, largest=False, sorted=True), 20)}
     del scores
     nd = pairwise_sqdist(opc[:, :512], opc[:, :512])
-    knn_ms = (time_ms(lambda: kernels.smallest_k(nd, 16), 50),
-              time_ms(lambda: kernels.smallest_k_plain(nd, 16), 20))
+    knn_ms = (graph_ms(lambda: kernels.smallest_k(nd, 16), 50),
+              time_ms(lambda: kernels.smallest_k_plain(nd, 16), 20),
+              graph_ms(lambda: torch.topk(nd, 16, dim=-1, largest=False,
+                                          sorted=True), 50),
+              time_ms(lambda: kernels.smallest_k(nd, 16), 200))
     # K5 at both calls of one SOM forward, C=64 and C=128 (the JSON line
     # gives their sum)
     ids = torch.from_numpy(rng.integers(0, 512, size=(B_BENCH, 16384))).to(dev)
@@ -504,14 +602,26 @@ def phase5(pipes, card):
     for c in (64, 128):
         f = torch.from_numpy(rng.normal(size=(B_BENCH, 16384, c)).astype(
             np.float32)).to(dev)
-        k5[c] = (time_ms(lambda: kernels.scatter_max(f, ids, 512), 50),
-                 time_ms(lambda: kernels.scatter_max_plain(f, ids, 512), 20))
+        k5[c] = (graph_ms(lambda: kernels.scatter_max(f, ids, 512), 50),
+                 time_ms(lambda: kernels.scatter_max_plain(f, ids, 512), 20),
+                 graph_ms(lambda: kernels.scatter_max_plain(f, ids, 512), 20),
+                 time_ms(lambda: kernels.scatter_max(f, ids, 512), 50))
     times["scatter_max"] = (k5[64][0] + k5[128][0], k5[64][1] + k5[128][1])
+    events["scatter_max"] = k5[64][3] + k5[128][3]
+    # scatter_reduce('amax') is both K5's plain version and its library call
+    library["scatter_max"] = k5[64][2] + k5[128][2]
     for name, (k_ms, p_ms) in times.items():
-        print(f"[5] {card} | {name}: kernel {k_ms:.4f} ms, plain "
-              f"{p_ms:.4f} ms (batch 8, main-path shapes)", flush=True)
+        lib = library.get(name)
+        print(f"[5] {card} | {name}: kernel {k_ms:.4f} ms (back-to-back "
+              f"events {events[name]:.4f} ms), plain "
+              f"{p_ms:.4f} ms, library "
+              f"{'none' if lib is None else f'{lib:.4f} ms'}, bound "
+              f"{bounds[name][0]:.4f} ms by {bounds[name][1]} (batch 8, "
+              "main-path shapes)", flush=True)
     print(f"[5] {card} | smallest_k node kNN (8, 512, 512) k=16: kernel "
-          f"{knn_ms[0]:.4f} ms, plain {knn_ms[1]:.4f} ms; scatter_max "
+          f"{knn_ms[0]:.4f} ms (back-to-back events {knn_ms[3]:.4f} ms), "
+          f"plain {knn_ms[1]:.4f} ms, torch.topk "
+          f"{knn_ms[2]:.4f} ms, bound {KNN_BOUND[0]:.4f} ms; scatter_max "
           f"C=64 kernel {k5[64][0]:.4f} ms, plain {k5[64][1]:.4f} ms; C=128 "
           f"kernel {k5[128][0]:.4f} ms, plain {k5[128][1]:.4f} ms",
           flush=True)
@@ -529,7 +639,7 @@ def phase5(pipes, card):
         anchors, feat = det.som_trunk(pc8, sn8, node)
         grouped8 = knn_group(anchors, anchors, feat,
                              kitti.detector.node_knn_k)
-        knn_feat = kernels.fusion_chain(grouped8, ws, bs)
+        knn_feat = kernels.fusion_chain(grouped8, chain)
         agg = torch.cat([feat, knn_feat], -1)
         stages = {
             "sample_nodes": lambda: sample_nodes(
@@ -538,7 +648,7 @@ def phase5(pipes, card):
             "som_trunk": lambda: det.som_trunk(pc8, sn8, node),
             "knn_group": lambda: knn_group(anchors, anchors, feat,
                                            kitti.detector.node_knn_k),
-            "fusion_chain": lambda: kernels.fusion_chain(grouped8, ws, bs),
+            "fusion_chain": lambda: kernels.fusion_chain(grouped8, chain),
             "head": lambda: det.keypoint_head(agg, anchors),
         }
         parts = {k: time_ms(f, 20) for k, f in stages.items()}
@@ -571,7 +681,7 @@ def phase5(pipes, card):
     pc8 = torch.from_numpy(pc8_np).to(dev)
     sn8 = torch.from_numpy(sn8_np).to(dev)
     det = pipe.detector
-    ws, bs = pipe._chain
+    chain = pipe._chain
     with torch.inference_mode():
         node = sample_nodes(pc8, ox.data.node_num,
                             ox.data.fps_subsample_ratio, generator=pipe._gen)
@@ -579,7 +689,7 @@ def phase5(pipes, card):
         idx = ball_select(scores, gk).idx
         feat = det.group_features(pc8, sn8, node, idx)
         grouped8 = knn_group(node, node, feat, ox.detector.node_knn_k)
-        knn_feat = kernels.fusion_chain(grouped8, ws, bs)
+        knn_feat = kernels.fusion_chain(grouped8, chain)
         agg = torch.cat([feat, knn_feat], -1)
         stages = {
             "sample_nodes": lambda: sample_nodes(
@@ -590,7 +700,7 @@ def phase5(pipes, card):
             "gather_conv1_5": lambda: det.group_features(pc8, sn8, node, idx),
             "knn_group": lambda: knn_group(node, node, feat,
                                            ox.detector.node_knn_k),
-            "fusion_chain": lambda: kernels.fusion_chain(grouped8, ws, bs),
+            "fusion_chain": lambda: kernels.fusion_chain(grouped8, chain),
             "head": lambda: det.keypoint_head(agg, node),
         }
         parts = {k: time_ms(f, 20) for k, f in stages.items()}
@@ -603,7 +713,7 @@ def phase5(pipes, card):
         print(f"[5] {card} | detect {tag} (oxford) bf16 batch 8: {rate:.2f} "
               f"clouds/s ({ms:.3f} ms per batch, best of 3 x 50); peak "
               f"memory {peak:.0f} MiB", flush=True)
-    return times
+    return times, library, bounds, knn_ms, events
 
 
 def main():
@@ -617,12 +727,15 @@ def main():
     try:
         pipes, launches = phase4(tmp)
         sync()
-        times = phase5(pipes, card)
+        times, library, bounds, knn_ms, events = phase5(pipes, card)
         sync()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     check("jax" not in sys.modules and "flax" not in sys.modules,
           "no jax or flax imported")
+    ref = [m for m in sys.modules
+           if m == "usip_tpu" or m.startswith("usip_tpu.")]
+    check(not ref, f"nothing of the JAX package usip_tpu imported: {ref}")
     meta = {
         "fps": ("usip_tpu_torch/csrc/fps.cu",
                 "usip_tpu/ops/pallas_kernels.py:244"),
@@ -635,13 +748,24 @@ def main():
         "scatter_max": ("usip_tpu_torch/csrc/scatter_max.cu",
                         "scripts/bench_scatter_pallas.py:69"),
     }
-    # launches: the sum over the main paths' runs (each counted from 0)
-    print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": sum(counts[name] for counts in launches.values()),
-         "max_abs_err": errs[name], "ms": times[name][0],
-         "plain_ms": times[name][1]}
-        for name, (src, rep) in meta.items()]}), flush=True)
+    # launches: the sum over the main paths' runs (each counted from 0);
+    # launches_per_detect: per path, over its 3 detects
+    line = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
+             "launches": sum(counts[name] for counts in launches.values()),
+             "max_abs_err": errs[name], "ms": times[name][0],
+             "plain_ms": times[name][1], "events_ms": events[name],
+             "bound_ms": bounds[name][0],
+             "bound_by": bounds[name][1],
+             "library_ms": library.get(name),
+             "launches_per_detect": {tag: counts[name] / 3 for tag, counts
+                                     in launches.items()}}
+            for name, (src, rep) in meta.items()]
+    # K4's second main-path shape, the node kNN's (8, 512, 512) k=16
+    line[3]["node_knn"] = {"ms": knn_ms[0], "plain_ms": knn_ms[1],
+                           "library_ms": knn_ms[2], "events_ms": knn_ms[3],
+                           "bound_ms": KNN_BOUND[0],
+                           "bound_by": KNN_BOUND[1]}
+    print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

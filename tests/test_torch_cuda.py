@@ -62,17 +62,26 @@ def test_min_argmin_kernel_matches_plain(dev, n, m, round_bf16):
 @pytest.mark.parametrize("bm,k,cin,c,c2", [(4096, 16, 131, 256, 512),
                                            (37, 4, 19, 32, 64),
                                            (50, 3, 35, 64, 32),
-                                           (9, 64, 16, 32, 32)])
+                                           (9, 64, 16, 32, 32),
+                                           (1000, 16, 67, 128, 256),
+                                           (3, 1, 40, 64, 128),
+                                           (513, 32, 131, 256, 512)])
 def test_fusion_chain_kernel_matches_plain(dev, bm, k, cin, c, c2):
     """Within 1e-2 * max|plain| (max) and 1e-3 * max|plain| (median): bf16
-    operands, fp32 sums in another order."""
+    operands, fp32 sums in another order. The kernel takes the weights
+    packed once by ``prepare_chain``; an odd tile count leaves one block of
+    a cluster pair without nodes."""
     rng = np.random.default_rng(bm + k)
     x = _rand(rng, (1, bm, k, cin), dev)
     dims = [(cin, c), (c, c), (c, c), (c, c2), (c, c2), (c2, c2)]
     ws = [_rand(rng, d, dev, (2.0 / d[0]) ** 0.5) for d in dims]
     bs = [_rand(rng, (d[1],), dev, 0.1) for d in dims[:3] + dims[4:]]
-    got = kernels.fusion_chain(x, ws, bs)
+    chain = kernels.prepare_chain(ws, bs)
+    got = kernels.fusion_chain(x, chain)
     ref = kernels.fusion_chain_plain(x, ws, bs)
+    # the packed layout on the card reads back as the bf16 weights
+    for w, u in zip(ws, kernels.unpack_chain(chain)):
+        assert torch.equal(u, w.to(torch.bfloat16))
     torch.cuda.synchronize()
     scale = float(ref.abs().max())
     err = (got - ref).abs()
@@ -94,6 +103,59 @@ def test_smallest_k_kernel_matches_plain(dev, rows, n, k):
     s[kinds == 1] = np.nan
     s[kinds == 2] = -np.inf
     s[0] = np.inf
+    scores = torch.from_numpy(s).to(dev)
+    vals, idx = kernels.smallest_k(scores, k)
+    rvals, ridx = kernels.smallest_k_plain(scores, k)
+    torch.cuda.synchronize()
+    assert torch.equal(idx, ridx)
+    assert torch.equal(vals, rvals)
+
+
+def _adversarial_rows(rng, rows, n, kind):
+    """Rows that stress the select-by-threshold kernel's order: +0.0 and
+    -0.0 ties among few distinct values; rows of all +inf (every pick a tie
+    at the threshold); NaN, -inf and +inf mixed with finite values."""
+    if kind == "signed_zeros":
+        s = rng.choice(np.array([0.0, -0.0, 1.0, -1.0], np.float32),
+                       size=(rows, n))
+    elif kind == "inf_rows":
+        s = rng.normal(size=(rows, n)).astype(np.float32)
+        s[::2] = np.inf
+        s[1::4, : n // 3] = np.inf
+    else:
+        s = rng.normal(size=(rows, n)).astype(np.float32)
+        kinds = rng.integers(0, 4, size=s.shape)
+        s[kinds == 0] = np.nan
+        s[kinds == 1] = -np.inf
+        s[kinds == 2] = np.inf
+    return s
+
+
+@pytest.mark.parametrize("kind", ["signed_zeros", "inf_rows", "nan_mix"])
+@pytest.mark.parametrize("n", [7, 512, 1000, 16384])
+@pytest.mark.parametrize("k", [1, 16, 64, 128])
+def test_smallest_k_kernel_adversarial(dev, kind, n, k):
+    """Identical to the plain version, values (-0.0 kept as -0.0) and
+    indices, on ties at +-0, rows of +inf, NaN/-inf mixes; k > N pads. The
+    plain version runs on the CPU here: its stable sort is the contract,
+    whatever the card's sort makes of -0.0."""
+    rng = np.random.default_rng(n * k + len(kind))
+    s = torch.from_numpy(_adversarial_rows(rng, 6, n, kind))
+    vals, idx = kernels.smallest_k(s.to(dev), k)
+    torch.cuda.synchronize()
+    vals, idx = vals.cpu(), idx.cpu()
+    rvals, ridx = kernels.smallest_k_plain(s, k)
+    assert torch.equal(idx, ridx)
+    assert torch.equal(vals, rvals)
+    assert torch.equal(torch.signbit(vals), torch.signbit(rvals))
+
+
+@pytest.mark.parametrize("k", [16, 32, 33])
+def test_smallest_k_kernel_many_short_rows(dev, k):
+    """4096 rows of N=512: the warp-per-row form (k <= 32) and the block
+    form (k = 33), on integer distances full of ties."""
+    rng = np.random.default_rng(k)
+    s = rng.integers(0, 30, size=(8, 512, 512)).astype(np.float32)
     scores = torch.from_numpy(s).to(dev)
     vals, idx = kernels.smallest_k(scores, k)
     rvals, ridx = kernels.smallest_k_plain(scores, k)
@@ -146,9 +208,9 @@ def test_wrappers_reject_bad_cuda_inputs(dev):
     with pytest.raises(ValueError, match="multiples of 32"):
         x = torch.zeros((1, 2, 4, 5), device=dev)
         dims = [(5, 16), (16, 16), (16, 16), (16, 32), (16, 32), (32, 32)]
-        kernels.fusion_chain(x, [torch.zeros(d, device=dev) for d in dims],
-                             [torch.zeros(d[1], device=dev)
-                              for d in dims[:3] + dims[4:]])
+        kernels.fusion_chain(x, kernels.prepare_chain(
+            [torch.zeros(d, device=dev) for d in dims],
+            [torch.zeros(d[1], device=dev) for d in dims[:3] + dims[4:]]))
     scores = torch.zeros((4, 256), device=dev)
     with pytest.raises(TypeError):
         kernels.smallest_k(scores.double(), 8)

@@ -8,6 +8,7 @@ see the same numpy inputs and nodes.
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from usip_tpu.config import get_config
@@ -71,7 +72,8 @@ def test_fusion_chain_plain_matches_pallas():
         np.float32)
     ref = np.asarray(fused_fusion_chain(jnp.asarray(grouped), jws, jbs,
                                         tile_m=128, interpret=True))
-    out = kernels.fusion_chain(torch.from_numpy(grouped), ws, bs).numpy()
+    out = kernels.fusion_chain(torch.from_numpy(grouped),
+                               kernels.prepare_chain(ws, bs)).numpy()
     scale = np.abs(ref).max()
     assert scale > 0
     err = np.abs(out - ref)
@@ -124,7 +126,54 @@ def test_knn_group_matches_layered_input():
                                       torch.from_numpy(node))
         layered = det.knnlayer_1(anchors, anchors, feat).numpy()
         grouped = knn_group(anchors, anchors, feat, CFG.detector.node_knn_k)
-        fused = kernels.fusion_chain(grouped, *kernels.fusion_chain_params(
-            det.knnlayer_1)).numpy()
+        fused = kernels.fusion_chain(grouped, kernels.prepare_chain(
+            *kernels.fusion_chain_params(det.knnlayer_1))).numpy()
     scale = np.abs(layered).max()
     assert np.abs(fused - layered).max() <= 2e-2 * scale
+
+
+@pytest.mark.parametrize("cin,c,c2", [(19, 16, 32), (131, 256, 512),
+                                      (35, 64, 32)])
+def test_prepare_chain_unpacks_to_folded_weights(cin, c, c2):
+    """The kernel's packed weight layout (``prepare_chain``) reads back as
+    the folded ``(Cin, Cout)`` weights in bf16, and the plain chain on the
+    read-back weights equals the plain chain on the originals: the host side
+    of the fusion-chain kernel that the CPU can reach."""
+    rng = np.random.default_rng(cin + c)
+    dims = [(cin, c), (c, c), (c, c), (c, c2), (c, c2), (c2, c2)]
+    ws = [torch.from_numpy(rng.normal(0, (2.0 / d[0]) ** 0.5, size=d)
+                           .astype(np.float32)) for d in dims]
+    bs = [torch.from_numpy(rng.normal(0, 0.1, size=(d[1],))
+                           .astype(np.float32)) for d in dims[:3] + dims[4:]]
+    chain = kernels.prepare_chain(ws, bs)
+    assert chain.packed.dtype == torch.bfloat16 and chain.cin == cin
+    # every layer padded to 32 contraction rows and 8 columns, w4 as one
+    # (2C, C2) kernel
+    pad = lambda k, n: -(-k // 32) * 32 * (-(-n // 8) * 8)  # noqa: E731
+    assert chain.packed.numel() == (pad(cin, c) + 2 * pad(c, c)
+                                    + pad(2 * c, c2) + pad(c2, c2))
+    unpacked = kernels.unpack_chain(chain)
+    for w, u in zip(ws, unpacked):
+        assert u.dtype == torch.bfloat16
+        assert torch.equal(u, w.to(torch.bfloat16))
+    x = torch.from_numpy(rng.normal(size=(2, 8, 4, cin)).astype(np.float32))
+    assert torch.equal(kernels.fusion_chain_plain(x, unpacked, bs),
+                       kernels.fusion_chain_plain(x, ws, bs))
+    assert torch.equal(kernels.fusion_chain(x, chain),
+                       kernels.fusion_chain_plain(x, ws, bs))
+
+
+def test_packed_layout_places_core_matrices():
+    """Element (k, n) of a packed layer sits where the kernel's B
+    descriptor reads it: slice k // 32, core matrix (k % 32 // 8, n // 8),
+    row n % 8, column k % 8."""
+    k, n = 64, 48
+    # the row and the column index, each exact in bf16
+    rows = kernels._pack_layer(torch.arange(k).float()[:, None].expand(k, n))
+    cols = kernels._pack_layer(torch.arange(n).float()[None, :].expand(k, n))
+    for kk, nn in [(0, 0), (1, 0), (0, 1), (7, 9), (8, 0), (31, 47),
+                   (32, 5), (63, 47)]:
+        s, kg = kk // 32, kk % 32 // 8
+        off = s * 32 * n + (kg * (n // 8) + nn // 8) * 64 + (nn % 8) * 8 \
+            + kk % 8
+        assert (rows[off], cols[off]) == (kk, nn)

@@ -129,5 +129,8 @@ def test_wrappers_refuse_non_cuda_devices():
     with pytest.raises(ValueError, match="CUDA tensors"):
         kernels.min_argmin(pts, pts)
     with pytest.raises(ValueError, match="CUDA tensors"):
-        kernels.fusion_chain(torch.empty((1, 2, 4, 5), device="meta"),
-                             [torch.empty(1)] * 6, [torch.empty(1)] * 5)
+        dims = [(5, 32), (32, 32), (32, 32), (32, 64), (32, 64), (64, 64)]
+        chain = kernels.prepare_chain([torch.zeros(d) for d in dims],
+                                      [torch.zeros(d[1]) for d in
+                                       dims[:3] + dims[4:]])
+        kernels.fusion_chain(torch.empty((1, 2, 4, 5), device="meta"), chain)

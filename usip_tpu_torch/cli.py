@@ -23,8 +23,20 @@ import sys
 
 import numpy as np
 
-from usip_tpu.cli import _sn_columns
 from usip_tpu_torch.config import get_config
+
+
+def _sn_columns(data, s):
+    """The sn feature block of an (N, 3+F) cloud, zero-padded when the file
+    carries fewer channels than the model expects (the rule of
+    ``usip_tpu.cli``); None for an (N, 3) cloud."""
+    if data.shape[1] <= 3:
+        return None
+    sn = data[:, 3:3 + s].astype(np.float32)
+    if sn.shape[1] < s:
+        sn = np.concatenate(
+            [sn, np.zeros((sn.shape[0], s - sn.shape[1]), np.float32)], axis=1)
+    return sn
 
 
 def _build_config(args):

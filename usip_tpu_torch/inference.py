@@ -14,12 +14,12 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from usip_tpu.data.common import subsample_fixed
-from usip_tpu.eval.export import select_keypoints
 from usip_tpu_torch.config import Config
+from usip_tpu_torch.data.common import subsample_fixed
+from usip_tpu_torch.eval.export import select_keypoints
 from usip_tpu_torch.models.detector import Detector
 from usip_tpu_torch.models.fused_infer import detector_infer_fused
-from usip_tpu_torch.ops.kernels import fusion_chain_params
+from usip_tpu_torch.ops.kernels import fusion_chain_params, prepare_chain
 from usip_tpu_torch.ops.sampling import sample_nodes
 from usip_tpu_torch.weights import detector_family, load_detector_weights
 
@@ -59,8 +59,9 @@ class KeypointPipeline:
         det = Detector(cfg.detector)
         det.load_state_dict(sd, strict=True)
         self.detector = det.to(self.device).eval()
-        ws, bs = fusion_chain_params(self.detector.knnlayer_1)
-        self._chain = (tuple(w.to(torch.bfloat16) for w in ws), bs)
+        # the fusion chain's folded weights, packed once for its kernel
+        self._chain = prepare_chain(
+            *fusion_chain_params(self.detector.knnlayer_1))
         self._eval_ratio = (cfg.data.eval_fps_subsample_ratio
                             or cfg.data.fps_subsample_ratio)
 

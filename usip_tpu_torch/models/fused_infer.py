@@ -15,26 +15,28 @@ from typing import Optional, Tuple
 import torch
 
 from usip_tpu_torch.models.detector import Detector, knn_group
-from usip_tpu_torch.ops.kernels import fusion_chain, fusion_chain_params
+from usip_tpu_torch.ops.kernels import (FusionChain, fusion_chain,
+                                        fusion_chain_params, prepare_chain)
 
 Tensor = torch.Tensor
 
 
 @torch.no_grad()
 def detector_infer_fused(det: Detector, pc: Tensor, sn: Tensor, node: Tensor,
-                         chain: Optional[tuple] = None
+                         chain: Optional[FusionChain] = None
                          ) -> Tuple[Tensor, Tensor, Tensor]:
     """Full detector eval forward -> ``(anchors, keypoints, sigmas)``, like
     ``det(pc, sn, node)`` in eval mode. ``chain`` is
-    ``fusion_chain_params(det.knnlayer_1)``, passed in by callers that fold
-    the weights once."""
+    ``prepare_chain(*fusion_chain_params(det.knnlayer_1))``, passed in by
+    callers that fold and pack the weights once."""
     if det.training:
         raise ValueError("detector_infer_fused is the eval forward; call "
                          "det.eval() first")
     anchors, feat = det.trunk(pc, sn, node)
     grouped = knn_group(anchors, anchors, feat, det.cfg.node_knn_k)
-    ws, bs = chain if chain is not None else fusion_chain_params(det.knnlayer_1)
-    knn_feature = fusion_chain(grouped.contiguous(), ws, bs)
+    if chain is None:
+        chain = prepare_chain(*fusion_chain_params(det.knnlayer_1))
+    knn_feature = fusion_chain(grouped.contiguous(), chain)
     keypoints, sigmas = det.keypoint_head(
         torch.cat([feat, knn_feature], dim=-1), anchors)
     return anchors, keypoints, sigmas

@@ -18,7 +18,8 @@ The kernels (``csrc/*.cu``) are compiled with nvcc at first use
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Tuple
+import math
+from typing import NamedTuple, Sequence, Tuple
 
 import torch
 
@@ -33,9 +34,15 @@ LAUNCHES = {"fps": 0, "min_argmin": 0, "fusion_chain": 0, "smallest_k": 0,
 _MAX_SMEM = 232448
 # rows (nodes x neighbours) one fusion-chain block keeps in shared memory
 _CHAIN_ROWS = 64
+# contraction rows per packed weight slice (csrc/fusion_chain.cu kSlice)
+_CHAIN_SLICE = 32
+# layer widths the fusion-chain kernel takes (two warpgroups of wgmma N/2)
+_CHAIN_WIDTHS = (32, 64, 128, 256, 512)
 # the longest row the smallest-k kernel keeps in shared memory (fp32), with
 # room left for the block's static reduction buffers
 SMALLEST_K_MAX_N = (_MAX_SMEM - 1024) // 4
+# static shared memory of the smallest-k block form, kept free of its row
+_SMALLEST_K_STATIC = 256
 # row length that the smallest-k contract pads to (the TPU's lane width):
 # picks past the row's end, up to this padding, are clamped to N-1
 _LANES = 128
@@ -49,9 +56,8 @@ _SIGNATURES = {
     "fps": ("usip_fps", [_P, _P, _P, _I, _I, _I, _P]),
     # points, nodes, mins, idx, B, N, M, round_bf16, stream
     "min_argmin": ("usip_min_argmin", [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
-    # x, w1, b1, w2, b2, w3, b3, w4m, w4h, b4, w5, b5, out,
-    # BM, K, Cin, C, C2, stream
-    "fusion_chain": ("usip_fusion_chain", [_P] * 13 + [_I] * 5 + [_P]),
+    # x, packed weights, b1, b2, b3, b4, b5, out, BM, K, Cin, C, C2, stream
+    "fusion_chain": ("usip_fusion_chain", [_P] * 8 + [_I] * 5 + [_P]),
     # scores, vals, idx, rows, N, k, stream
     "smallest_k": ("usip_smallest_k", [_P, _P, _P, _I, _I, _I, _P]),
     # f, ids, out, B, N, M, C, stream
@@ -268,53 +274,151 @@ def fusion_chain_plain(grouped: Tensor, weights, biases) -> Tensor:
     return y.amax(dim=-2)
 
 
-def _chain_weight(w: Tensor) -> Tensor:
-    """A folded ``(Cin, Cout)`` kernel as the CUDA kernel takes it: bf16,
-    transposed to ``(Cout, Kp)`` (the reference's conv layout), the
-    contraction zero-padded to a multiple of 16."""
-    wt = w.t().to(torch.bfloat16)
-    pad = (-wt.shape[1]) % 16
-    return torch.nn.functional.pad(wt, (0, pad)).contiguous()
+class FusionChain(NamedTuple):
+    """The fusion chain's folded weights, prepared once for the kernel.
 
-
-def fusion_chain(grouped: Tensor, weights, biases) -> Tensor:
-    """Fused kNN-fusion chain; kernel ``csrc/fusion_chain.cu`` for CUDA
-    tensors (counterpart of ``pallas_kernels.fused_fusion_chain``).
-
-    ``weights = (w1, w2, w3, w4m, w4h, w5)``, ``(Cin, Cout)`` kernels with
-    BN folded (any float dtype, taken as bf16), ``biases = (b1, b2, b3, b4,
-    b5)`` (taken as fp32).
+    ``weights = (w1, w2, w3, w4m, w4h, w5)``, ``(Cin, Cout)`` kernels with BN
+    folded, and ``biases = (b1, b2, b3, b4, b5)``, as
+    ``fusion_chain_params`` returns them (the plain version's inputs);
+    ``packed`` is every layer's bf16 weight in the kernel's layout
+    (``_pack_layer``), one flat tensor on the weights' device: before0..2,
+    then after0 as one ``(2C, C2)`` kernel (``w4m`` rows, then ``w4h``),
+    then after1. ``cin`` is w1's contraction length before padding.
     """
-    if grouped.device.type == "cpu":
-        return fusion_chain_plain(grouped, weights, biases)
-    dev = _cuda_device(grouped, "grouped")
-    b, m, k, cin = grouped.shape
-    c, c2 = weights[0].shape[1], weights[5].shape[1]
-    _check(grouped, "grouped", torch.float32, (b, m, k, cin), dev)
+    weights: Tuple[Tensor, ...]
+    biases: Tuple[Tensor, ...]
+    packed: Tensor
+    cin: int
+
+
+def _packed_shape(k: int, n: int) -> Tuple[int, int]:
+    """A packed ``(K, N)`` layer's shape: K padded to whole slices, N to
+    whole 8-column groups."""
+    return -(-k // _CHAIN_SLICE) * _CHAIN_SLICE, -(-n // 8) * 8
+
+
+def _pack_layer(w: Tensor) -> Tensor:
+    """A ``(K, N)`` kernel -> bf16 slices in the layout ``csrc/fusion_chain.cu``
+    reads with its B descriptor, flat.
+
+    K is zero-padded to a multiple of 32 (one slice), N to a multiple of 8.
+    Slice ``s`` holds contraction rows ``[32 s, 32 s + 32)``; inside it, the
+    8 x 8 core matrix of k-group ``kg`` (rows ``8 kg ..``) and column group
+    ``ng`` sits at element ``(kg * N / 8 + ng) * 64``, column-major in k:
+    element ``(k, n)`` at ``+ (n % 8) * 8 + k % 8`` (no-swizzle K-major).
+    """
+    k, n = w.shape
+    kp, np_ = _packed_shape(k, n)
+    w = torch.nn.functional.pad(w.to(torch.bfloat16), (0, np_ - n, 0, kp - k))
+    t = w.reshape(kp // _CHAIN_SLICE, _CHAIN_SLICE // 8, 8, np_ // 8, 8)
+    return t.permute(0, 1, 3, 4, 2).reshape(-1)
+
+
+def _unpack_layer(flat: Tensor, k: int, n: int) -> Tensor:
+    """The inverse of ``_pack_layer``: ``(k, n)`` bf16."""
+    kp, np_ = _packed_shape(k, n)
+    t = flat.reshape(kp // _CHAIN_SLICE, _CHAIN_SLICE // 8, np_ // 8, 8, 8)
+    return t.permute(0, 1, 4, 2, 3).reshape(kp, np_)[:k, :n]
+
+
+def _chain_dims(cin: int, c: int, c2: int):
+    """``(K, N)`` of the packed layers: before0..2, after0 (concat), after1."""
+    return ((cin, c), (c, c), (c, c), (2 * c, c2), (c2, c2))
+
+
+@torch.no_grad()
+def prepare_chain(weights, biases) -> FusionChain:
+    """Pack folded chain weights once for ``fusion_chain``: the re-layout
+    the kernel needs is done here, not on every call. ``weights`` and
+    ``biases`` as ``fusion_chain_params`` returns them (any float dtype;
+    the kernel takes the weights as bf16 and the biases as fp32)."""
+    w1, w2, w3, w4m, w4h, w5 = weights
+    cin, c, c2 = w1.shape[0], w1.shape[1], w5.shape[1]
     names = ("w1", "w2", "w3", "w4m", "w4h", "w5")
     dims = ((cin, c), (c, c), (c, c), (c, c2), (c, c2), (c2, c2))
     for w, shape, name in zip(weights, dims, names):
         if tuple(w.shape) != shape:
             raise ValueError(f"{name} has shape {tuple(w.shape)}, expected "
                              f"{shape}")
-    ws = [_chain_weight(w) for w in weights]
-    bs = [bb.float().contiguous() for bb in biases]
-    for w, name in zip(ws, names):
-        _check(w, name, torch.bfloat16, w.shape, dev)
-    for bb, n, name in zip(bs, (c, c, c, c2, c2), ("b1", "b2", "b3", "b4", "b5")):
+    for bb, n, name in zip(biases, (c, c, c, c2, c2),
+                           ("b1", "b2", "b3", "b4", "b5")):
+        if tuple(bb.shape) != (n,):
+            raise ValueError(f"{name} has shape {tuple(bb.shape)}, expected "
+                             f"{(n,)}")
+    layers = (w1, w2, w3, torch.cat([w4m, w4h], 0), w5)
+    packed = torch.cat([_pack_layer(w) for w in layers])
+    return FusionChain(tuple(weights),
+                       tuple(bb.float().contiguous() for bb in biases),
+                       packed, cin)
+
+
+def unpack_chain(chain: FusionChain) -> Tuple[Tensor, ...]:
+    """The folded ``(Cin, Cout)`` bf16 weights ``(w1, w2, w3, w4m, w4h, w5)``
+    read back from ``chain.packed``."""
+    c, c2 = chain.biases[0].shape[0], chain.biases[4].shape[0]
+    out, off = [], 0
+    for k, n in _chain_dims(chain.cin, c, c2):
+        size = math.prod(_packed_shape(k, n))
+        out.append(_unpack_layer(chain.packed[off:off + size], k, n))
+        off += size
+    w1, w2, w3, w4, w5 = out
+    return w1, w2, w3, w4[:c], w4[c:], w5
+
+
+def fusion_chain_smem(k: int, cin: int, c: int, c2: int) -> int:
+    """Shared memory of one ``csrc/fusion_chain.cu`` block (its
+    ``layout_of``): the activation buffers P (``max(Cin padded to 32, C,
+    C2)`` columns) and Q (``C``), 1,040 bytes per 8 columns; the tile's
+    (64 / K, C2) fp32 output staging, inside Q where it fits; the weight
+    ring, 4 stages of 32 x max(C, C2) bf16 where they fit, else 3; 16 bytes
+    of mbarriers a stage."""
+    kp1 = -(-cin // _CHAIN_SLICE) * _CHAIN_SLICE
+    q = c // 8 * 1040
+    staging = (_CHAIN_ROWS // k) * c2 * 4
+    ring = max(kp1, c, c2) // 8 * 1040 + q + (0 if staging <= q else staging)
+    stage = 64 * max(c, c2)
+    stages = 4 if ring + 4 * (stage + 16) <= _MAX_SMEM else 3
+    return ring + stages * (stage + 16)
+
+
+def fusion_chain(grouped: Tensor, chain: FusionChain) -> Tensor:
+    """Fused kNN-fusion chain; kernel ``csrc/fusion_chain.cu`` for CUDA
+    tensors (counterpart of ``pallas_kernels.fused_fusion_chain``): wgmma
+    tensor cores, the weights streamed through a shared-memory ring and
+    shared by clusters of two blocks.
+
+    ``chain`` is ``prepare_chain(*fusion_chain_params(layer))``, made once;
+    this call only checks it. For CPU tensors, ``fusion_chain_plain`` on
+    ``chain.weights``.
+    """
+    if grouped.device.type == "cpu":
+        return fusion_chain_plain(grouped, chain.weights, chain.biases)
+    dev = _cuda_device(grouped, "grouped")
+    b, m, k, cin = grouped.shape
+    c, c2 = chain.biases[0].shape[0], chain.biases[4].shape[0]
+    _check(grouped, "grouped", torch.float32, (b, m, k, cin), dev)
+    if cin != chain.cin:
+        raise ValueError(f"grouped has {cin} channels, the chain takes "
+                         f"{chain.cin}")
+    size = sum(math.prod(_packed_shape(kk, n))
+               for kk, n in _chain_dims(cin, c, c2))
+    _check(chain.packed, "packed weights", torch.bfloat16, (size,), dev)
+    for bb, n, name in zip(chain.biases, (c, c, c, c2, c2),
+                           ("b1", "b2", "b3", "b4", "b5")):
         _check(bb, name, torch.float32, (n,), dev)
     if not 1 <= k <= _CHAIN_ROWS:
         raise ValueError(f"fusion_chain: K={k} must lie in [1, {_CHAIN_ROWS}]")
-    if c % 32 or c2 % 32:
+    if c not in _CHAIN_WIDTHS or c2 not in _CHAIN_WIDTHS:
         raise ValueError(f"fusion_chain: widths C={c}, C2={c2} must be "
-                         "multiples of 32")
+                         f"multiples of 32 among {_CHAIN_WIDTHS}")
+    if fusion_chain_smem(k, cin, c, c2) > _MAX_SMEM:
+        raise ValueError(f"fusion_chain: K={k}, Cin={cin}, C={c}, C2={c2} "
+                         "do not fit one block's shared memory")
     out = torch.empty((b, m, c2), dtype=torch.float32, device=dev)
     if b * m:
         _launch("fusion_chain", dev, grouped.data_ptr(),
-                ws[0].data_ptr(), bs[0].data_ptr(), ws[1].data_ptr(),
-                bs[1].data_ptr(), ws[2].data_ptr(), bs[2].data_ptr(),
-                ws[3].data_ptr(), ws[4].data_ptr(), bs[3].data_ptr(),
-                ws[5].data_ptr(), bs[4].data_ptr(), out.data_ptr(),
+                chain.packed.data_ptr(),
+                *(bb.data_ptr() for bb in chain.biases), out.data_ptr(),
                 b * m, k, cin, c, c2)
     return out
 
@@ -354,13 +458,30 @@ def smallest_k_plain(scores: Tensor, k: int) -> Tuple[Tensor, Tensor]:
     return vals, idx
 
 
+def smallest_k_smem(n: int, k: int) -> int:
+    """The least dynamic shared memory ``csrc/smallest_k.cu`` runs with for
+    rows of ``n`` and ``k`` picks: 0 for the warp-per-row form (``n <=
+    1024``, ``k <= 32``, the row in registers), else the row's keys (``n``
+    rounded up to 4, 4 bytes each) and, after them, the larger of the
+    512-byte histogram and the candidates (8 bytes each, their count
+    rounded up to a power of two). The kernel adds a list of 2048 keys
+    where it fits (``block_smem`` in the source)."""
+    if n <= 1024 and k <= 32:
+        return 0
+    sort_len = 1
+    while sort_len < min(k, n):
+        sort_len *= 2
+    return -(-n // 4) * 16 + max(512, 8 * sort_len)
+
+
 def smallest_k(scores: Tensor, k: int) -> Tuple[Tensor, Tensor]:
     """Exact k smallest of each row of ``scores (..., N)`` fp32; kernel
     ``csrc/smallest_k.cu`` for CUDA tensors (counterpart of
-    ``pallas_kernels.smallest_k_pallas``): one block per row, the row in
-    shared memory, k rounds of a block-wide argmin. Same contract and
-    results as ``smallest_k_plain``; rows longer than ``SMALLEST_K_MAX_N``
-    do not fit one block and raise."""
+    ``pallas_kernels.smallest_k_pallas``): a select by threshold on
+    order-preserving keys, one warp per short row (registers) or one block
+    per long row (shared memory). Same contract and results as
+    ``smallest_k_plain``; rows longer than ``SMALLEST_K_MAX_N``, or whose
+    keys and picks together do not fit one block, raise."""
     if scores.device.type == "cpu":
         return smallest_k_plain(scores, k)
     dev = _cuda_device(scores, "scores")
@@ -369,9 +490,11 @@ def smallest_k(scores: Tensor, k: int) -> Tuple[Tensor, Tensor]:
     n = scores.shape[-1]
     _check(scores, "scores", torch.float32, scores.shape, dev)
     _check_k(n, k)
-    if n > SMALLEST_K_MAX_N:
-        raise ValueError(f"smallest_k: rows of N={n} do not fit one block's "
-                         f"shared memory (at most {SMALLEST_K_MAX_N})")
+    if (n > SMALLEST_K_MAX_N or
+            smallest_k_smem(n, k) + _SMALLEST_K_STATIC > _MAX_SMEM):
+        raise ValueError(f"smallest_k: rows of N={n} with k={k} picks do not "
+                         "fit one block's shared memory (N at most "
+                         f"{SMALLEST_K_MAX_N})")
     shape = tuple(scores.shape[:-1]) + (k,)
     vals = torch.empty(shape, dtype=torch.float32, device=dev)
     idx = torch.empty(shape, dtype=torch.int32, device=dev)
