@@ -11,7 +11,9 @@ script exits nonzero without the final ``ok`` line:
    build directory, one nvcc each, side by side;
 2. holds each kernel against its plain PyTorch version on the card at the
    serving paths' shapes (FPS, min/argmin, smallest-k and scatter-max
-   exactly, the fused chain within a stated tolerance);
+   exactly, the fused chain within a stated tolerance): FPS on LiDAR-like
+   clouds, an urban-like subset and duplicated points, scatter-max on
+   uniform ids and on the SOM trunk's own assignment ids;
 3. runs the whole fp32 forward at full width (B=2) on the card and on the
    CPU with the same seeded weights, draws and input, and compares: the
    KITTI SOM detector, the Oxford ball detector and its knn twin;
@@ -22,7 +24,8 @@ script exits nonzero without the final ``ok`` line:
    checks the kernels each path must launch;
 5. times each kernel against its plain version and, where one PyTorch call
    computes the same function, that call (``torch.topk`` for smallest-k,
-   ``scatter_reduce`` for scatter-max: yardsticks the port never calls),
+   ``scatter_reduce`` for scatter-max: yardsticks the port never calls;
+   scatter-max also on assignment ids),
    computes each kernel's bound from its shapes and the card's published
    peaks, times the stages of the batch-8 forwards, detect clouds/s with
    the bench protocol (bf16 presets) and the ball path's peak memory.
@@ -246,11 +249,17 @@ def phase2(cfg):
     rng = np.random.default_rng(1)
     errs = {}
 
-    # K1: (8, 2048) -> 512 picks, random clouds and duplicated points
+    # K1: (8, 2048) -> 512 picks: LiDAR-like clouds, the 1/8 subset of an
+    # urban-like (Oxford-style) cloud as sample_nodes draws it, and a cloud
+    # whose points all appear twice
     pts, _ = kitti_cloud(rng, B_BENCH, 2048)
+    opc, _ = oxford_cloud(rng, B_BENCH, 16384)
+    sub = np.stack([rng.permutation(16384)[:2048] for _ in range(B_BENCH)])
+    osub = np.take_along_axis(opc, sub[..., None], axis=1)
     dup = np.concatenate([pts[:, :1024], pts[:, :1024]], axis=1)
     worst = 0
-    for name, p in (("random", pts), ("duplicated", dup)):
+    for name, p in (("kitti-like", pts), ("oxford-like subset", osub),
+                    ("duplicated", dup)):
         p = torch.from_numpy(p).to(dev)
         first = torch.from_numpy(rng.integers(0, 2048, B_BENCH).astype(
             np.int32)).to(dev)
@@ -346,25 +355,48 @@ def phase2(cfg):
     errs["smallest_k"] = worst
     del cases, scores
 
-    # K5: (8, 16384, C) onto 512 nodes, the last 12 nodes empty
-    ids = torch.from_numpy(rng.integers(0, 500, size=(B_BENCH, 16384))).to(dev)
+    # K5: (8, 16384, C) onto 512 nodes: uniform ids with the last 12 nodes
+    # empty, and the SOM trunk's own ids (K2 against 512 FPS nodes of a
+    # LiDAR-like cloud: skewed; each node holds at least its own point)
+    uniform = torch.from_numpy(rng.integers(0, 500, size=(B_BENCH, 16384)))
     worst = 0.0
-    for c in (64, 128):
-        f = torch.from_numpy(rng.normal(size=(B_BENCH, 16384, c)).astype(
-            np.float32)).to(dev)
-        got = kernels.scatter_max(f, ids, 512)
-        ref = kernels.scatter_max_plain(f, ids, 512)
-        sync()
-        err = float((got - ref).abs().max())
-        print(f"[2] K5 scatter_max C={c}: (8, 16384, {c}) -> (8, 512, {c}), "
-              f"max |diff| {err}, empty nodes 0: "
-              f"{bool((got[:, 500:] == 0).all())}", flush=True)
-        check(torch.equal(got, ref), f"scatter_max C={c} equals "
-              "scatter_reduce amax")
-        check(bool((got[:, 500:] == 0).all()), "empty nodes are 0")
-        worst = max(worst, err)
+    for name, ids in (("uniform ids", uniform.to(dev)),
+                      ("assignment ids", assignment_ids(rng, dev))):
+        counts = torch.zeros((B_BENCH, 512), dtype=torch.int64, device=dev)
+        counts.scatter_add_(1, ids, torch.ones_like(ids))
+        for c in (64, 128):
+            f = torch.from_numpy(rng.normal(size=(B_BENCH, 16384, c)).astype(
+                np.float32)).to(dev)
+            got = kernels.scatter_max(f, ids, 512)
+            ref = kernels.scatter_max_plain(f, ids, 512)
+            sync()
+            err = float((got - ref).abs().max())
+            empty = counts == 0
+            print(f"[2] K5 scatter_max {name} C={c}: (8, 16384, {c}) -> "
+                  f"(8, 512, {c}), max |diff| {err}, "
+                  f"{int(empty.sum())} empty nodes (all 0: "
+                  f"{bool((got[empty] == 0).all())}), at most "
+                  f"{int(counts.max())} points on a node", flush=True)
+            check(torch.equal(got, ref), f"scatter_max {name} C={c} equals "
+                  "scatter_reduce amax")
+            check(bool((got[empty] == 0).all()),
+                  f"scatter_max {name}: empty nodes are 0")
+            worst = max(worst, err)
     errs["scatter_max"] = worst
     return errs
+
+
+def assignment_ids(rng, dev):
+    """The SOM trunk's node ids of 8 LiDAR-like clouds of 16384 points: 512
+    FPS nodes of a random 1/8 subset, each point's nearest node by K2 with
+    the preset's bf16 distances, as int64."""
+    pc = torch.from_numpy(kitti_cloud(rng, B_BENCH, 16384)[0]).to(dev)
+    subset = torch.from_numpy(np.stack([rng.permutation(16384)[:2048]
+                                        for _ in range(B_BENCH)])).to(dev)
+    first = torch.from_numpy(rng.integers(0, 2048, B_BENCH).astype(
+        np.int32)).to(dev)
+    nodes = sample_nodes(pc, 512, 8, subset_idx=subset, first=first)
+    return kernels.min_argmin(pc, nodes, True)[1].long()
 
 
 def compare_slice(label, cfg, cloud_fn, rng):
@@ -596,9 +628,10 @@ def phase5(pipes, card):
                                           sorted=True), 50),
               time_ms(lambda: kernels.smallest_k(nd, 16), 200))
     # K5 at both calls of one SOM forward, C=64 and C=128 (the JSON line
-    # gives their sum)
+    # gives their sum, on uniform ids), and on the trunk's own assignment ids
     ids = torch.from_numpy(rng.integers(0, 512, size=(B_BENCH, 16384))).to(dev)
-    k5 = {}
+    aids = assignment_ids(rng, dev)
+    k5, k5_assign = {}, {}
     for c in (64, 128):
         f = torch.from_numpy(rng.normal(size=(B_BENCH, 16384, c)).astype(
             np.float32)).to(dev)
@@ -606,6 +639,9 @@ def phase5(pipes, card):
                  time_ms(lambda: kernels.scatter_max_plain(f, ids, 512), 20),
                  graph_ms(lambda: kernels.scatter_max_plain(f, ids, 512), 20),
                  time_ms(lambda: kernels.scatter_max(f, ids, 512), 50))
+        k5_assign[c] = (
+            graph_ms(lambda: kernels.scatter_max(f, aids, 512), 50),
+            graph_ms(lambda: kernels.scatter_max_plain(f, aids, 512), 20))
     times["scatter_max"] = (k5[64][0] + k5[128][0], k5[64][1] + k5[128][1])
     events["scatter_max"] = k5[64][3] + k5[128][3]
     # scatter_reduce('amax') is both K5's plain version and its library call
@@ -625,6 +661,12 @@ def phase5(pipes, card):
           f"C=64 kernel {k5[64][0]:.4f} ms, plain {k5[64][1]:.4f} ms; C=128 "
           f"kernel {k5[128][0]:.4f} ms, plain {k5[128][1]:.4f} ms",
           flush=True)
+    print(f"[5] {card} | scatter_max on assignment ids (K2 against 512 FPS "
+          f"nodes): C=64 kernel {k5_assign[64][0]:.4f} ms, scatter_reduce "
+          f"{k5_assign[64][1]:.4f} ms; C=128 kernel {k5_assign[128][0]:.4f} "
+          f"ms, scatter_reduce {k5_assign[128][1]:.4f} ms; both calls "
+          f"{k5_assign[64][0] + k5_assign[128][0]:.4f} ms (uniform ids "
+          f"{times['scatter_max'][0]:.4f} ms)", flush=True)
 
     # stages of the batch-8 bf16 SOM forward, each timed alone
     pipe = pipes["som"]

@@ -46,6 +46,48 @@ def test_fps_kernel_matches_plain(dev, s, k, dup):
     assert torch.equal(got, kernels.fps_plain(pts, first, k))
 
 
+def _fps_case(dev, b, s, k, seed, pts=None):
+    rng = np.random.default_rng(seed)
+    if pts is None:
+        pts = _rand(rng, (b, s, 3), dev, 20.0)
+    first = torch.from_numpy(rng.integers(0, s, b).astype(np.int32)).to(dev)
+    got = kernels.fps(pts, first, k)
+    torch.cuda.synchronize()
+    ref = kernels.fps_plain(pts, first, k)
+    assert torch.equal(got, ref)
+    return got
+
+
+# each boundary of the kernel's forms (kernels.fps_form: points a thread x
+# threads, +-1), and the largest cloud the wrapper takes
+@pytest.mark.parametrize("s", [32, 33, 64, 65, 128, 129, 256, 257, 512,
+                               513, 1024, 1025, 2047, 2048, 2049, 4096, 4097,
+                               8192, 8193, kernels.FPS_MAX_S])
+def test_fps_kernel_form_boundaries(dev, s):
+    _fps_case(dev, 2, s, min(s, 300), s)
+
+
+@pytest.mark.parametrize("s", [1, 33, 1000, 8193])
+def test_fps_kernel_k_equals_s(dev, s):
+    """Every point picked: the last picks run over distances of 0."""
+    got = _fps_case(dev, 2, s, s, s + 1)
+    assert torch.equal(got.sort(-1).values,
+                       torch.arange(s, dtype=torch.int32,
+                                    device=dev).expand(2, s))
+
+
+def test_fps_kernel_all_points_equal(dev):
+    """Every distance 0: each pick after the seed is the lowest index."""
+    pts = torch.full((3, 2048, 3), 3.5, device=dev)
+    got = _fps_case(dev, 3, 2048, 512, 7, pts)
+    assert bool((got[:, 1:] == 0).all())
+
+
+@pytest.mark.parametrize("b", [1, 64])
+def test_fps_kernel_batch(dev, b):
+    _fps_case(dev, b, 2048, 512, b)
+
+
 @pytest.mark.parametrize("n,m", [(16384, 512), (1000, 77), (5, 1)])
 @pytest.mark.parametrize("round_bf16", [False, True])
 def test_min_argmin_kernel_matches_plain(dev, n, m, round_bf16):
@@ -192,6 +234,67 @@ def test_scatter_max_kernel_matches_plain(dev, b, n, m, c):
     ref = kernels.scatter_max_plain(f, ids, m)
     torch.cuda.synchronize()
     assert torch.equal(got, ref)
+
+
+def _scatter_case(dev, f, ids, m):
+    got = kernels.scatter_max(f, ids, m)
+    torch.cuda.synchronize()
+    ref = kernels.scatter_max_plain(f, ids, m)
+    assert torch.equal(got, ref)
+    return got
+
+
+@pytest.mark.parametrize("m,node", [(1, 0), (512, 300)])
+def test_scatter_max_kernel_one_node(dev, m, node):
+    """Every point on one node (of 1, and of 512): each block of the cluster
+    updates the same row, the others stay 0."""
+    rng = np.random.default_rng(m)
+    f = _rand(rng, (2, 16384, 64), dev, 3.0)
+    ids = torch.full((2, 16384), node, dtype=torch.int64, device=dev)
+    got = _scatter_case(dev, f, ids, m)
+    assert torch.equal(got[:, node], f.amax(1))
+    assert int((got != 0).any(-1).sum()) == 2
+
+
+@pytest.mark.parametrize("kind", ["signed_zeros", "all_negative"])
+def test_scatter_max_kernel_signs(dev, kind):
+    """+0.0 and -0.0 only, or every feature below 0: the ordered-int
+    encoding keeps the order of negative floats, and a node's max stays
+    negative while an empty node is 0."""
+    rng = np.random.default_rng(len(kind))
+    if kind == "signed_zeros":
+        f = rng.choice(np.array([0.0, -0.0], np.float32), (2, 16384, 64))
+    else:
+        f = -np.abs(rng.normal(size=(2, 16384, 64))).astype(np.float32) - 1
+    ids = torch.from_numpy(rng.integers(0, 500, size=(2, 16384))).to(dev)
+    got = _scatter_case(dev, torch.from_numpy(f).to(dev), ids, 512)
+    if kind == "all_negative":
+        assert bool((got[:, :500] < 0).all() and (got[:, 500:] == 0).all())
+
+
+@pytest.mark.parametrize("n,m,c", [(16384, 512, 13), (16384, 512, 40),
+                                   (16384 + 37, 512, 64), (40003, 512, 64),
+                                   (9000, 512, 128), (3000, 2000, 24),
+                                   (2100, 5000, 9)])
+def test_scatter_max_kernel_forms(dev, n, m, c):
+    """Ragged channel tiles (C = 13, 40, 9), N not a multiple of the
+    cluster's chunk (N = 16421 over 4 blocks, 40003 over 8, 9000 over 2),
+    the 16- and 8-channel tiles of many nodes (kernels.scatter_max_form)."""
+    rng = np.random.default_rng(n + m + c)
+    f = _rand(rng, (3, n, c), dev, 3.0)
+    ids = torch.from_numpy(rng.integers(0, m, size=(3, n))).to(dev)
+    _scatter_case(dev, f, ids, m)
+
+
+def test_scatter_max_kernel_unaligned_features(dev):
+    """C % 4 == 0 but the features 4 bytes past a 16-byte boundary: scalar
+    loads instead of float4."""
+    rng = np.random.default_rng(5)
+    flat = _rand(rng, (2 * 4096 * 32 + 1,), dev)
+    f = flat[1:].view(2, 4096, 32)
+    assert f.is_contiguous() and f.data_ptr() % 16 != 0
+    ids = torch.from_numpy(rng.integers(0, 512, size=(2, 4096))).to(dev)
+    _scatter_case(dev, f, ids, 512)
 
 
 def test_wrappers_reject_bad_cuda_inputs(dev):

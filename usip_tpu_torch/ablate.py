@@ -1,19 +1,24 @@
-"""Ablations of the fusion-chain (K3) and smallest-k (K4) kernels on the card.
+"""Ablations of the FPS (K1), fusion-chain (K3), smallest-k (K4) and
+scatter-max (K5) kernels on the card.
 
     python -m usip_tpu_torch.ablate [--out FILE]
 
-Builds variant copies of ``csrc/fusion_chain.cu`` and ``csrc/smallest_k.cu``
+Builds variant copies of ``csrc/{fps,fusion_chain,smallest_k,scatter_max}.cu``
 (each a set of text patches on the shipped source, into
 ``build/usip_tpu_torch/ablate/``), binds each through the same ctypes entry
 point as the shipped kernel, and times it with CUDA-graph replay at the
-serving paths' shapes: K3 at (8, 512, 16, 131) -> (8, 512, 512) with the
-KITTI widths, K4 at (8, 512, 16384) k=64 on ball scores of an urban-like
-cloud. Variants that compute the function keep it (the result is checked
-against the shipped kernel's: within 1e-2 x max|out| for K3, identical for
-K4); variants that drop a part of the work (marked "timing only") show what
-that part costs. Prints one line per variant and, last, a JSON object of
-them all; exits nonzero without CUDA or if a variant's patch no longer
-applies.
+serving paths' shapes: K1 at (8, 2048) -> 512 picks on LiDAR-like clouds, K3
+at (8, 512, 16, 131) -> (8, 512, 512) with the KITTI widths, K4 at
+(8, 512, 16384) k=64 on ball scores of an urban-like cloud, K5 at both calls
+of a SOM forward, (8, 16384, 64) and (8, 16384, 128) onto 512 nodes. A
+variant may also force the kernel's form (K1's block size and points a
+thread, K5's cluster size) in place of ``kernels.fps_form`` or
+``kernels.scatter_max_form``. Variants that compute the function keep it
+(the result is checked against the shipped kernel's: within 1e-2 x max|out|
+for K3, identical for K1, K4 and K5); variants that drop a part of the work
+(marked "timing only") show what that part costs. Prints one line per
+variant and, last, a JSON object of them all; exits nonzero without CUDA or
+if a variant's patch no longer applies.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ import ctypes
 import json
 import subprocess
 import sys
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -33,9 +39,57 @@ from usip_tpu_torch.ops.grouping import ball_scores
 
 OUT_DIR = _build.BUILD_DIR / "ablate"
 
+
+class Variant(NamedTuple):
+    """One build of a kernel: its label, whether it drops part of the work
+    (timed, not checked), its text patches ``(old, new)`` on the shipped
+    source, and the form it is launched with (None: the wrapper's own)."""
+    label: str
+    timing_only: bool
+    patches: Tuple[Tuple[str, str], ...] = ()
+    form: Optional[tuple] = None
+
+
+# the step with no per-point work: the chain of reductions, barrier and
+# pick loads alone
+_FPS_CHAIN = (("    for (int j = 0; j < P; ++j) {\n      float x, y, z;",
+               "    for (int j = 0; j < (k < 0 ? P : 0); ++j) {\n"
+               "      float x, y, z;"),
+              ("    float bv = -1.0f;", "    float bv = fabsf(qx);"))
+_FPS_NO_BLOCK_STAGE = (
+    "      const Key all = warp_max_key(lane < nwarps ? slot[lane] : 0ull);\n"
+    "      cur = static_cast<int>(~static_cast<unsigned>(all));",
+    "      cur = static_cast<int>(slot[lane] >> 63);")
+K1_VARIANTS = tuple(Variant(*v) for v in (
+    ("shipped: 256 threads x 8 points in registers, redux, one barrier",
+     False),
+    ("the same block built for up to 1024 threads (64 registers)", False,
+     (("  if (threads <= kSmallBlock)", "  if (threads <= 0)"),)),
+    ("512 threads x 4 points", False, (), kernels.FpsForm(512, 4, True)),
+    ("1024 threads x 2 points", False, (), kernels.FpsForm(1024, 2, True)),
+    ("128 threads x 16 points", False, (), kernels.FpsForm(128, 16, True)),
+    ("128 threads x 16 points, coordinates in shared memory", False, (),
+     kernels.FpsForm(128, 16, False)),
+    ("five shuffle rounds on the key for redux", False,
+     (("constexpr bool kRedux = true;", "constexpr bool kRedux = false;"),)),
+    ("two barriers a step (warp 0 reduces, pick through shared memory)",
+     False, (("constexpr bool kOneBarrier = true;",
+              "constexpr bool kOneBarrier = false;"),)),
+    ("no distance update (min against |pick x|)", True,
+     (("sqdist(x, y, z, qx, qy, qz)", "fabsf(qx)"),)),
+    ("no per-point work: the step chain alone", True, _FPS_CHAIN),
+    ("the chain without the cross-warp stage", True,
+     _FPS_CHAIN + (_FPS_NO_BLOCK_STAGE,)),
+    ("the chain without the warp stage", True,
+     _FPS_CHAIN + (("    const Key wkey = warp_max_key(key);",
+                    "    const Key wkey = key;"),)),
+    ("the chain without the barrier", True,
+     _FPS_CHAIN + (("    __syncthreads();\n    if constexpr (kOneBarrier) {",
+                    "    if constexpr (kOneBarrier) {"),)),
+))
+
 _NO_MMA = ("      Wgmma<N>::mma(acc,", "      if (kp < 0) Wgmma<N>::mma(acc,")
-# (name, timing only, patches)
-K3_VARIANTS = (
+K3_VARIANTS = tuple(Variant(*v) for v in (
     ("shipped: clusters of 2, 4 stages", False, ()),
     ("no cluster (each block loads whole slices)", False,
      (("constexpr int kCluster = 2;", "constexpr int kCluster = 1;"),)),
@@ -63,8 +117,8 @@ K3_VARIANTS = (
        "            mbar_expect_tx(full0 + 8 * stage, 0);"),
       ("            bulk_multicast(ring_base",
        "            if (bytes == 0) bulk_multicast(ring_base"))),
-)
-K4_VARIANTS = (
+))
+K4_VARIANTS = tuple(Variant(*v) for v in (
     ("shipped: first pass with the loads, later passes on a list, "
      "candidates gathered in one scan", False, ()),
     ("candidates always by the two index-ordered scans", False,
@@ -77,32 +131,71 @@ K4_VARIANTS = (
     ("no candidate sort", True,
      (("  for (int size = 2; size <= len; size <<= 1) {",
        "  for (int size = 2; size <= (k < 0 ? len : 0); size <<= 1) {"),)),
-)
+))
+K5_VARIANTS = tuple(Variant(*v) for v in (
+    ("shipped: clusters of 4, 32-channel tiles, 8 points a thread in "
+     "flight, loads ahead of the atomics, one channel order", False),
+    ("clusters of 8", False, (), kernels.ScatterForm(8, 32)),
+    ("clusters of 2", False, (), kernels.ScatterForm(2, 32)),
+    ("no cluster: one block per (cloud, tile)", False, (),
+     kernels.ScatterForm(1, 32)),
+    ("channel order rotated by the lane group's slot (no bank conflicts)",
+     False, (("constexpr bool kRotate = false;",
+              "constexpr bool kRotate = true;"),)),
+    ("loads after the atomics", False,
+     (("constexpr bool kPrefetch = true;",
+       "constexpr bool kPrefetch = false;"),)),
+    ("4 points a thread in flight", False,
+     (("constexpr int kUnroll = 8;", "constexpr int kUnroll = 4;"),)),
+    ("plain shared stores for the atomics", True,
+     (("if (cb + ch < ct) atomicMax(cell + ch, e[q]);",
+       "if (cb + ch < ct) cell[ch] = e[q];"),)),
+    ("no points: launch, accumulator set-up and merge alone", True,
+     (("    for (; p0 < p_end; p0 += kStep) {",
+       "    for (; p0 < (n < 0 ? p_end : 0); p0 += kStep) {"),
+      ("    load(p0, cur);\n", ""))),
+))
+VARIANTS = {"fps": K1_VARIANTS, "fusion_chain": K3_VARIANTS,
+            "smallest_k": K4_VARIANTS, "scatter_max": K5_VARIANTS}
+KERNELS = tuple(VARIANTS)
+# the wrapper's form function that a variant's form replaces
+_FORM_FNS = {"fps": "fps_form", "scatter_max": "scatter_max_form"}
+
+
+def patched_source(name, variant):
+    """The text of ``csrc/<name>.cu`` with ``variant``'s patches applied;
+    raises if a patch no longer occurs in the shipped source."""
+    text = (_build.CSRC / f"{name}.cu").read_text()
+    for old, new in variant.patches:
+        if old not in text:
+            raise SystemExit(f"{name}: the patch of variant "
+                             f"{variant.label!r} no longer applies: {old!r}")
+        text = text.replace(old, new)
+    return text
 
 
 def _build_variants(name, variants):
-    src = (_build.CSRC / f"{name}.cu").read_text()
+    """One library per distinct patch set (variants that differ only in
+    their form share the shipped build), nvcc side by side."""
     OUT_DIR.mkdir(parents=True, exist_ok=True)
-    procs = []
-    for i, (label, _, patches) in enumerate(variants):
-        text = src
-        for old, new in patches:
-            if old not in text:
-                raise SystemExit(f"{name}: the patch of variant {label!r} "
-                                 f"no longer applies: {old!r}")
-            text = text.replace(old, new)
-        path = OUT_DIR / f"{name}_{i}.cu"
-        path.write_text(text)
-        procs.append(subprocess.Popen(
-            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o",
-             str(path.with_suffix(".so")), str(path)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    for (label, _, _), proc in zip(variants, procs):
+    builds = {}
+    for v in variants:
+        if v.patches in builds:
+            continue
+        path = OUT_DIR / f"{name}_{len(builds)}.cu"
+        path.write_text(patched_source(name, v))
+        lib = path.with_suffix(".so")
+        proc = subprocess.Popen(
+            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(lib),
+             str(path)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        builds[v.patches] = (lib, v.label, proc)
+    for _, label, proc in builds.values():
         out, _ = proc.communicate()
         if proc.returncode:
             raise SystemExit(f"{name}: variant {label!r} failed to build:\n"
                              f"{out}")
-    return [OUT_DIR / f"{name}_{i}.so" for i in range(len(variants))]
+    return [builds[v.patches][0] for v in variants]
 
 
 def _bind(name, lib):
@@ -140,35 +233,81 @@ def graph_ms(fn, iters=20, replays=5):
 
 def _run(name, variants, call, same):
     libs = _build_variants(name, variants)
+    form_fn = _FORM_FNS.get(name)
+    shipped_form = getattr(kernels, form_fn) if form_fn else None
     rows, ref = [], None
-    for (label, timing_only, _), lib in zip(variants, libs):
-        _bind(name, lib)
-        out = call()
-        torch.cuda.synchronize()
-        if ref is None:
-            ref = out
-        ok = None if timing_only else bool(same(out, ref))
-        ms = graph_ms(call)
-        rows.append({"kernel": name, "variant": label, "ms": ms,
-                     "timing_only": timing_only, "same_result": ok})
-        print(f"{name}: {label}: {ms:.4f} ms"
-              + (" (timing only)" if timing_only else
-                 f", same result {ok}"), flush=True)
-        if ok is False:
-            raise SystemExit(f"{name}: variant {label!r} changed the result")
-    kernels._FNS.pop(name, None)
+    try:
+        for v, lib in zip(variants, libs):
+            _bind(name, lib)
+            if v.form is not None:
+                setattr(kernels, form_fn, lambda *_, f=v.form: f)
+            elif form_fn:
+                setattr(kernels, form_fn, shipped_form)
+            out = call()
+            torch.cuda.synchronize()
+            if ref is None:
+                ref = out
+            ok = None if v.timing_only else bool(same(out, ref))
+            ms = graph_ms(call)
+            rows.append({"kernel": name, "variant": v.label, "ms": ms,
+                         "timing_only": v.timing_only, "same_result": ok})
+            print(f"{name}: {v.label}: {ms:.4f} ms"
+                  + (" (timing only)" if v.timing_only else
+                     f", same result {ok}"), flush=True)
+            if ok is False:
+                raise SystemExit(f"{name}: variant {v.label!r} changed the "
+                                 "result")
+    finally:
+        kernels._FNS.pop(name, None)
+        if form_fn:
+            setattr(kernels, form_fn, shipped_form)
     return rows
+
+
+def _same(a, b):
+    return all(torch.equal(x, y) for x, y in zip(a, b))
 
 
 def main(argv=None):
     parser = argparse.ArgumentParser(prog="usip_tpu_torch.ablate")
     parser.add_argument("--out", default=None,
                         help="also write the JSON object to this file")
+    parser.add_argument("--kernels", nargs="+", default=list(KERNELS),
+                        choices=KERNELS, help="the kernels to ablate")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("ablate: CUDA is not available; this runs only on a GPU")
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
+    rows = []
+    for name in args.kernels:
+        rows += _ABLATIONS[name](dev)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    result = {"card": smi.splitlines()[0] if smi else "unknown",
+              "variants": rows}
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(result, f, indent=1)
+    print(json.dumps(result), flush=True)
+
+
+def _ablate_fps(dev):
+    # LiDAR-like clouds: xy over a 40 m disc, z near the ground
+    rng = np.random.default_rng(0)
+    r = 40.0 * np.sqrt(rng.uniform(size=(8, 2048)))
+    t = rng.uniform(0, 2 * np.pi, size=(8, 2048))
+    pts = torch.from_numpy(np.stack(
+        [r * np.cos(t), r * np.sin(t), rng.normal(0, 1.5, (8, 2048))],
+        -1).astype(np.float32)).to(dev)
+    first = torch.from_numpy(rng.integers(0, 2048, 8).astype(
+        np.int32)).to(dev)
+    return _run("fps", K1_VARIANTS, lambda: kernels.fps(pts, first, 512),
+                torch.equal)
+
+
+def _ablate_fusion_chain(dev):
     rng = np.random.default_rng(0)
     cin, c, c2 = 131, 256, 512
     dims = [(cin, c), (c, c), (c, c), (c, c2), (c, c2), (c2, c2)]
@@ -180,10 +319,14 @@ def main(argv=None):
     chain = kernels.prepare_chain(ws, bs)
     x = torch.from_numpy(np.abs(rng.normal(size=(8, 512, 16, cin)))
                          .astype(np.float32)).to(dev)
-    rows = _run("fusion_chain", K3_VARIANTS,
+    return _run("fusion_chain", K3_VARIANTS,
                 lambda: kernels.fusion_chain(x, chain),
                 lambda a, b: float((a - b).abs().max())
                 <= 1e-2 * float(b.abs().max()))
+
+
+def _ablate_smallest_k(dev):
+    rng = np.random.default_rng(1)
     # an urban-like cloud: ground with range-falling density and points
     # scattered up to 4 m high, so that some 2 m balls hold fewer than 64
     # points (+inf picks)
@@ -196,19 +339,24 @@ def main(argv=None):
     pc = torch.from_numpy(rng.permuted(np.concatenate([ground, poles], 1),
                                        axis=1).astype(np.float32)).to(dev)
     scores = ball_scores(pc, pc[:, :512].contiguous(), 2.0)
-    rows += _run("smallest_k", K4_VARIANTS,
-                 lambda: kernels.smallest_k(scores, 64),
-                 lambda a, b: torch.equal(a[0], b[0])
-                 and torch.equal(a[1], b[1]))
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60).stdout.strip()
-    result = {"card": smi.splitlines()[0] if smi else "unknown",
-              "variants": rows}
-    if args.out:
-        with open(args.out, "w") as f:
-            json.dump(result, f, indent=1)
-    print(json.dumps(result), flush=True)
+    return _run("smallest_k", K4_VARIANTS,
+                lambda: kernels.smallest_k(scores, 64), _same)
+
+
+def _ablate_scatter_max(dev):
+    # both calls of a SOM forward, C=64 and C=128, uniform ids onto 512 nodes
+    rng = np.random.default_rng(2)
+    ids = torch.from_numpy(rng.integers(0, 512, size=(8, 16384))).to(dev)
+    fs = [torch.from_numpy(rng.normal(size=(8, 16384, c)).astype(
+        np.float32)).to(dev) for c in (64, 128)]
+    return _run("scatter_max", K5_VARIANTS,
+                lambda: tuple(kernels.scatter_max(f, ids, 512) for f in fs),
+                _same)
+
+
+_ABLATIONS = {"fps": _ablate_fps, "fusion_chain": _ablate_fusion_chain,
+              "smallest_k": _ablate_smallest_k,
+              "scatter_max": _ablate_scatter_max}
 
 
 if __name__ == "__main__":

@@ -46,22 +46,34 @@ _SMALLEST_K_STATIC = 256
 # row length that the smallest-k contract pads to (the TPU's lane width):
 # picks past the row's end, up to this padding, are clamped to N-1
 _LANES = 128
-# channels one scatter-max block accumulates (csrc/scatter_max.cu kTile)
-_SCATTER_TILE = 8
+# the longest cloud the FPS wrapper takes (16 bytes a point in one block's
+# shared memory; the kernel needs 12)
+FPS_MAX_S = _MAX_SMEM // 16
+# most points one FPS thread keeps with their coordinates in registers, and
+# the larger count of the form that reads coordinates from shared memory
+_FPS_REG_POINTS = 8
+_FPS_SMEM_POINTS = 16
+# most blocks of one scatter-max cluster (the portable cluster size), and the
+# fewest points each of them should take
+_SCATTER_MAX_CLUSTER = 8
+_SCATTER_MIN_CHUNK = 4096
+# channel tiles of one scatter-max block, widest first (csrc/scatter_max.cu)
+_SCATTER_TILES = (32, 16, 8)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # points, first, out, B, S, k, stream
-    "fps": ("usip_fps", [_P, _P, _P, _I, _I, _I, _P]),
+    # points, first, out, B, S, k, threads, points a thread, registers,
+    # stream
+    "fps": ("usip_fps", [_P, _P, _P] + [_I] * 6 + [_P]),
     # points, nodes, mins, idx, B, N, M, round_bf16, stream
     "min_argmin": ("usip_min_argmin", [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
     # x, packed weights, b1, b2, b3, b4, b5, out, BM, K, Cin, C, C2, stream
     "fusion_chain": ("usip_fusion_chain", [_P] * 8 + [_I] * 5 + [_P]),
     # scores, vals, idx, rows, N, k, stream
     "smallest_k": ("usip_smallest_k", [_P, _P, _P, _I, _I, _I, _P]),
-    # f, ids, out, B, N, M, C, stream
-    "scatter_max": ("usip_scatter_max", [_P, _P, _P, _I, _I, _I, _I, _P]),
+    # f, ids, out, B, N, M, C, cluster, tile, vec, stream
+    "scatter_max": ("usip_scatter_max", [_P, _P, _P] + [_I] * 7 + [_P]),
 }
 _FNS = {}
 
@@ -143,11 +155,43 @@ def fps_plain(points: Tensor, first: Tensor, k: int) -> Tensor:
     return picks.int()
 
 
+class FpsForm(NamedTuple):
+    """The form of one ``csrc/fps.cu`` block: ``threads`` (a multiple of
+    32, at most 1024) times ``points_per_thread`` covers the cloud;
+    ``in_registers``: the points' coordinates sit in registers, else they
+    are read from shared memory every step."""
+    threads: int
+    points_per_thread: int
+    in_registers: bool
+
+
+def fps_form(s: int) -> FpsForm:
+    """The FPS kernel's form for clouds of ``s`` points: with their
+    coordinates in registers, the fewest points a thread (a power of two,
+    at most 8) that one warp covers, then the fewest warps that cover the
+    cloud: 256 threads of 8 points at S=2048, 1024 at S=8192; past 8192
+    points, 16 points a thread with the coordinates in shared memory (a
+    thread's registers hold only their running minimum), 928 threads at the
+    largest S. ``s`` above ``FPS_MAX_S`` raises."""
+    if not 1 <= s <= FPS_MAX_S:
+        raise ValueError(f"fps: S={s} must lie in [1, {FPS_MAX_S}] (one "
+                         "block's shared memory)")
+    if s <= 1024 * _FPS_REG_POINTS:
+        ppt = 1
+        while ppt < _FPS_REG_POINTS and 32 * ppt < s:
+            ppt *= 2
+        in_registers = True
+    else:
+        ppt, in_registers = _FPS_SMEM_POINTS, False
+    return FpsForm(-(-s // (32 * ppt)) * 32, ppt, in_registers)
+
+
 def fps(points: Tensor, first: Tensor, k: int) -> Tensor:
     """FPS picks ``(B, k)`` int32; kernel ``csrc/fps.cu`` for CUDA tensors.
 
-    Counterpart of ``pallas_kernels.fps_pallas``: one block per cloud with the
-    cloud and its distance row in shared memory.
+    Counterpart of ``pallas_kernels.fps_pallas``: one block per cloud, each
+    thread's points and running minimum in registers (``fps_form``), one
+    barrier a step.
     """
     if points.device.type == "cpu":
         return fps_plain(points, first, k)
@@ -157,16 +201,15 @@ def fps(points: Tensor, first: Tensor, k: int) -> Tensor:
     _check(first, "first", torch.int32, (b,), dev)
     if not 1 <= k <= s:
         raise ValueError(f"fps: k={k} must lie in [1, S={s}]")
-    if 16 * s > _MAX_SMEM:
-        raise ValueError(f"fps: S={s} points do not fit one block's shared "
-                         "memory")
+    form = fps_form(s)
     # the seed rows index shared memory: check them on the device (an
     # asynchronous assert, like PyTorch's own index checks), no host sync
     torch._assert_async(((first >= 0) & (first < s)).all())
     out = torch.empty((b, k), dtype=torch.int32, device=dev)
     if b:
         _launch("fps", dev, points.data_ptr(), first.data_ptr(),
-                out.data_ptr(), b, s, k)
+                out.data_ptr(), b, s, k, form.threads,
+                form.points_per_thread, int(form.in_registers))
     return out
 
 
@@ -538,11 +581,36 @@ def scatter_max_plain(f: Tensor, ids: Tensor, m: int) -> Tensor:
                               "amax", include_self=False)
 
 
+class ScatterForm(NamedTuple):
+    """The form of a ``csrc/scatter_max.cu`` launch: ``cluster`` blocks
+    split the points of one (cloud, tile of ``tile`` channels)."""
+    cluster: int
+    tile: int
+
+
+def scatter_max_form(n: int, m: int) -> ScatterForm:
+    """The scatter-max kernel's form for ``n`` points a cloud onto ``m``
+    nodes: the widest channel tile whose ``(m, tile)`` int32 accumulator
+    fits one block's shared memory (32 channels up to 1816 nodes, 16, then
+    8); as many blocks a cluster (a power of two, at most 8) as give each at
+    least 4096 points (4 at N=16384, 1 below N=8192). An ``m`` that fits no
+    tile raises."""
+    if m < 1 or 4 * _SCATTER_TILES[-1] * m > _MAX_SMEM:
+        raise ValueError(f"scatter_max: M={m} nodes must be >= 1 and fit one "
+                         "block's shared memory")
+    tile = next(t for t in _SCATTER_TILES if 4 * t * m <= _MAX_SMEM)
+    ns = 1
+    while ns < _SCATTER_MAX_CLUSTER and 2 * ns * _SCATTER_MIN_CHUNK <= n:
+        ns *= 2
+    return ScatterForm(ns, tile)
+
+
 def scatter_max(f: Tensor, ids: Tensor, m: int) -> Tensor:
     """Masked scatter-max onto nodes; kernel ``csrc/scatter_max.cu`` for CUDA
     tensors (counterpart of ``scripts/bench_scatter_pallas.py
-    scatter_max_pallas``): one block per (cloud, 8 channels) with the node
-    accumulator in shared memory. ``f`` fp32, ``ids`` int64; an id outside
+    scatter_max_pallas``): clusters of blocks per (cloud, channel tile), each
+    block's node accumulator in shared memory, merged across the cluster
+    (``scatter_max_form``). ``f`` fp32, ``ids`` int64; an id outside
     ``[0, m)`` fails a device assertion."""
     if f.device.type == "cpu":
         return scatter_max_plain(f, ids, m)
@@ -552,11 +620,11 @@ def scatter_max(f: Tensor, ids: Tensor, m: int) -> Tensor:
     b, n, c = f.shape
     _check(f, "f", torch.float32, (b, n, c), dev)
     _check(ids, "ids", torch.int64, (b, n), dev)
-    if m < 1 or 4 * _SCATTER_TILE * m > _MAX_SMEM:
-        raise ValueError(f"scatter_max: M={m} nodes must be >= 1 and fit one "
-                         "block's shared memory")
+    form = scatter_max_form(n, m)
     out = torch.empty((b, m, c), dtype=torch.float32, device=dev)
+    # float4 loads and stores where every row segment is 16-byte aligned
+    vec = c % 4 == 0 and f.data_ptr() % 16 == 0
     if b and c:
         _launch("scatter_max", dev, f.data_ptr(), ids.data_ptr(),
-                out.data_ptr(), b, n, m, c)
+                out.data_ptr(), b, n, m, c, form.cluster, form.tile, int(vec))
     return out
