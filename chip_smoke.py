@@ -10,10 +10,12 @@ script exits nonzero without the final ``ok`` line:
 1. builds the five CUDA kernels from ``usip_tpu_torch/csrc`` into a clean
    build directory, one nvcc each, side by side;
 2. holds each kernel against its plain PyTorch version on the card at the
-   serving paths' shapes (FPS, min/argmin, smallest-k and scatter-max
+   main paths' shapes (FPS, min/argmin, smallest-k and scatter-max
    exactly, the fused chain within a stated tolerance): FPS on LiDAR-like
-   clouds, an urban-like subset and duplicated points, scatter-max on
-   uniform ids and on the SOM trunk's own assignment ids;
+   clouds, an urban-like subset and duplicated points, min/argmin at the
+   serve and train assignments and the train step's keypoint -> cloud and
+   keypoint chamfer in both modes, scatter-max on uniform ids and on the
+   SOM trunk's own assignment ids;
 3. runs the whole fp32 forward at full width (B=2) on the card and on the
    CPU with the same seeded weights, draws and input, and compares: the
    KITTI SOM detector, the Oxford ball detector and its knn twin;
@@ -25,10 +27,21 @@ script exits nonzero without the final ``ok`` line:
 5. times each kernel against its plain version and, where one PyTorch call
    computes the same function, that call (``torch.topk`` for smallest-k,
    ``scatter_reduce`` for scatter-max: yardsticks the port never calls;
-   scatter-max also on assignment ids),
+   scatter-max also on assignment ids; min/argmin at each of its four
+   shapes, beside its bound and its instruction floor),
    computes each kernel's bound from its shapes and the card's published
    peaks, times the stages of the batch-8 forwards, detect clouds/s with
-   the bench protocol (bf16 presets) and the ball path's peak memory.
+   the bench protocol (bf16 presets) and the ball path's peak memory;
+6. trains the KITTI SOM detector at full width (batch 8: 16 clouds of
+   16384 points, bf16 trunk): five steps of
+   ``usip_tpu_torch.train.make_detector_train_step`` on seeded synthetic
+   parent clouds with the launch counts reset before and read after (the
+   train path must launch FPS, min/argmin, smallest-k and scatter-max),
+   every loss and gradient norm finite; one fp32 step (batch 2) on the
+   card against the same step on the CPU (loss within 1e-4, gradient norm
+   within 1e-3, relative; each parameter's gradient within ``GRAD_TOL``);
+   then the step time, train clouds/s and the step's split into data prep,
+   forward, losses, backward and optimizer (the parts run one by one).
 
 The second-to-last line is a JSON object with one entry per kernel (time,
 plain and library times, bound, launches); the last is ``{"ok": true,
@@ -58,13 +71,32 @@ from usip_tpu_torch.models.detector import knn_group  # noqa: E402
 from usip_tpu_torch.models.fused_infer import detector_infer_fused  # noqa: E402
 from usip_tpu_torch.ops import kernels, pairwise_sqdist, sample_nodes  # noqa: E402
 from usip_tpu_torch.ops.grouping import ball_scores, ball_select  # noqa: E402
+from usip_tpu_torch.train import (ParentBatch, TrainState,  # noqa: E402
+                                  make_detector_train_step)
+from usip_tpu_torch.train import steps as train_steps  # noqa: E402
 from usip_tpu_torch.weights import seeded_state_dict  # noqa: E402
 
 B_BENCH = 8
 SEED = 0
 # published peaks of an H100 SXM (NVIDIA's data sheet, dense, at 700 W):
-# device memory bytes/s, bf16 tensor-core and fp32 FLOP/s
+# device memory bytes/s, bf16 tensor-core and fp32 FLOP/s; its SMs, fp32
+# lanes an SM and boost clock, for an issue-slot floor
 HBM_BPS, BF16_FLOPS, FP32_FLOPS = 3.35e12, 989e12, 67e12
+SMS, FP32_LANES, CLOCK_HZ = 132, 128, 1.98e9
+# min/argmin's instructions a (query, candidate) pair: 8 for the distance
+# (no FMA: three products, two sums, the doubling, a difference and a sum),
+# then in bf16 half a packed round-and-clamp, half an AND, a key and a min;
+# in fp32 a clamp, a compare and two selects
+K2_INSTR = {True: 11.0, False: 12.0}
+# min/argmin's four main-path shapes (B, N, M, bf16): the serve assignment
+# (the JSON line's time), the train step's assignment, keypoint -> cloud and
+# keypoint chamfer
+K2_SHAPES = {"serve (8, 16384) x 512 bf16": (8, 16384, 512, True),
+             "train (16, 16384) x 512 bf16": (16, 16384, 512, True),
+             "keypoint->cloud (8, 512) x 16384 fp32": (8, 512, 16384, False),
+             "chamfer (8, 512) x 512 fp32": (8, 512, 512, False),
+             # the serve shape in the fp32 mode, for comparison
+             "(8, 16384) x 512 fp32": (8, 16384, 512, False)}
 
 
 def bound(nbytes, flops, peak):
@@ -73,6 +105,20 @@ def bound(nbytes, flops, peak):
     rate and the operations over their peak; and which of the two sets it."""
     t_bytes, t_ops = nbytes / HBM_BPS * 1e3, flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def min_argmin_bound(b, n, m):
+    """K2's bound: points and candidates read, a min and an index written;
+    p.n (5), p^2 - 2 p.n + n^2 (2 more) and the compare, 8 FLOP a pair."""
+    return bound(b * n * 12 + b * m * 12 + b * n * 8, 8 * b * n * m,
+                 FP32_FLOPS)
+
+
+def min_argmin_floor(b, n, m, bf16):
+    """K2's issue-slot floor in ms: its instructions a pair (``K2_INSTR``,
+    no FMA allowed by the bit-identical contract) over every fp32 lane of
+    the card at its boost clock."""
+    return b * n * m * K2_INSTR[bf16] / (SMS * FP32_LANES * CLOCK_HZ) * 1e3
 
 
 def kernel_bounds(c1, c2, k_node):
@@ -88,9 +134,7 @@ def kernel_bounds(c1, c2, k_node):
         # 8 FLOP per point and step (3 differences, 3 squares, 2 sums)
         "fps": bound(b * s * 12 + b * 4 + b * kf * 4,
                      8 * b * (kf - 1) * s, FP32_FLOPS),
-        # p.n (5) and p^2 - 2 p.n + n^2 (2 more), the compare: 8 per pair
-        "min_argmin": bound(b * n * 12 + b * m * 12 + b * n * 8,
-                            8 * b * n * m, FP32_FLOPS),
+        "min_argmin": min_argmin_bound(b, n, m),
         "fusion_chain": bound(chain_bytes, chain_flops, BF16_FLOPS),
         # the (8, 512, 16384) scores read once, k=64 values and indices
         "smallest_k": bound(b * m * n * 4 + b * m * 64 * 8, 0, FP32_FLOPS),
@@ -108,7 +152,18 @@ PATH_KERNELS = {
     "som": ("fps", "min_argmin", "scatter_max", "fusion_chain", "smallest_k"),
     "ball": ("fps", "smallest_k", "fusion_chain"),
     "knn": ("fps", "smallest_k", "fusion_chain"),
+    "train": ("fps", "min_argmin", "scatter_max", "smallest_k"),
 }
+# train steps in the train path's counted run
+TRAIN_STEPS = 5
+# the fp32 train step's gradients, card against CPU, parameter by parameter:
+# the floor (a fraction of the largest gradient) under which a gradient is
+# rounding noise, max|diff| over max(max|g|, floor), the least cosine. On an
+# H100 the 12 noise gradients lay at or below 8e-8 of the largest, the 34
+# others at or above 1.4e-3; the worst error was 1.7e-2 (the fp32 forward
+# itself differs by up to 9e-4 of max|keypoint|, phase 3, and a train-mode
+# BatchNorm backward amplifies that) and the lowest cosine 0.999982
+GRAD_TOL = (1e-4, 5e-2, 0.9999)
 
 
 def check(cond, msg):
@@ -273,25 +328,26 @@ def phase2(cfg):
         worst = max(worst, int((got - ref).abs().max()))
     errs["fps"] = float(worst)
 
-    # K2: (8, 16384) points x (8, 512) nodes taken from them
-    pc, _ = kitti_cloud(rng, B_BENCH, 16384)
-    pc = torch.from_numpy(pc).to(dev)
-    sel = torch.from_numpy(np.stack([rng.choice(16384, 512, replace=False)
-                                     for _ in range(B_BENCH)])).to(dev)
-    nodes = torch.gather(pc, 1, sel[..., None].expand(-1, -1, 3)).contiguous()
+    # K2 at its four shapes, each in both modes: LiDAR-like clouds against
+    # 512 nodes taken from them (the serve and train assignments), keypoints
+    # near the nodes against the cloud and against other keypoints
     worst = 0.0
-    for bf16 in (False, True):
-        mins, idx = kernels.min_argmin(pc, nodes, bf16)
-        rmins, ridx = kernels.min_argmin_plain(pc, nodes, bf16)
-        sync()
-        mism = int((idx != ridx).sum())
-        err = float((mins - rmins).abs().max())
-        print(f"[2] K2 min_argmin round_bf16={bf16}: (8, 16384) x 512, "
-              f"{mism} argmins differ, max |min diff| {err}", flush=True)
-        check(mism == 0, f"min_argmin round_bf16={bf16} argmin identical")
-        check(torch.equal(mins, rmins), f"min_argmin round_bf16={bf16} "
-              "mins bit-identical")
-        worst = max(worst, err)
+    for label, (b, n, m, _) in K2_SHAPES.items():
+        pts, cand = k2_inputs(rng, b, n, m, dev)
+        for bf16 in (False, True):
+            mins, idx = kernels.min_argmin(pts, cand, bf16)
+            rmins, ridx = kernels.min_argmin_plain(pts, cand, bf16)
+            sync()
+            mism = int((idx != ridx).sum())
+            err = float((mins - rmins).abs().max())
+            print(f"[2] K2 min_argmin {label}, round_bf16={bf16}: {mism} "
+                  f"argmins differ, max |min diff| {err}", flush=True)
+            check(mism == 0, f"min_argmin {label} round_bf16={bf16} argmin "
+                  "identical")
+            check(torch.equal(mins, rmins), f"min_argmin {label} "
+                  f"round_bf16={bf16} mins identical")
+            worst = max(worst, err)
+        del pts, cand
     errs["min_argmin"] = worst
 
     # K3: (8, 512, 16, 131) with the seeded detector's folded weights
@@ -384,6 +440,29 @@ def phase2(cfg):
             worst = max(worst, err)
     errs["scatter_max"] = worst
     return errs
+
+
+def k2_inputs(rng, b, n, m, dev):
+    """K2's queries and candidates at ``(b, n) x m``: where the queries are
+    LiDAR-like clouds (n > m), 512 nodes drawn from them; where they are
+    512 keypoints, nodes of a cloud moved by N(0, 0.3^2), against the cloud
+    (m = 16384) or against another such set of keypoints (m = 512)."""
+    if n > m:
+        pc = torch.from_numpy(kitti_cloud(rng, b, n)[0]).to(dev)
+        sel = torch.from_numpy(np.stack([rng.choice(n, m, replace=False)
+                                         for _ in range(b)])).to(dev)
+        return pc, torch.gather(pc, 1, sel[..., None].expand(-1, -1, 3)
+                                ).contiguous()
+    pc = torch.from_numpy(kitti_cloud(rng, b, 16384)[0]).to(dev)
+
+    def keypoints():
+        sel = torch.from_numpy(np.stack([rng.choice(16384, n, replace=False)
+                                         for _ in range(b)])).to(dev)
+        near = torch.gather(pc, 1, sel[..., None].expand(-1, -1, 3))
+        return (near + torch.from_numpy(rng.normal(0, 0.3, (b, n, 3)).astype(
+            np.float32)).to(dev)).contiguous()
+
+    return keypoints(), (pc if m == 16384 else keypoints())
 
 
 def assignment_ids(rng, dev):
@@ -596,6 +675,28 @@ def phase5(pipes, card):
         time_ms(lambda: kernels.min_argmin_plain(pc, nodes, True), 10))
     events["min_argmin"] = time_ms(
         lambda: kernels.min_argmin(pc, nodes, True), 50)
+    # K2 at each of its shapes, beside its bound and issue-slot floor
+    k2 = {}
+    for label, (b, n, m, bf16) in K2_SHAPES.items():
+        pts, cand = k2_inputs(rng, b, n, m, dev)
+        run = lambda p=pts, c=cand, f=bf16: kernels.min_argmin(p, c, f)  # noqa: E731
+        plain = lambda p=pts, c=cand, f=bf16: kernels.min_argmin_plain(  # noqa: E731
+            p, c, f)
+        bnd = min_argmin_bound(b, n, m)
+        # measured times and the bound only: the issue-slot floor (a count
+        # of instructions, not a measurement) and the host's form are printed
+        k2[label] = {"ms": graph_ms(run, 50), "plain_ms": time_ms(plain, 5),
+                     "events_ms": time_ms(run, 50), "bound_ms": bnd[0],
+                     "bound_by": bnd[1]}
+        print(f"[5] {card} | min_argmin {label}: kernel "
+              f"{k2[label]['ms']:.4f} ms (back-to-back events "
+              f"{k2[label]['events_ms']:.4f} ms), plain "
+              f"{k2[label]['plain_ms']:.4f} ms, bound {bnd[0]:.4f} ms by "
+              f"{bnd[1]}, issue-slot floor "
+              f"{min_argmin_floor(b, n, m, bf16):.4f} ms "
+              f"({K2_INSTR[bf16]:g} instructions a pair), form "
+              f"{list(kernels.min_argmin_form(b, n, m))}", flush=True)
+        del pts, cand
 
     chain = pipes["som"]._chain
     grouped = torch.from_numpy(np.abs(rng.normal(
@@ -755,7 +856,189 @@ def phase5(pipes, card):
         print(f"[5] {card} | detect {tag} (oxford) bf16 batch 8: {rate:.2f} "
               f"clouds/s ({ms:.3f} ms per batch, best of 3 x 50); peak "
               f"memory {peak:.0f} MiB", flush=True)
-    return times, library, bounds, knn_ms, events
+    return times, library, bounds, knn_ms, events, k2
+
+
+def train_state(cfg, device):
+    return TrainState.create(seeded_detector(cfg, device), cfg.train.lr)
+
+
+def parent_batch(rng, cfg, b, device):
+    pc, sn = kitti_cloud(rng, b, cfg.data.parent_pc_num)
+    return ParentBatch(torch.from_numpy(pc).to(device),
+                       torch.from_numpy(sn).to(device))
+
+
+def split_step(cfg, state, batch, gen):
+    """The body of make_detector_train_step at epoch 0, part by part, with
+    a CUDA event recorded before the first part and after each (timing
+    only): the events."""
+    model, opt = state.model, state.optimizer
+    ev = [torch.cuda.Event(enable_timing=True)]
+    ev[0].record()
+
+    def mark():
+        ev.append(torch.cuda.Event(enable_timing=True))
+        ev[-1].record()
+
+    src, dst, gt = train_steps._prepare_detector_inputs(batch, cfg, True,
+                                                        None, gen)
+    mark()
+    opt.zero_grad(set_to_none=True)
+    src_out, dst_out = train_steps._siamese_apply(model, src, dst, True,
+                                                  cfg.train.bn_momentum)
+    mark()
+    total, _ = train_steps._detector_losses(cfg, src_out, dst_out, src[0],
+                                            src[1], dst[0], dst[1], gt)
+    mark()
+    total.backward()
+    train_steps.global_norm(p.grad for p in model.parameters())
+    mark()
+    opt.step()
+    state.step += 1
+    mark()
+    return ev
+
+
+def phase6(card):
+    """The train path: five full-width steps with the launch counts reset
+    before and read after; one fp32 step on the card against the CPU; the
+    step's time and split."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(6)
+    # the KITTI preset as it trains: batch 8 parents of 20480 points, two
+    # 16384-point siamese copies each, bf16 trunk
+    cfg = get_config("kitti")
+    b = cfg.train.batch_size
+    batch = parent_batch(rng, cfg, b, dev)
+    state = train_state(cfg, dev)
+    step = make_detector_train_step(cfg)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    kernels.reset_launch_counts()
+    history = [step(state, batch, 0, generator=gen)
+               for _ in range(TRAIN_STEPS)]
+    sync()
+    launches = dict(kernels.LAUNCHES)
+    losses = [float(h["loss"]) for h in history]
+    norms = [float(h["grad_norm"]) for h in history]
+    print(f"[6] train kitti bf16 batch {b} ({2 * b} clouds of "
+          f"{cfg.data.input_pc_num} points), {TRAIN_STEPS} steps: losses "
+          f"{losses}, grad norms {norms}; launches {launches}", flush=True)
+    check(all(np.isfinite(losses + norms)), "train losses and gradient "
+          "norms finite")
+    check(all(all(bool(torch.isfinite(v)) for v in h.values())
+              for h in history), "every train metric finite")
+    for name in PATH_KERNELS["train"]:
+        check(launches[name] > 0, f"kernel {name} launched on the train "
+              "path")
+
+    # one fp32 step, batch 2, on the card and on the CPU (plain versions)
+    # from the same weights, parents and draws (a CPU generator on both):
+    # the metrics, and every parameter's gradient
+    cfg32 = get_config("kitti", **{"detector.compute_dtype": "float32"})
+    batch2 = parent_batch(rng, cfg32, 2, "cpu")
+    res, grads = {}, {}
+    for device in ("cuda", "cpu"):
+        st = train_state(cfg32, device)
+        res[device] = make_detector_train_step(cfg32)(
+            st, ParentBatch(*(t.to(device) for t in batch2)), 0,
+            generator=torch.Generator().manual_seed(SEED + 1))
+        grads[device] = {n: p.grad.detach().double().cpu() for n, p in
+                         st.model.named_parameters() if p.grad is not None}
+    gpu, cpu = ({k: float(v) for k, v in res[d].items()}
+                for d in ("cuda", "cpu"))
+    rel = {k: abs(gpu[k] - cpu[k]) / max(abs(cpu[k]), 1e-30) for k in cpu}
+    print(f"[6] train kitti fp32 batch 2, one step on the card and on the "
+          f"CPU: card {json.dumps(gpu)}, CPU {json.dumps(cpu)}, relative "
+          f"differences {json.dumps(rel)} (tolerance: loss and its parts "
+          "1e-4, grad_norm 1e-3)", flush=True)
+    # per parameter: max|card - CPU| over its max|CPU gradient|, that max
+    # floored at GRAD_TOL[0] of the largest gradient (a gradient below it is
+    # rounding noise: a conv bias ahead of a train-mode BatchNorm, whose
+    # gradient is 0, or one whose shift BatchNorm all but removes), and the
+    # cosine where the gradient is above the floor
+    check(set(grads["cuda"]) == set(grads["cpu"]), "the same parameters "
+          "have gradients on the card and on the CPU")
+    gmax = max(float(g.abs().max()) for g in grads["cpu"].values())
+    leaf = {}
+    for n, ref in grads["cpu"].items():
+        scale = float(ref.abs().max()) / gmax
+        err = float((grads["cuda"][n] - ref).abs().max()) / (
+            max(scale, GRAD_TOL[0]) * gmax)
+        cos = float(torch.nn.functional.cosine_similarity(
+            grads["cuda"][n].flatten(), ref.flatten(), 0)) \
+            if scale >= GRAD_TOL[0] else None
+        leaf[n] = (scale, err, cos)
+    worst = max((e, n) for n, (_, e, _) in leaf.items())
+    low = min((c, n) for n, (_, _, c) in leaf.items() if c is not None)
+    noise = sum(c is None for *_, c in leaf.values())
+    print(f"[6] train kitti fp32 batch 2, gradients card against CPU, "
+          f"{len(leaf)} parameters ({noise} below {GRAD_TOL[0]:g} of the "
+          f"largest): worst max|diff| over "
+          f"max(max|g|, the floor) {worst[0]:.3e} ({worst[1]}), lowest cosine "
+          f"{low[0]:.9f} ({low[1]}) (tolerance: {GRAD_TOL[1]:g}, cosine >= "
+          f"{GRAD_TOL[2]}); by parameter [name, max|g| / largest, error, "
+          "cosine]: " + json.dumps([[n, round(a, 8), round(e, 8),
+                                     None if c is None else round(c, 10)]
+                                    for n, (a, e, c) in leaf.items()]),
+          flush=True)
+    for k, r in rel.items():
+        check(r <= (1e-3 if k == "grad_norm" else 1e-4),
+              f"fp32 train step {k} on the card within tolerance of the CPU")
+    check(worst[0] <= GRAD_TOL[1] and low[0] >= GRAD_TOL[2], "fp32 train "
+          "step gradients on the card within tolerance of the CPU, parameter "
+          "by parameter")
+
+    # the step's time (host clock over pipelined steps, one synchronize)
+    for _ in range(2):
+        step(state, batch, 0, generator=gen)
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    iters = 10
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        step(state, batch, 0, generator=gen)
+    sync()
+    step_ms = (time.perf_counter() - t0) / iters * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    # its split: the step's parts run one by one with CUDA events queued
+    # between them
+    names = ("prep", "forward", "losses", "backward", "optimizer")
+    marks = [split_step(cfg, state, batch, gen) for _ in range(iters)]
+    sync()
+    split = {n: float(np.mean([ev[i].elapsed_time(ev[i + 1])
+                               for ev in marks]))
+             for i, n in enumerate(names)}
+    print(f"[6] {card} | train step kitti bf16 batch {b}: {step_ms:.3f} ms "
+          f"a step (mean of {iters}, pipelined), {2 * b * 1e3 / step_ms:.2f} "
+          f"clouds/s ({b * 1e3 / step_ms:.2f} parent samples/s); split (ms, "
+          f"CUDA events between the parts): "
+          + json.dumps({k: round(v, 4) for k, v in split.items()})
+          + f"; peak memory {peak:.0f} MiB", flush=True)
+
+    # where the step's device time goes: torch.profiler over 2 steps; the
+    # kernels' device time a step in all, and by the operator that launched
+    # them (its self device time), the 15 largest
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            step(state, batch, 0, generator=gen)
+        sync()
+    events = prof.key_averages()
+    device = torch.autograd.DeviceType.CUDA
+    busy = sum(e.self_device_time_total for e in events
+               if e.device_type == device) / 2e3
+    ops = sorted(((e.self_device_time_total / 2e3, e.count // 2, e.key)
+                  for e in events if e.device_type != device
+                  and e.self_device_time_total > 0), reverse=True)
+    print(f"[6] {card} | train step kitti bf16 batch {b}, torch.profiler "
+          f"over 2 steps: kernels {busy:.3f} ms a step on the device "
+          f"({busy / step_ms:.4f} of the unprofiled step); by operator "
+          "[name, ms a step, calls a step]: "
+          + json.dumps([[k, round(t, 4), c] for t, c, k in ops[:15]]),
+          flush=True)
+    return launches
 
 
 def main():
@@ -769,7 +1052,9 @@ def main():
     try:
         pipes, launches = phase4(tmp)
         sync()
-        times, library, bounds, knn_ms, events = phase5(pipes, card)
+        times, library, bounds, knn_ms, events, k2 = phase5(pipes, card)
+        sync()
+        launches["train"] = phase6(card)
         sync()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -791,7 +1076,8 @@ def main():
                         "scripts/bench_scatter_pallas.py:69"),
     }
     # launches: the sum over the main paths' runs (each counted from 0);
-    # launches_per_detect: per path, over its 3 detects
+    # launches_per_detect: per serving path, over its 3 detects;
+    # launches_per_train_step: over the train path's steps
     line = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
              "launches": sum(counts[name] for counts in launches.values()),
              "max_abs_err": errs[name], "ms": times[name][0],
@@ -800,8 +1086,11 @@ def main():
              "bound_by": bounds[name][1],
              "library_ms": library.get(name),
              "launches_per_detect": {tag: counts[name] / 3 for tag, counts
-                                     in launches.items()}}
+                                     in launches.items() if tag != "train"},
+             "launches_per_train_step": launches["train"][name] / TRAIN_STEPS}
             for name, (src, rep) in meta.items()]
+    # K2 at each of its four shapes (the entry's own time is the serve one)
+    line[1]["shapes"] = k2
     # K4's second main-path shape, the node kNN's (8, 512, 512) k=16
     line[3]["node_knn"] = {"ms": knn_ms[0], "plain_ms": knn_ms[1],
                            "library_ms": knn_ms[2], "events_ms": knn_ms[3],

@@ -123,3 +123,43 @@ def test_scatter_max_form_choices(n, m, form):
 def test_scatter_max_form_limits(m):
     with pytest.raises(ValueError, match="shared memory"):
         kernels.scatter_max_form(16384, m)
+
+
+# the four shapes K2 is timed at: serve and train assignments, the train
+# step's keypoint -> cloud and keypoint chamfer
+_K2_SHAPES = [(8, 16384, 512), (16, 16384, 512), (8, 512, 16384),
+              (8, 512, 512)]
+
+
+@pytest.mark.parametrize("variant",
+                         [v for v in ablate.K2_VARIANTS if v.form],
+                         ids=lambda v: v.label)
+@pytest.mark.parametrize("shape", _K2_SHAPES)
+def test_min_argmin_ablation_forms_are_taken(variant, shape):
+    """Every forced K2 form, at each shape, is one the C entry point takes
+    and whose shared memory fits one block; the forced field is the one the
+    label names and the rest is the shipped form's."""
+    b, n, m = shape
+    f = variant.form(b, n, m)
+    shipped = kernels.min_argmin_form(b, n, m)
+    assert f.threads % 32 == 0 and 32 <= f.threads <= 256
+    assert f.points_per_thread in (1, 2, 4, 8)
+    assert 1 <= f.split <= 16 and f.tile % 2 == 0
+    assert 16 * f.tile + 8 * f.threads * f.points_per_thread \
+        <= kernels._MAX_SMEM
+    assert f.threads == shipped.threads
+    chunk = -(-m // f.split)
+    assert f.tile == min(2048, chunk + chunk % 2)
+    if "no split" in variant.label:
+        assert f.split == 1
+    elif "split 8" in variant.label:
+        assert f.split == (8 if shipped.split > 1 else 1)
+    else:
+        assert f.split == shipped.split
+        assert variant.label.startswith(f"{f.points_per_thread} quer")
+
+
+def test_min_argmin_ablation_restores_the_form():
+    """The ablation's forms wrap the shipped form function, which the
+    module still holds."""
+    assert ablate._SHIPPED_FORMS["min_argmin"] is kernels.min_argmin_form

@@ -6,9 +6,12 @@ is absent, run them without the suite's conftest (which sets jax up):
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
-They cover shapes off the serving path: odd and ragged sizes, small widths,
-K that does not divide the 64-row tile, rows that are not a multiple of 32,
-channel counts that are not a multiple of the scatter tile.
+They cover the main paths' shapes and shapes off them: odd and ragged
+sizes, small widths, K that does not divide the 64-row tile, rows that are
+not a multiple of 32, channel counts that are not a multiple of the scatter
+tile; min/argmin at its four shapes and on ties, -0.0, negative and
+subnormal distances; the train step's nearest-neighbour and scatter-max
+gradients against the CPU.
 """
 
 import numpy as np
@@ -99,6 +102,75 @@ def test_min_argmin_kernel_matches_plain(dev, n, m, round_bf16):
     torch.cuda.synchronize()
     assert torch.equal(idx, ridx)
     assert torch.equal(mins, rmins)
+
+
+def _min_argmin_case(pts, nodes, round_bf16):
+    mins, idx = kernels.min_argmin(pts, nodes, round_bf16)
+    torch.cuda.synchronize()
+    rmins, ridx = kernels.min_argmin_plain(pts, nodes, round_bf16)
+    assert torch.equal(idx, ridx)
+    assert torch.equal(mins, rmins)
+    return mins, idx
+
+
+# the four shapes of the main paths: the serve and train assignments (bf16),
+# the train step's keypoint -> cloud and keypoint chamfer (fp32); each in
+# both modes
+@pytest.mark.parametrize("b,n,m", [(8, 16384, 512), (16, 16384, 512),
+                                   (8, 512, 16384), (8, 512, 512)])
+@pytest.mark.parametrize("round_bf16", [False, True])
+def test_min_argmin_kernel_main_shapes(dev, b, n, m, round_bf16):
+    rng = np.random.default_rng(b + n + m)
+    pts = _rand(rng, (b, n, 3), dev, 20.0)
+    nodes = (pts[:, :m] if m <= n else _rand(rng, (b, m, 3), dev, 20.0))
+    _min_argmin_case(pts, nodes.contiguous(), round_bf16)
+
+
+# ragged M about the tile (2048) and the cluster split, ragged N about the
+# 128-thread blocks
+@pytest.mark.parametrize("m", [1, 3, 129, 16384, 20000])
+@pytest.mark.parametrize("n", [1, 77, 1000, 4099])
+@pytest.mark.parametrize("round_bf16", [False, True])
+def test_min_argmin_kernel_ragged(dev, n, m, round_bf16):
+    rng = np.random.default_rng(n * 7 + m)
+    pts = _rand(rng, (3, n, 3), dev, 5.0)
+    nodes = _rand(rng, (3, m, 3), dev, 5.0)
+    _min_argmin_case(pts, nodes, round_bf16)
+
+
+@pytest.mark.parametrize("kind", ["duplicated_nodes", "integer_grid",
+                                  "near_coincident", "signed_zero",
+                                  "subnormal_products"])
+@pytest.mark.parametrize("n,m", [(16384, 512), (512, 16384), (300, 70)])
+@pytest.mark.parametrize("round_bf16", [False, True])
+def test_min_argmin_kernel_adversarial(dev, kind, n, m, round_bf16):
+    """Identical to the plain version where the order is hard to keep:
+    every node twice (exact ties, the first wins); integer coordinates (many
+    equal distances); nodes 1e-6 from points 100 m out (negative rounded
+    distances, clamped to 0, the first of them wins); coordinates near 1e-21
+    (distances that round to -0.0 in bf16); coordinates whose products are
+    subnormal."""
+    rng = np.random.default_rng(n + m + len(kind))
+    if kind == "duplicated_nodes":
+        pts = rng.normal(0, 5, (2, n, 3))
+        half = rng.normal(0, 5, (2, (m + 1) // 2, 3))
+        nodes = np.concatenate([half, half], 1)[:, :m]
+    elif kind == "integer_grid":
+        pts = rng.integers(-4, 5, (2, n, 3))
+        nodes = rng.integers(-4, 5, (2, m, 3))
+    elif kind == "near_coincident":
+        pts = rng.uniform(90, 110, (2, n, 3))
+        nodes = pts[:, rng.integers(0, n, m)] + rng.normal(0, 1e-6, (2, m, 3))
+    elif kind == "signed_zero":
+        pts = rng.normal(0, 1e-21, (2, n, 3))
+        nodes = rng.normal(0, 1e-21, (2, m, 3))
+    else:
+        pts = rng.normal(0, 1e-19, (2, n, 3))
+        nodes = rng.normal(0, 1e-20, (2, m, 3))
+    to = lambda x: torch.from_numpy(np.asarray(x, np.float32)).to(dev)  # noqa: E731
+    mins, _ = _min_argmin_case(to(pts), to(nodes), round_bf16)
+    # the minimum is a clamped distance
+    assert bool((mins >= 0).all())
 
 
 @pytest.mark.parametrize("bm,k,cin,c,c2", [(4096, 16, 131, 256, 512),
@@ -220,6 +292,86 @@ def test_smallest_k_grad_on_card(dev):
         smallest_k(x, 9)[0].backward(g.to(d))
         grads.append(x.grad.cpu())
     assert torch.equal(*grads)
+
+
+def test_min_argmin_fold_two_would_break_identity(dev):
+    """Why csrc/min_argmin.cu keeps the doubling in ``dist``:
+    built with candidates pre-scaled by 2 (the ablation's variant), p.(2n)
+    stands for 2 (p.n) exactly except where a product is subnormal, where
+    fl(2ab) and 2 fl(ab) round on the subnormal grid; on such inputs the
+    folded kernel's minima differ from the plain version's, the shipped
+    kernel's do not."""
+    from usip_tpu_torch import ablate
+
+    rng = np.random.default_rng(13)
+    x = rng.uniform(1e-20, 3e-20, 4096).astype(np.float32)
+    pts = np.zeros((1, 4096, 3), np.float32)
+    pts[0, :, 0] = x
+    nodes = np.array([[[2.3e-20, 0.0, 0.0]]], np.float32)
+    pts, nodes = torch.from_numpy(pts).to(dev), torch.from_numpy(nodes).to(dev)
+    rmins, ridx = kernels.min_argmin_plain(pts, nodes)
+    shipped = kernels.min_argmin(pts, nodes)
+    variant = next(v for v in ablate.K2_VARIANTS if "pre-scaled by 2" in
+                   v.label)
+    lib = ablate._build_variants("min_argmin", [variant])[0]
+    try:
+        ablate._bind("min_argmin", lib)
+        folded = kernels.min_argmin(pts, nodes)
+        torch.cuda.synchronize()
+    finally:
+        kernels._FNS.pop("min_argmin", None)
+    assert torch.equal(shipped[0], rmins) and torch.equal(shipped[1], ridx)
+    assert torch.equal(folded[1], ridx)
+    differ = int((folded[0] != rmins).sum())
+    print(f"x2 fold: {differ} of 4096 minima differ from the plain version")
+    assert differ > 0
+
+
+def test_nearest_neighbor_grad_on_card(dev):
+    """The train step's nearest neighbour (K2 in fp32 and the custom
+    backward) on the card against the CPU: indices identical, distances and
+    gradients within 1e-6 (the square root is the card's and the CPU's own;
+    the card's scatter_add sums in another order)."""
+    from usip_tpu_torch.ops.geometry import nearest_neighbor
+
+    rng = np.random.default_rng(11)
+    src = rng.normal(0, 5, (4, 512, 3)).astype(np.float32)
+    dst = rng.normal(0, 5, (4, 16384, 3)).astype(np.float32)
+    src[:, :7] = dst[:, 100:107]
+    g = rng.normal(size=(4, 512)).astype(np.float32)
+    outs = []
+    for d in (dev, torch.device("cpu")):
+        s = torch.from_numpy(src).to(d).requires_grad_(True)
+        t = torch.from_numpy(dst).to(d).requires_grad_(True)
+        dist, idx = nearest_neighbor(s, t)
+        (dist * torch.from_numpy(g).to(d)).sum().backward()
+        outs.append([x.detach().cpu() for x in (dist, idx, s.grad, t.grad)])
+    gpu, cpu = outs
+    assert torch.equal(gpu[1], cpu[1])
+    for a, b in zip(gpu[:1] + gpu[2:], cpu[:1] + cpu[2:]):
+        assert torch.allclose(a, b, rtol=1e-6, atol=1e-6), \
+            float((a - b).abs().max())
+
+
+@pytest.mark.parametrize("backend", ["fast", "native"])
+def test_masked_scatter_max_grad_on_card(dev, backend):
+    """The scatter-max kernel's forward and the plain backward on the card
+    against the CPU, on features with ties: identical."""
+    from usip_tpu_torch.ops import masked_scatter_max
+
+    rng = np.random.default_rng(12)
+    f = np.round(rng.normal(size=(2, 16384, 64)) * 2).astype(np.float32) / 2
+    ids = rng.integers(0, 500, size=(2, 16384))
+    g = rng.normal(size=(2, 512, 64)).astype(np.float32)
+    outs = []
+    for d in (dev, torch.device("cpu")):
+        x = torch.from_numpy(f).to(d).requires_grad_(True)
+        out = masked_scatter_max(x, torch.from_numpy(ids).to(d), 512,
+                                 backend)
+        (out * torch.from_numpy(g).to(d)).sum().backward()
+        outs.append((out.detach().cpu(), x.grad.cpu()))
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert torch.equal(outs[0][1], outs[1][1])
 
 
 @pytest.mark.parametrize("b,n,m,c", [(8, 16384, 512, 64), (2, 1000, 77, 13),

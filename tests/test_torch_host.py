@@ -126,11 +126,14 @@ def test_port_imports_nothing_of_usip_tpu():
         "import sys\n"
         "import usip_tpu_torch.cli, usip_tpu_torch.inference\n"
         "import usip_tpu_torch.models, usip_tpu_torch.ops\n"
-        "import usip_tpu_torch.weights\n"
+        "import usip_tpu_torch.weights, usip_tpu_torch.ablate\n"
+        "import usip_tpu_torch.train, usip_tpu_torch.losses\n"
+        "import usip_tpu_torch.data.augment\n"
         "bad = [m for m in sys.modules\n"
         "       if m == 'usip_tpu' or m.startswith('usip_tpu.')\n"
         "       or m == 'jax' or m.startswith('jax.')]\n"
         "assert 'usip_tpu_torch.inference' in sys.modules\n"
+        "assert 'usip_tpu_torch.train.steps' in sys.modules\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
     env = dict(os.environ, PYTHONPATH=REPO)

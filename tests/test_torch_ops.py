@@ -194,3 +194,65 @@ def test_segment_ops_match():
     back_ref = scatter_back(jnp.asarray(ref), jnp.asarray(ids))
     back = tops.scatter_back(_t(ref), _t(ids).long())
     np.testing.assert_array_equal(back.numpy(), np.asarray(back_ref))
+
+
+@pytest.mark.parametrize("b,n,m,form", [
+    # the serve assignment, the train step's assignment (bf16), its
+    # keypoint -> cloud and its keypoint chamfer (fp32)
+    (8, 16384, 512, (128, 4, 1, 512)), (16, 16384, 512, (128, 8, 1, 512)),
+    (8, 512, 16384, (128, 1, 16, 1024)), (8, 512, 512, (128, 1, 8, 64)),
+    # few candidates: no split; an odd candidate count rounds the tile up
+    (2, 1000, 77, (128, 1, 1, 78)), (2, 5, 1, (128, 1, 1, 2)),
+    # more candidates than one block's shared memory held before
+    (1, 17, 20000, (128, 1, 16, 1250)), (64, 16384, 40000, (128, 8, 1, 2048)),
+    # queries enough for one block an SM at 2 a thread, not at 4
+    (4, 16384, 512, (128, 2, 1, 512))])
+def test_min_argmin_form_choices(b, n, m, form):
+    """The most queries a thread (at most 8) that gives each of 132 SMs a
+    block; where none does, one a thread and the smallest cluster split
+    that gives two blocks an SM (at most 16, each at least 64 candidates);
+    tiles of at most 2048 candidates, even."""
+    assert kernels.min_argmin_form(b, n, m) == kernels.MinArgminForm(*form)
+
+
+def test_min_argmin_form_every_shape():
+    """For shapes around the main paths': a form the C entry point takes,
+    whose shared memory fits one block, that covers every candidate, and
+    that gives every SM a block wherever a split of 8 can."""
+    for b in (1, 2, 8, 16):
+        for n in (1, 100, 512, 1025, 4096, 16384):
+            for m in (1, 2, 63, 64, 512, 4097, 16384, 100000):
+                f = kernels.min_argmin_form(b, n, m)
+                assert f.threads % 32 == 0 and 32 <= f.threads <= 256
+                assert f.points_per_thread in (1, 2, 4, 8)
+                assert 1 <= f.split <= 16 and f.tile % 2 == 0
+                assert f.tile >= min(2, m) and f.tile <= kernels._MA_TILE
+                chunk = -(-m // f.split)
+                assert f.tile >= min(chunk, kernels._MA_TILE)
+                smem = 16 * f.tile + 8 * f.threads * f.points_per_thread
+                assert smem <= kernels._MAX_SMEM
+                blocks = b * -(-n // (f.threads * f.points_per_thread)) \
+                    * f.split
+                if b * -(-n // f.threads) * 16 >= 132 and m >= 16 * 64:
+                    assert blocks >= 132, (b, n, m, f)
+
+
+@pytest.mark.parametrize("m", [0, -1])
+def test_min_argmin_form_limits(m):
+    with pytest.raises(ValueError, match="candidates"):
+        kernels.min_argmin_form(2, 100, m)
+
+
+def test_min_argmin_many_candidates():
+    """M = 20096 candidates (157 x 128, the Pallas kernel's lane rule), more
+    than one block's shared memory held in the kernel's first form: the
+    wrapper takes them (the plain version on the CPU), identical to the
+    Pallas kernel's ids in interpret mode."""
+    rng = np.random.default_rng(9)
+    pc = rng.normal(size=(1, 128, 3)).astype(np.float32)
+    cand = rng.normal(size=(1, 20096, 3)).astype(np.float32)
+    _, idx_ref = min_argmin_pallas(jnp.asarray(pc), jnp.asarray(cand),
+                                   tile_n=128, interpret=True)
+    mins, idx = kernels.min_argmin(_t(pc), _t(cand))
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(idx_ref))
+    assert mins.shape == (1, 128) and bool((mins >= 0).all())

@@ -1,22 +1,26 @@
-"""Ablations of the FPS (K1), fusion-chain (K3), smallest-k (K4) and
-scatter-max (K5) kernels on the card.
+"""Ablations of the FPS (K1), min/argmin (K2), fusion-chain (K3),
+smallest-k (K4) and scatter-max (K5) kernels on the card.
 
     python -m usip_tpu_torch.ablate [--out FILE]
 
-Builds variant copies of ``csrc/{fps,fusion_chain,smallest_k,scatter_max}.cu``
-(each a set of text patches on the shipped source, into
+Builds variant copies of ``csrc/*.cu`` (each a set of text patches on the
+shipped source, into
 ``build/usip_tpu_torch/ablate/``), binds each through the same ctypes entry
 point as the shipped kernel, and times it with CUDA-graph replay at the
-serving paths' shapes: K1 at (8, 2048) -> 512 picks on LiDAR-like clouds, K3
+main paths' shapes: K1 at (8, 2048) -> 512 picks on LiDAR-like clouds; K2
+at each of its four (the serve assignment (8, 16384) x 512 bf16, the train
+step's (16, 16384) x 512 bf16, its keypoint -> cloud (8, 512) x 16384 fp32
+and its keypoint chamfer (8, 512) x 512 fp32); K3
 at (8, 512, 16, 131) -> (8, 512, 512) with the KITTI widths, K4 at
 (8, 512, 16384) k=64 on ball scores of an urban-like cloud, K5 at both calls
 of a SOM forward, (8, 16384, 64) and (8, 16384, 128) onto 512 nodes. A
 variant may also force the kernel's form (K1's block size and points a
-thread, K5's cluster size) in place of ``kernels.fps_form`` or
+thread, K2's queries a thread and split, K5's cluster size) in place of
+``kernels.fps_form``, ``kernels.min_argmin_form`` or
 ``kernels.scatter_max_form``. Variants that compute the function keep it
 (the result is checked against the shipped kernel's: within 1e-2 x max|out|
-for K3, identical for K1, K4 and K5); variants that drop a part of the work
-(marked "timing only") show what that part costs. Prints one line per
+for K3, identical for K1, K2, K4 and K5); variants that drop a part of the
+work (marked "timing only") show what that part costs. Prints one line per
 variant and, last, a JSON object of them all; exits nonzero without CUDA or
 if a variant's patch no longer applies.
 """
@@ -47,7 +51,7 @@ class Variant(NamedTuple):
     label: str
     timing_only: bool
     patches: Tuple[Tuple[str, str], ...] = ()
-    form: Optional[tuple] = None
+    form: Optional[object] = None
 
 
 # the step with no per-point work: the chain of reductions, barrier and
@@ -86,6 +90,61 @@ K1_VARIANTS = tuple(Variant(*v) for v in (
     ("the chain without the barrier", True,
      _FPS_CHAIN + (("    __syncthreads();\n    if constexpr (kOneBarrier) {",
                     "    if constexpr (kOneBarrier) {"),)),
+))
+
+
+def _k2_form(**fields):
+    """The shipped K2 form with ``fields`` replaced at every shape (a split
+    above 1 only where the shipped form splits), the tile resized to the
+    split's range of candidates (up to the tile cap)."""
+    def form(b, n, m):
+        f = kernels.MinArgminForm(*_SHIPPED_FORMS["min_argmin"](b, n, m))
+        if fields.get("split", 1) > 1 and f.split == 1:
+            return f
+        f = f._replace(**fields)
+        chunk = -(-m // f.split)
+        return f._replace(tile=min(kernels._MA_TILE, chunk + chunk % 2))
+    return form
+
+
+K2_VARIANTS = tuple(Variant(*v) for v in (
+    ("shipped: 128 threads, packed bf16 keys, queries a thread and split "
+     "by min_argmin_form", False),
+    *((f"{p} quer{'y' if p == 1 else 'ies'} a thread at every shape",
+       False, (), _k2_form(points_per_thread=p)) for p in (1, 2, 4, 8)),
+    ("no split: one block takes every candidate", False, (),
+     _k2_form(split=1)),
+    ("bf16 as float compare and two selects (no packed key)", False,
+     (("    if constexpr (BF16) {\n      unsigned kb[P];",
+       "    if constexpr (false) {\n      unsigned kb[P];"),
+      ("          const float d = fmaxf(dist(px[k], py[k], pz[k], psq[k], "
+       "c), 0.0f);\n",
+       # round to bf16, then clamp; adding +0 turns a -0 into +0, whose key
+       # orders right in the cluster merge
+       "          float d = dist(px[k], py[k], pz[k], psq[k], c);\n"
+       "          if (BF16) {\n"
+       "            unsigned short h;\n"
+       "            asm(\"cvt.rn.bf16.f32 %0, %1;\" : \"=h\"(h) : \"f\"(d));\n"
+       "            d = __fadd_rn(__uint_as_float(static_cast<unsigned>(h) "
+       "<< 16), 0.0f);\n"
+       "          }\n"
+       "          d = fmaxf(d, 0.0f);\n"),
+      ("  if constexpr (!BF16) {\n    if (c_begin < c_end) {",
+       "  if constexpr (true) {\n    if (c_begin < c_end) {"))),
+    ("split 8 at most (the portable cluster size)", False, (),
+     _k2_form(split=8)),
+    ("fp32 loop unrolled 4 candidates", False,
+     (("#pragma unroll 8\n      for (int j = 0; j < len; ++j) {",
+       "#pragma unroll 4\n      for (int j = 0; j < len; ++j) {"),)),
+    ("bf16 pair loop unrolled 2 pairs", False,
+     (("#pragma unroll 4\n      for (int j = 0; j < len2; j += 2) {",
+       "#pragma unroll 2\n      for (int j = 0; j < len2; j += 2) {"),)),
+    ("candidates pre-scaled by 2 (exact here, not for subnormal products)",
+     False, (("__fsub_rn(psq, __fmul_rn(2.0f, cross))",
+              "__fsub_rn(psq, cross)"),
+             ("c = make_float4(x, y, z, sq3(x, y, z));",
+              "c = make_float4(2.0f * x, 2.0f * y, 2.0f * z, "
+              "sq3(x, y, z));"))),
 ))
 
 _NO_MMA = ("      Wgmma<N>::mma(acc,", "      if (kp < 0) Wgmma<N>::mma(acc,")
@@ -155,11 +214,15 @@ K5_VARIANTS = tuple(Variant(*v) for v in (
        "    for (; p0 < (n < 0 ? p_end : 0); p0 += kStep) {"),
       ("    load(p0, cur);\n", ""))),
 ))
-VARIANTS = {"fps": K1_VARIANTS, "fusion_chain": K3_VARIANTS,
-            "smallest_k": K4_VARIANTS, "scatter_max": K5_VARIANTS}
+VARIANTS = {"fps": K1_VARIANTS, "min_argmin": K2_VARIANTS,
+            "fusion_chain": K3_VARIANTS, "smallest_k": K4_VARIANTS,
+            "scatter_max": K5_VARIANTS}
 KERNELS = tuple(VARIANTS)
-# the wrapper's form function that a variant's form replaces
-_FORM_FNS = {"fps": "fps_form", "scatter_max": "scatter_max_form"}
+# the wrapper's form function that a variant's form replaces: a variant's
+# form is one form for every call, or a function of the call's shape
+_FORM_FNS = {"fps": "fps_form", "min_argmin": "min_argmin_form",
+             "scatter_max": "scatter_max_form"}
+_SHIPPED_FORMS = {name: getattr(kernels, fn) for name, fn in _FORM_FNS.items()}
 
 
 def patched_source(name, variant):
@@ -231,32 +294,44 @@ def graph_ms(fn, iters=20, replays=5):
     return start.elapsed_time(end) / (replays * iters)
 
 
-def _run(name, variants, call, same):
+def _run(name, variants, calls, same):
+    """Each variant at each of ``calls`` (a shape label -> call; one call
+    for a kernel timed at one shape), checked against the shipped
+    variant's result at that shape."""
+    if callable(calls):
+        calls = {"": calls}
     libs = _build_variants(name, variants)
     form_fn = _FORM_FNS.get(name)
-    shipped_form = getattr(kernels, form_fn) if form_fn else None
-    rows, ref = [], None
+    shipped_form = _SHIPPED_FORMS.get(name)
+    rows, refs = [], {}
     try:
         for v, lib in zip(variants, libs):
             _bind(name, lib)
-            if v.form is not None:
-                setattr(kernels, form_fn, lambda *_, f=v.form: f)
-            elif form_fn:
-                setattr(kernels, form_fn, shipped_form)
-            out = call()
-            torch.cuda.synchronize()
-            if ref is None:
-                ref = out
-            ok = None if v.timing_only else bool(same(out, ref))
-            ms = graph_ms(call)
-            rows.append({"kernel": name, "variant": v.label, "ms": ms,
-                         "timing_only": v.timing_only, "same_result": ok})
-            print(f"{name}: {v.label}: {ms:.4f} ms"
-                  + (" (timing only)" if v.timing_only else
-                     f", same result {ok}"), flush=True)
-            if ok is False:
-                raise SystemExit(f"{name}: variant {v.label!r} changed the "
-                                 "result")
+            if v.form is None:
+                form = shipped_form
+            elif callable(v.form):
+                form = v.form
+            else:
+                form = lambda *_, f=v.form: f  # noqa: E731
+            if form_fn:
+                setattr(kernels, form_fn, form)
+            for shape, call in calls.items():
+                out = call()
+                torch.cuda.synchronize()
+                ref = refs.setdefault(shape, out)
+                ok = None if v.timing_only else bool(same(out, ref))
+                ms = graph_ms(call)
+                rows.append({"kernel": name, "variant": v.label,
+                             "shape": shape, "ms": ms,
+                             "timing_only": v.timing_only,
+                             "same_result": ok})
+                print(f"{name}{' ' + shape if shape else ''}: {v.label}: "
+                      f"{ms:.4f} ms" + (" (timing only)" if v.timing_only
+                                        else f", same result {ok}"),
+                      flush=True)
+                if ok is False:
+                    raise SystemExit(f"{name}: variant {v.label!r} changed "
+                                     f"the result {shape}")
     finally:
         kernels._FNS.pop(name, None)
         if form_fn:
@@ -307,6 +382,35 @@ def _ablate_fps(dev):
                 torch.equal)
 
 
+def _ablate_min_argmin(dev):
+    # LiDAR-like clouds and nodes among their points; keypoints near them
+    rng = np.random.default_rng(3)
+
+    def cloud(b, n):
+        r = 40.0 * np.sqrt(rng.uniform(size=(b, n)))
+        t = rng.uniform(0, 2 * np.pi, size=(b, n))
+        return torch.from_numpy(np.stack(
+            [r * np.cos(t), r * np.sin(t), rng.normal(0, 1.5, (b, n))],
+            -1).astype(np.float32)).to(dev)
+
+    pc8, pc16 = cloud(8, 16384), cloud(16, 16384)
+    nodes8, nodes16 = pc8[:, ::32].contiguous(), pc16[:, ::32].contiguous()
+    kp = (nodes8 + torch.from_numpy(rng.normal(0, 0.3, (8, 512, 3)).astype(
+        np.float32)).to(dev)).contiguous()
+    kp2 = (nodes8 + torch.from_numpy(rng.normal(0, 0.3, (8, 512, 3)).astype(
+        np.float32)).to(dev)).contiguous()
+    calls = {
+        "serve (8, 16384) x 512 bf16":
+            lambda: kernels.min_argmin(pc8, nodes8, True),
+        "train (16, 16384) x 512 bf16":
+            lambda: kernels.min_argmin(pc16, nodes16, True),
+        "keypoint->cloud (8, 512) x 16384 fp32":
+            lambda: kernels.min_argmin(kp, pc8),
+        "chamfer (8, 512) x 512 fp32": lambda: kernels.min_argmin(kp, kp2),
+    }
+    return _run("min_argmin", K2_VARIANTS, calls, _same)
+
+
 def _ablate_fusion_chain(dev):
     rng = np.random.default_rng(0)
     cin, c, c2 = 131, 256, 512
@@ -354,7 +458,8 @@ def _ablate_scatter_max(dev):
                 _same)
 
 
-_ABLATIONS = {"fps": _ablate_fps, "fusion_chain": _ablate_fusion_chain,
+_ABLATIONS = {"fps": _ablate_fps, "min_argmin": _ablate_min_argmin,
+              "fusion_chain": _ablate_fusion_chain,
               "smallest_k": _ablate_smallest_k,
               "scatter_max": _ablate_scatter_max}
 

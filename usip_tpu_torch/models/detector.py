@@ -1,5 +1,5 @@
-"""USIP keypoint detector (port of ``usip_tpu/models/detector.py``), eval
-mode, with both trunk families:
+"""USIP keypoint detector (port of ``usip_tpu/models/detector.py``) with
+both trunk families:
 
 * ``som``: point->node assignment and scatter-max pooling (the reference's
   ``RPN_Detector``; module names ``first_pointnet.layers.{i}``,
@@ -12,6 +12,13 @@ mode, with both trunk families:
 Both share the kNN-fusion layer (``knnlayer_1.layers_before|after.{i}``) and
 the head (``mlp{1,2,3}``). With the reference's names, a reference
 ``state_dict`` loads with ``strict=True``.
+
+In train mode (``.train()``) every BatchNorm uses batch statistics and
+updates its running statistics with the momentum ``forward`` is given, and
+the SOM trunk's scatter-max passes gradients by ``cfg.scatter_backend``'s
+tie rule; the kNN-fusion layer runs layered (the fused chain kernel folds
+eval-mode BatchNorm and serves only eval). Training is wired and checked for
+the SOM trunk.
 
 Channels-last: pc ``(B, N, 3)``, sn ``(B, N, S)``, nodes ``(B, M, 3)``.
 Outputs: anchors ``(B, M, 3)`` (the recomputed nodes of the SOM trunk, the
@@ -27,7 +34,8 @@ import torch
 from torch import nn
 
 from usip_tpu_torch.config import DetectorConfig
-from usip_tpu_torch.nn.layers import PointwiseLayer, SharedMLP
+from usip_tpu_torch.nn.layers import (PointwiseLayer, SharedMLP,
+                                      set_bn_momentum)
 from usip_tpu_torch.ops import (assign_points_to_nodes, ball_query,
                                 gather_points, knn, masked_scatter_max,
                                 scatter_back, segment_mean_count)
@@ -148,10 +156,10 @@ class Detector(nn.Module):
         x_aug = (torch.cat([decentered, sn], dim=-1)
                  if cfg.surface_normal_len else decentered)
         f1 = self.first_pointnet(x_aug).float()
-        n1 = masked_scatter_max(f1, ids, m) * occ
+        n1 = masked_scatter_max(f1, ids, m, cfg.scatter_backend) * occ
         s1 = scatter_back(n1, ids)
         f2 = self.second_pointnet(torch.cat([f1, s1], dim=-1)).float()
-        n2 = masked_scatter_max(f2, ids, m) * occ
+        n2 = masked_scatter_max(f2, ids, m, cfg.scatter_backend) * occ
         return cluster_mean, n2
 
     def group_indices(self, pc: Tensor, node: Tensor) -> Tensor:
@@ -193,8 +201,14 @@ class Detector(nn.Module):
                   + self.cfg.sigma_lower_bound)
         return keypoints, sigmas
 
-    def forward(self, pc: Tensor, sn: Tensor, node: Tensor
+    def forward(self, pc: Tensor, sn: Tensor, node: Tensor,
+                bn_momentum: Optional[float] = None
                 ) -> Tuple[Tensor, Tensor, Tensor]:
+        """Anchors, keypoints and sigmas. ``bn_momentum``, where given, is
+        set on every BatchNorm first (the train step's epoch-decayed
+        momentum)."""
+        if bn_momentum is not None:
+            set_bn_momentum(self, bn_momentum)
         anchors, feat = self.trunk(pc, sn, node)
         knn_feature = self.knnlayer_1(anchors, anchors, feat)
         keypoints, sigmas = self.keypoint_head(

@@ -6,11 +6,14 @@ axis. Parameters keep the reference's ``state_dict`` names and shapes
 running_mean|running_var|num_batches_tracked``), so a reference ``.pth``
 loads with ``load_state_dict(strict=True)``.
 
-Eval mode only: train-mode batch statistics come with the training port.
+``BatchNorm`` has usip_tpu's train mode: batch statistics, the running
+statistics updated with a momentum that the train step sets from
+``bn_momentum_schedule``.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Sequence
 
 import torch
@@ -38,14 +41,30 @@ def activation_fn(name: Optional[str]):
     raise ValueError(f"unknown activation {name!r}")
 
 
+def bn_momentum_schedule(base: float, epoch: Optional[int],
+                         decay_step: Optional[int], decay: float) -> float:
+    """Epoch-decayed BatchNorm momentum, clamped at 0.01 and applied from
+    epoch 1 on (usip_tpu ``nn/layers.py bn_momentum_schedule``, the
+    reference's models/layers.py:61-66)."""
+    if epoch is None or decay_step is None or decay_step <= 0 or epoch < 1:
+        return base
+    return max(base * decay ** math.floor(epoch / decay_step), 0.01)
+
+
 class BatchNorm(nn.Module):
-    """Batch norm over the trailing channel axis, eval mode:
-    ``(x - mean) * rsqrt(var + eps) * weight + bias`` in fp32, returned in the
-    input's dtype."""
+    """Batch norm over the trailing channel axis, in fp32, returned in the
+    input's dtype: ``(x - mean) * rsqrt(var + eps) * weight + bias``.
+
+    Eval mode uses the running statistics. Train mode is usip_tpu's
+    (``nn/layers.py BatchNorm``): the batch mean and the biased variance
+    ``E[x^2] - E[x]^2`` (clamped at 0) normalize; the unbiased variance feeds
+    the running statistics, ``running = (1 - m) running + m batch`` with
+    ``m = self.momentum`` (``set_bn_momentum``)."""
 
     def __init__(self, features: int, eps: float = 1e-5):
         super().__init__()
         self.eps = eps
+        self.momentum = 0.1
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
@@ -54,12 +73,32 @@ class BatchNorm(nn.Module):
                              torch.tensor(0, dtype=torch.long))
 
     def forward(self, x: Tensor) -> Tensor:
+        x32 = x.float()
         if self.training:
-            raise NotImplementedError(
-                "train-mode batch statistics are not ported yet; call .eval()")
-        y = (x.float() - self.running_mean) * torch.rsqrt(self.running_var
-                                                          + self.eps)
+            dims = tuple(range(x.dim() - 1))
+            count = x.numel() // x.shape[-1]
+            mean = x32.mean(dims)
+            var = (x32.square().mean(dims) - mean.square()).clamp_min(0.0)
+            with torch.no_grad():
+                m = self.momentum
+                unbiased = var * (count / max(count - 1, 1))
+                self.running_mean.copy_((1.0 - m) * self.running_mean
+                                        + m * mean)
+                self.running_var.copy_((1.0 - m) * self.running_var
+                                       + m * unbiased)
+                self.num_batches_tracked.add_(1)
+        else:
+            mean, var = self.running_mean, self.running_var
+        y = (x32 - mean) * torch.rsqrt(var + self.eps)
         return (y * self.weight + self.bias).to(x.dtype)
+
+
+def set_bn_momentum(module: nn.Module, momentum: float) -> None:
+    """Set the running-statistics momentum of every ``BatchNorm`` under
+    ``module`` (usip_tpu passes it to each call instead)."""
+    for mod in module.modules():
+        if isinstance(mod, BatchNorm):
+            mod.momentum = momentum
 
 
 class Conv1x1(nn.Module):

@@ -63,3 +63,72 @@ def gather_points(points: Tensor, idx: Tensor) -> Tensor:
     b = points.shape[0]
     batch = torch.arange(b, device=points.device).view(b, *([1] * (idx.dim() - 1)))
     return points[batch, idx.long()]
+
+
+def safe_sqrt(x: Tensor, eps: float = 1e-12) -> Tensor:
+    """``sqrt(max(x, eps))`` for ``x > 0`` and 0 for ``x <= 0``, with a zero
+    (not NaN) gradient at 0: usip_tpu's ``safe_sqrt``."""
+    is_zero = x <= 0.0
+    masked = torch.where(is_zero, torch.ones_like(x), x)
+    return torch.where(is_zero, torch.zeros_like(x),
+                       torch.sqrt(torch.maximum(masked, x.new_tensor(eps))))
+
+
+class NearestNeighbor(torch.autograd.Function):
+    """For each ``src (B, M, 3)`` row the euclidean distance to its nearest
+    ``dst (B, N, 3)`` row and that row's index: ``((B, M), (B, M) int32)``.
+
+    The forward is the min/argmin kernel (``kernels.min_argmin``, fp32, the
+    first of equal minima) and a safe sqrt; the backward is usip_tpu's
+    custom VJP (``ops/geometry.py`` ``_nearest_bwd``): the gradient of
+    ``|s - d*|`` goes to the winning pair only, ``(s - d*) / |s - d*|`` (0
+    at coincident points) to src and its negation, scattered, to dst. The
+    ``(B, M, N)`` matrix is never built."""
+
+    @staticmethod
+    def forward(ctx, src: Tensor, dst: Tensor):
+        # imported here: ops.kernels imports this module
+        from usip_tpu_torch.ops import kernels
+        sq, idx = kernels.min_argmin(src.float().contiguous(),
+                                     dst.float().contiguous())
+        dist = safe_sqrt(sq)
+        ctx.save_for_backward(src, dst, dist, idx)
+        ctx.mark_non_differentiable(idx)
+        return dist, idx
+
+    @staticmethod
+    def backward(ctx, g_dist, _g_idx):
+        src, dst, dist, idx = ctx.saved_tensors
+        diff = src.float() - gather_points(dst.float(), idx)
+        pos = (dist > 0)[..., None]
+        denom = torch.where(pos, dist[..., None], torch.ones_like(diff))
+        direction = torch.where(pos, diff / denom, torch.zeros_like(diff))
+        g_src = g_dist[..., None] * direction
+        g_dst = torch.zeros(dst.shape, dtype=g_src.dtype, device=dst.device)
+        g_dst.scatter_add_(1, idx.long()[..., None].expand(-1, -1, 3), -g_src)
+        return g_src.to(src.dtype), g_dst.to(dst.dtype)
+
+
+def nearest_neighbor(src: Tensor, dst: Tensor):
+    """``(distance (B, M), index (B, M) int32)`` of each src row's nearest
+    dst row; differentiable in the distance (``NearestNeighbor``)."""
+    return NearestNeighbor.apply(src, dst)
+
+
+def apply_se3(points: Tensor, R: Tensor, scale: Tensor, shift: Tensor
+              ) -> Tensor:
+    """The GT transform ``p -> (R @ p) * scale + shift`` batch-wise:
+    ``points (B, N, 3)``, ``R (B, 3, 3)``, ``scale (B,)`` or ``(B, 1)``,
+    ``shift (B, 3)`` or ``(B, 3, 1)``."""
+    scale = scale.reshape(scale.shape[0], 1, 1)
+    shift = shift.reshape(shift.shape[0], 1, 3)
+    return rotate(points, R) * scale + shift
+
+
+def rotate(points: Tensor, R: Tensor) -> Tensor:
+    """``(R @ p)`` for every row of ``points (B, N, 3)``, ``R (B, 3, 3)``:
+    each coordinate three products summed left to right, elementwise (no
+    matmul, so no TF32 on the card)."""
+    x, y, z = (c[:, :, None] for c in points.unbind(-1))
+    r = R[:, None, :, :]                                   # (B, 1, 3, 3)
+    return x * r[..., 0] + y * r[..., 1] + z * r[..., 2]

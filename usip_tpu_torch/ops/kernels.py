@@ -59,6 +59,16 @@ _SCATTER_MAX_CLUSTER = 8
 _SCATTER_MIN_CHUNK = 4096
 # channel tiles of one scatter-max block, widest first (csrc/scatter_max.cu)
 _SCATTER_TILES = (32, 16, 8)
+# the H100's streaming multiprocessors: a launch should give each a block
+_SMS = 132
+# min/argmin: threads a block, queries a thread (most first), candidates
+# staged at a time, fewest candidates a block of a split takes, most blocks
+# of a split (a non-portable cluster size, which Hopper allows)
+_MA_THREADS = 128
+_MA_PPT = (8, 4, 2, 1)
+_MA_TILE = 2048
+_MA_MIN_CHUNK = 64
+_MA_MAX_SPLIT = 16
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -66,8 +76,9 @@ _SIGNATURES = {
     # points, first, out, B, S, k, threads, points a thread, registers,
     # stream
     "fps": ("usip_fps", [_P, _P, _P] + [_I] * 6 + [_P]),
-    # points, nodes, mins, idx, B, N, M, round_bf16, stream
-    "min_argmin": ("usip_min_argmin", [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    # points, nodes, mins, idx, B, N, M, round_bf16, threads, points a
+    # thread, split, tile, stream
+    "min_argmin": ("usip_min_argmin", [_P] * 4 + [_I] * 8 + [_P]),
     # x, packed weights, b1, b2, b3, b4, b5, out, BM, K, Cin, C, C2, stream
     "fusion_chain": ("usip_fusion_chain", [_P] * 8 + [_I] * 5 + [_P]),
     # scores, vals, idx, rows, N, k, stream
@@ -229,25 +240,73 @@ def min_argmin_plain(points: Tensor, nodes: Tensor, round_bf16: bool = False
     return d.gather(-1, idx[..., None])[..., 0], idx.int()
 
 
+class MinArgminForm(NamedTuple):
+    """The form of a ``csrc/min_argmin.cu`` launch: blocks of ``threads``
+    threads, ``points_per_thread`` queries a thread; ``split`` blocks (a
+    cluster) share one tile of queries, each taking 1/split of the
+    candidates; ``tile`` candidates staged in shared memory at a time."""
+    threads: int
+    points_per_thread: int
+    split: int
+    tile: int
+
+
+def min_argmin_form(b: int, n: int, m: int) -> MinArgminForm:
+    """The min/argmin kernel's form for ``b`` clouds of ``n`` queries
+    against ``m`` candidates: 128 threads; the most queries a thread (8, 4,
+    2, 1) that still gives one block to each of the card's 132 SMs; where
+    even one query a thread does not, one query a thread and the candidates
+    split over a cluster of 2 to 16 blocks (each at least 64 candidates),
+    the smallest split that gives two blocks an SM, or the largest. Tiles of
+    at most 2048 candidates (32 KB). (8, 16384) x 512 -> 4 queries a
+    thread, 256 blocks; (16, 16384) x 512 -> 8, 256 blocks; (8, 512) x
+    16384 -> 1 query a thread, clusters of 16, 512 blocks; (8, 512) x 512
+    -> clusters of 8 (64 candidates each), 256 blocks."""
+    if m < 1:
+        raise ValueError(f"min_argmin: M={m} candidates must be >= 1")
+    threads = _MA_THREADS
+
+    def blocks(ppt, split):
+        return b * -(-n // (threads * ppt)) * split
+
+    def tile(split):
+        chunk = -(-m // split)
+        return min(_MA_TILE, chunk + chunk % 2)
+
+    for ppt in _MA_PPT:
+        if blocks(ppt, 1) >= _SMS:
+            return MinArgminForm(threads, ppt, 1, tile(1))
+    # few queries: latency-bound, so one query a thread and as many warps as
+    # the split gives, up to two blocks an SM
+    split = 1
+    while (split < _MA_MAX_SPLIT and blocks(1, split) < 2 * _SMS
+           and -(-m // (2 * split)) >= _MA_MIN_CHUNK):
+        split *= 2
+    return MinArgminForm(threads, 1, split, tile(split))
+
+
 def min_argmin(points: Tensor, nodes: Tensor, round_bf16: bool = False
                ) -> Tuple[Tensor, Tensor]:
-    """Nearest node of every point; kernel ``csrc/min_argmin.cu`` for CUDA
-    tensors (counterpart of ``pallas_kernels.min_argmin_pallas``), which never
-    builds the ``(B, N, M)`` matrix."""
+    """Nearest candidate of every query, ``points (B, N, 3)`` against
+    ``nodes (B, M, 3)``; kernel ``csrc/min_argmin.cu`` for CUDA tensors
+    (counterpart of ``pallas_kernels.min_argmin_pallas``), which never
+    builds the ``(B, N, M)`` matrix: queries in registers, candidates
+    streamed through shared memory, split over a cluster when queries are
+    few (``min_argmin_form``). Any M; the same results as
+    ``min_argmin_plain`` for finite inputs."""
     if points.device.type == "cpu":
         return min_argmin_plain(points, nodes, round_bf16)
     dev = _cuda_device(points, "points")
     b, n, m = points.shape[0], points.shape[1], nodes.shape[1]
     _check(points, "points", torch.float32, (b, n, 3), dev)
     _check(nodes, "nodes", torch.float32, (b, m, 3), dev)
-    if m < 1 or 16 * m > _MAX_SMEM:
-        raise ValueError(f"min_argmin: M={m} nodes must be >= 1 and fit one "
-                         "block's shared memory")
+    form = min_argmin_form(b, n, m)
     mins = torch.empty((b, n), dtype=torch.float32, device=dev)
     idx = torch.empty((b, n), dtype=torch.int32, device=dev)
     if b and n:
         _launch("min_argmin", dev, points.data_ptr(), nodes.data_ptr(),
-                mins.data_ptr(), idx.data_ptr(), b, n, m, int(round_bf16))
+                mins.data_ptr(), idx.data_ptr(), b, n, m, int(round_bf16),
+                *form)
     return mins, idx
 
 
