@@ -41,7 +41,23 @@ script exits nonzero without the final ``ok`` line:
    card against the same step on the CPU (loss within 1e-4, gradient norm
    within 1e-3, relative; each parameter's gradient within ``GRAD_TOL``);
    then the step time, train clouds/s and the step's split into data prep,
-   forward, losses, backward and optimizer (the parts run one by one).
+   forward, losses, backward and optimizer (the parts run one by one);
+7. trains at full KITTI width through the entry points: builds a synthetic
+   KITTI tree of 20480-point scans (``build_synthetic_kitti_tree``), runs
+   ``python -m usip_tpu_torch.cli train-detector --device cuda`` for 2
+   epochs and then ``--resume auto`` for a third, and checks its files,
+   finite losses and the resumed epoch; then one epoch of
+   ``DetectorEngine`` in process with the launch counts reset before and
+   read after (FPS, min/argmin, smallest-k and scatter-max must launch),
+   its train clouds/s beside the bare step's (phase 6) and the device's
+   idle share over the epoch (torch.profiler over the next epoch); then
+   ``python -m usip_tpu_torch.cli bench --device cuda`` and its JSON line;
+8. exports keypoints from phase 7's checkpoint through ``cli.main(
+   ["export-keypoints", ...])`` in process with the counts reset and read
+   (all five kernels must launch), scores them with ``eval-repeatability``,
+   then runs the training-quality gate ``python -m usip_tpu_torch.quality
+   --device cuda`` (scripts/fullscale_quality.py phase_smoke's sizes) and
+   fails unless trained/random repeatability >= 2.
 
 The second-to-last line is a JSON object with one entry per kernel (time,
 plain and library times, bound, launches); the last is ``{"ok": true,
@@ -49,6 +65,8 @@ plain and library times, bound, launches); the last is ``{"ok": true,
 checks that at its end.
 """
 
+import contextlib
+import io
 import json
 import os
 import shutil
@@ -56,6 +74,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 import torch
@@ -64,6 +83,8 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
 
 from usip_tpu_torch import _build  # noqa: E402
+from usip_tpu_torch import cli  # noqa: E402
+from usip_tpu_torch.bench import bench_rate  # noqa: E402
 from usip_tpu_torch.config import get_config  # noqa: E402
 from usip_tpu_torch.inference import KeypointPipeline  # noqa: E402
 from usip_tpu_torch.models import Detector  # noqa: E402
@@ -74,6 +95,9 @@ from usip_tpu_torch.ops.grouping import ball_scores, ball_select  # noqa: E402
 from usip_tpu_torch.train import (ParentBatch, TrainState,  # noqa: E402
                                   make_detector_train_step)
 from usip_tpu_torch.train import steps as train_steps  # noqa: E402
+from usip_tpu_torch.train.checkpoint import find_checkpoint  # noqa: E402
+from usip_tpu_torch.train.loop import DetectorEngine  # noqa: E402
+from usip_tpu_torch.data.synthetic import build_synthetic_kitti_tree  # noqa: E402
 from usip_tpu_torch.weights import seeded_state_dict  # noqa: E402
 
 B_BENCH = 8
@@ -153,6 +177,9 @@ PATH_KERNELS = {
     "ball": ("fps", "smallest_k", "fusion_chain"),
     "knn": ("fps", "smallest_k", "fusion_chain"),
     "train": ("fps", "min_argmin", "scatter_max", "smallest_k"),
+    "engine": ("fps", "min_argmin", "scatter_max", "smallest_k"),
+    "export": ("fps", "min_argmin", "scatter_max", "fusion_chain",
+               "smallest_k"),
 }
 # train steps in the train path's counted run
 TRAIN_STEPS = 5
@@ -160,10 +187,20 @@ TRAIN_STEPS = 5
 # the floor (a fraction of the largest gradient) under which a gradient is
 # rounding noise, max|diff| over max(max|g|, floor), the least cosine. On an
 # H100 the 12 noise gradients lay at or below 8e-8 of the largest, the 34
-# others at or above 1.4e-3; the worst error was 1.7e-2 (the fp32 forward
-# itself differs by up to 9e-4 of max|keypoint|, phase 3, and a train-mode
-# BatchNorm backward amplifies that) and the lowest cosine 0.999982
+# others at or above 1.4e-3; the worst error was 1.7e-2 in two runs and
+# 4.8e-2 in a third, on a gradient at 1.4e-3 of the largest, before the
+# card's step ran with deterministic algorithms (the fp32 forward itself
+# differs by up to 9e-4 of max|keypoint|, phase 3, and a train-mode
+# BatchNorm backward amplifies that); the lowest cosine 0.999962
 GRAD_TOL = (1e-4, 5e-2, 0.9999)
+# phases 7 and 8's synthetic KITTI tree: full-size 20480-point scans, 10 a
+# train sequence (90: 11 steps of batch 8 an epoch), 8 a test sequence (16
+# for the test sweep; one registration pair >= 10 m apart in each sequence,
+# so 4 frames to export)
+TREE = {"frames_per_seq": 10, "test_frames_per_seq": 8,
+        "target_points": 20480, "seed": 0}
+# the quality gate: trained over random repeatability (phase_smoke --factor)
+QUALITY_FACTOR = 2.0
 
 
 def check(cond, msg):
@@ -630,25 +667,6 @@ def phase4(tmp):
     return pipes, launches
 
 
-def bench_rate(pipe, pc8, sn8, iters=50):
-    """bench.py protocol: batch 8, FPS + detect, best of 3 x ``iters``, one
-    synchronize per pass -> (clouds/s, ms per batch, peak MiB)."""
-    torch.cuda.reset_peak_memory_stats()
-    for _ in range(2):
-        pipe.infer(pc8, sn8)
-    sync()
-    best = float("inf")
-    for _ in range(3):
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            out = pipe.infer(pc8, sn8)
-        sync()
-        best = min(best, time.perf_counter() - t0)
-    check(bool(torch.isfinite(out[0]).all()), "bench output finite")
-    return (B_BENCH * iters / best, best / iters * 1e3,
-            torch.cuda.max_memory_allocated() / 2**20)
-
-
 def phase5(pipes, card):
     dev = torch.device("cuda")
     rng = np.random.default_rng(4)
@@ -940,9 +958,17 @@ def phase6(card):
     res, grads = {}, {}
     for device in ("cuda", "cpu"):
         st = train_state(cfg32, device)
-        res[device] = make_detector_train_step(cfg32)(
-            st, ParentBatch(*(t.to(device) for t in batch2)), 0,
-            generator=torch.Generator().manual_seed(SEED + 1))
+        # the card's atomic accumulations (index_add, scatter_add in the
+        # backward) sum in an order that changes from run to run, and a
+        # ReLU input within that noise of 0 moves the gradients below it:
+        # the deterministic algorithms make the card's step repeatable
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            res[device] = make_detector_train_step(cfg32)(
+                st, ParentBatch(*(t.to(device) for t in batch2)), 0,
+                generator=torch.Generator().manual_seed(SEED + 1))
+        finally:
+            torch.use_deterministic_algorithms(False)
         grads[device] = {n: p.grad.detach().double().cpu() for n, p in
                          st.model.named_parameters() if p.grad is not None}
     gpu, cpu = ({k: float(v) for k, v in res[d].items()}
@@ -1009,6 +1035,7 @@ def phase6(card):
     split = {n: float(np.mean([ev[i].elapsed_time(ev[i + 1])
                                for ev in marks]))
              for i, n in enumerate(names)}
+    step_rate = 2 * b * 1e3 / step_ms
     print(f"[6] {card} | train step kitti bf16 batch {b}: {step_ms:.3f} ms "
           f"a step (mean of {iters}, pipelined), {2 * b * 1e3 / step_ms:.2f} "
           f"clouds/s ({b * 1e3 / step_ms:.2f} parent samples/s); split (ms, "
@@ -1038,26 +1065,234 @@ def phase6(card):
           "[name, ms a step, calls a step]: "
           + json.dumps([[k, round(t, 4), c] for t, c, k in ops[:15]]),
           flush=True)
+    return launches, step_rate
+
+
+def run_module(tag, args, timeout=900):
+    """``python -m <args>`` from the repo, to its end: its stdout (the
+    command fails the script on a nonzero exit) and its wall time."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", *args], capture_output=True,
+                          text=True, cwd=REPO, env=env, timeout=timeout)
+    check(proc.returncode == 0, f"{tag} exited {proc.returncode}: "
+          f"{proc.stderr[-3000:]} {proc.stdout[-2000:]}")
+    return proc.stdout, time.perf_counter() - t0
+
+
+def read_jsonl(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def phase7(card, tmp, step_rate):
+    """The engine at full KITTI width: train through the CLI and resume,
+    one epoch in process with its launches, rate and idle share, bench."""
+    t0 = time.perf_counter()
+    root = os.path.join(tmp, "kitti_tree")
+    counts = build_synthetic_kitti_tree(root, **TREE)
+    print(f"[7] synthetic KITTI tree: {sum(counts.values())} scans of "
+          f"{TREE['target_points']} points {counts} in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    ckpt_dir = os.path.join(tmp, "ckpt")
+    out_dir = os.path.join(ckpt_dir, "kitti")
+    base = ["usip_tpu_torch.cli", "train-detector", "--dataset", "kitti",
+            "--dataroot", root, "--name", "kitti", "--checkpoints-dir",
+            ckpt_dir, "--device", "cuda", "--override", "train.log_every=5"]
+    _, t_first = run_module("train-detector", base + ["--epochs", "2"])
+    for name in ("config.json", "kitti_metrics.jsonl", "last.pt",
+                 "last.pt.json"):
+        check(os.path.exists(os.path.join(out_dir, name)),
+              f"train-detector wrote {name}")
+    with open(os.path.join(out_dir, "config.json")) as f:
+        saved = json.load(f)
+    check((saved["data"]["input_pc_num"], saved["data"]["parent_pc_num"],
+           saved["data"]["node_num"], saved["detector"]["c1"],
+           saved["detector"]["c2"], saved["data"]["wire_dtype"],
+           saved["detector"]["compute_dtype"])
+          == (16384, 20480, 512, 128, 512, "float16", "bfloat16"),
+          "train-detector ran the KITTI preset at full width")
+    first = read_jsonl(os.path.join(out_dir, "kitti_metrics.jsonl"))
+    out, t_resume = run_module("train-detector --resume auto",
+                               base + ["--epochs", "3", "--resume", "auto"])
+    check("at epoch 2" in out, "the resumed run starts at epoch 2")
+    recs = read_jsonl(os.path.join(out_dir, "kitti_metrics.jsonl"))
+    resumed = recs[len(first):]
+    check(bool(resumed) and {r["epoch"] for r in resumed} == {2},
+          "the resumed run trains epoch 2 only")
+    losses = [r["loss"] for r in recs if "loss" in r]
+    check(bool(losses) and all(np.isfinite(losses)), "every loss finite")
+    ckpt = find_checkpoint(out_dir)
+    check(ckpt is not None, "a best or last checkpoint")
+    epochs = [(r["epoch"], round(r["loss"], 4), round(r["sigma_mean"], 4))
+              for r in recs if r["prefix"] == "train_epoch"]
+    tests = [(r["epoch"], round(r["loss"], 4)) for r in recs
+             if r["prefix"] == "test"]
+    print(f"[7] train-detector --dataset kitti --device cuda: 2 epochs in "
+          f"{t_first:.1f} s, --resume auto to epoch 3 in {t_resume:.1f} s "
+          f"(process start-up included); [epoch, train loss, sigma_mean] "
+          f"{epochs}, [epoch, test loss] {tests}; checkpoint {ckpt}",
+          flush=True)
+
+    # one epoch of the engine in process, counts reset before and read after
+    cfg = get_config("kitti", **{"data.dataroot": root,
+                                 "train.log_every": 100})
+    train, test = cli._make_loaders(
+        cfg, types.SimpleNamespace(synthetic=False),
+        cfg.detector.surface_normal_len)
+    engine = DetectorEngine(cfg, train, test,
+                            out_dir=os.path.join(tmp, "engine"),
+                            device="cuda")
+    engine.train_epoch(0)  # warm-up
+    sync()
+    steps = len(train)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    avg = engine.train_epoch(1)  # ends with one fetch of the epoch's metrics
+    sync()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    check(all(np.isfinite(list(avg.values()))), "engine epoch metrics finite")
+    for name in PATH_KERNELS["engine"]:
+        check(launches[name] > 0, f"kernel {name} launched on the engine "
+              "path")
+    rate = 2 * cfg.train.batch_size * steps / wall
+    # the device's busy time over the next epoch (torch.profiler), against
+    # the unprofiled epoch's wall time
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        engine.train_epoch(2)
+        sync()
+        pwall = time.perf_counter() - t1
+    device = torch.autograd.DeviceType.CUDA
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == device) / 1e3
+    idle = 1.0 - busy / (wall * 1e3)
+    print(f"[7] {card} | engine train kitti bf16 batch "
+          f"{cfg.train.batch_size}, one epoch of {steps} steps in process: "
+          f"{rate:.2f} clouds/s ({wall / steps * 1e3:.3f} ms a step, both "
+          f"siamese copies counted, one fetch at the epoch's end); the bare "
+          f"step (phase 6) {step_rate:.2f} clouds/s; device busy "
+          f"{busy:.3f} ms over the profiled epoch ({pwall * 1e3:.3f} ms "
+          f"profiled), idle share {idle:.4f} of the unprofiled epoch's "
+          f"{wall * 1e3:.3f} ms; launches {launches}; epoch metrics "
+          + json.dumps({k: round(v, 4) for k, v in avg.items()}), flush=True)
+
+    # the same epoch with its batches assembled on the host beforehand (the
+    # prefetch thread still pins and copies them): what the loader's
+    # threads cost the engine
+    engine.train_loader = list(train)
+    t1 = time.perf_counter()
+    engine.train_epoch(1)
+    sync()
+    pre = time.perf_counter() - t1
+    print(f"[7] {card} | the same epoch with its {steps} batches assembled "
+          f"beforehand: {2 * cfg.train.batch_size * steps / pre:.2f} "
+          f"clouds/s ({pre / steps * 1e3:.3f} ms a step)", flush=True)
+
+    out, t_bench = run_module("bench", ["usip_tpu_torch.cli", "bench",
+                                        "--device", "cuda"])
+    line = json.loads(out.strip().splitlines()[-1])
+    check(line.get("metric") == "kitti_16k_detection_clouds_per_sec_per_chip"
+          and line.get("value", 0) > 0 and line.get("batch") == B_BENCH,
+          f"bench line {line}")
+    print(f"[7] {card} | python -m usip_tpu_torch.cli bench --device cuda "
+          f"({t_bench:.1f} s): {json.dumps(line)}", flush=True)
+    return launches, root, ckpt
+
+
+def phase8(card, tmp, root, ckpt):
+    """Export with the launch counts of the export path, repeatability, and
+    the training-quality gate."""
+    kp_dir = os.path.join(tmp, "kp_model")
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main(["export-keypoints", "--dataset", "kitti", "--dataroot",
+                  root, "--checkpoint", ckpt, "--out", kp_dir, "--device",
+                  "cuda"])
+    sync()
+    launches = dict(kernels.LAUNCHES)
+    t_export = time.perf_counter() - t0
+    stats = json.loads(buf.getvalue().strip().splitlines()[-1])
+    check(stats["frames"] > 0 and stats["mean_keypoints"] == 128,
+          f"export stats {stats}")
+    for name in PATH_KERNELS["export"]:
+        check(launches[name] > 0, f"kernel {name} launched on the export "
+              "path")
+    bins = [os.path.join(d, f) for d, _, fs in os.walk(kp_dir) for f in fs]
+    check(len(bins) == stats["frames"], "a .bin for every exported frame")
+    for path in bins:
+        kp = np.fromfile(path, np.float32).reshape(-1, 3)
+        check(kp.shape == (128, 3) and np.isfinite(kp).all(),
+              f"{path} holds 128 finite keypoints")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main(["eval-repeatability", "--anc-dir", kp_dir, "--pos-dir",
+                  kp_dir, "--kitti-gt", os.path.join(root, "kitti-reg-test"),
+                  "--coord-fix", "kitti", "--calib-root",
+                  os.path.join(root, "calib")])
+    rep = json.loads(buf.getvalue().strip().splitlines()[-1])
+    check(rep["pairs"] > 0 and 0.0 <= rep["repeatability"] <= 1.0,
+          f"repeatability {rep}")
+    print(f"[8] {card} | export-keypoints --method model (phase 7's "
+          f"checkpoint, kitti test frames, batch 8 with the ragged tail "
+          f"padded): {json.dumps(stats)} in {t_export:.1f} s; launches "
+          f"{launches}; eval-repeatability --coord-fix kitti: "
+          f"{json.dumps(rep)}", flush=True)
+
+    out, t_gate = run_module("quality", [
+        "usip_tpu_torch.quality", "--root", os.path.join(tmp, "quality"),
+        "--device", "cuda", "--factor", str(QUALITY_FACTOR)])
+    res = json.loads(out.strip().splitlines()[-1])
+    print(f"[8] {card} | quality gate (phase_smoke sizes: input 2048, parent "
+          f"2560, M 64, c1 32, c2 128, batch 4, 4096-point scans, 16 "
+          f"epochs) in {t_gate:.1f} s: trained repeatability "
+          f"{res['trained']['repeatability']}, random "
+          f"{res['random']['repeatability']} over {res['pairs']} pairs, "
+          f"ratio {res['ratio']} (required >= {QUALITY_FACTOR}); phases (s) "
+          f"{json.dumps(res['seconds'])}", flush=True)
+    check(res["passed"] and res["ratio"] >= QUALITY_FACTOR,
+          "trained/random repeatability >= 2")
     return launches
 
 
 def main():
+    walls = {}
+    t0 = time.perf_counter()
+
+    def lap(name):
+        nonlocal t0
+        sync()
+        walls[name] = round(time.perf_counter() - t0, 1)
+        t0 = time.perf_counter()
+
     card = phase0()
     phase1()
+    lap("0-1 card, build")
     errs = phase2(get_config("kitti"))
-    sync()
+    lap("2 kernels against plain")
     phase3()
-    sync()
+    lap("3 fp32 forwards")
     tmp = tempfile.mkdtemp(prefix="usip_chip_smoke_")
     try:
         pipes, launches = phase4(tmp)
-        sync()
+        lap("4 serve")
         times, library, bounds, knn_ms, events, k2 = phase5(pipes, card)
-        sync()
-        launches["train"] = phase6(card)
-        sync()
+        del pipes
+        lap("5 timing")
+        launches["train"], step_rate = phase6(card)
+        lap("6 train step")
+        launches["engine"], root, ckpt = phase7(card, tmp, step_rate)
+        lap("7 engine")
+        launches["export"] = phase8(card, tmp, root, ckpt)
+        lap("8 export, quality gate")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[t] wall time by phase (s): {json.dumps(walls)}", flush=True)
     check("jax" not in sys.modules and "flax" not in sys.modules,
           "no jax or flax imported")
     ref = [m for m in sys.modules
@@ -1077,7 +1312,8 @@ def main():
     }
     # launches: the sum over the main paths' runs (each counted from 0);
     # launches_per_detect: per serving path, over its 3 detects;
-    # launches_per_train_step: over the train path's steps
+    # launches_per_train_step: over the train path's steps; the engine's
+    # epoch and the export run, as counted
     line = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
              "launches": sum(counts[name] for counts in launches.values()),
              "max_abs_err": errs[name], "ms": times[name][0],
@@ -1085,9 +1321,11 @@ def main():
              "bound_ms": bounds[name][0],
              "bound_by": bounds[name][1],
              "library_ms": library.get(name),
-             "launches_per_detect": {tag: counts[name] / 3 for tag, counts
-                                     in launches.items() if tag != "train"},
-             "launches_per_train_step": launches["train"][name] / TRAIN_STEPS}
+             "launches_per_detect": {tag: launches[tag][name] / 3
+                                     for tag in ("som", "ball", "knn")},
+             "launches_per_train_step": launches["train"][name] / TRAIN_STEPS,
+             "launches_engine_epoch": launches["engine"][name],
+             "launches_export": launches["export"][name]}
             for name, (src, rep) in meta.items()]
     # K2 at each of its four shapes (the entry's own time is the serve one)
     line[1]["shapes"] = k2

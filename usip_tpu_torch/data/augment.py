@@ -19,6 +19,7 @@ from __future__ import annotations
 import math
 from typing import NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from usip_tpu_torch.config import AugmentConfig
@@ -201,3 +202,13 @@ def random_height_scale(pcs, low: float = 0.25, high: float = 1.2,
     cols[axis] = scale
     factor = torch.stack(cols, -1)[:, None, :]
     return [pc * factor for pc in pcs]
+
+
+def coordinate_enu_to_cam(points):
+    """ENU -> camera axes on the host: x <- x, y <- -z, z <- y (numpy,
+    (N, 3); usip_tpu's ``data/augment.py:198``, used by the Oxford
+    loaders)."""
+    out = np.copy(points)
+    out[:, 1] = -points[:, 2]
+    out[:, 2] = points[:, 1]
+    return out

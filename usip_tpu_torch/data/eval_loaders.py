@@ -1,0 +1,88 @@
+"""Evaluation-only frame loaders feeding keypoint export (counterpart of
+``usip_tpu/data/eval_loaders.py:18-89``; the port keeps its own copy of the
+KITTI and Oxford test frames, replacing the reference's
+evaluation/{kitti_test,oxford_test}_loader.py). The Redwood, 3DMatch and
+rotated-ModelNet frames are not ported."""
+
+from __future__ import annotations
+
+import os
+from typing import Dict, List
+
+import numpy as np
+
+from usip_tpu_torch.config import DataConfig
+from usip_tpu_torch.data.augment import coordinate_enu_to_cam
+from usip_tpu_torch.data.common import split_pc_sn, subsample_fixed
+from usip_tpu_torch.data.loaders import KITTI_NP_FOLDER
+
+
+def load_kitti_test_pairs(txt_root: str, seq: int) -> List[Dict]:
+    """Parse groundtruths.txt for one sequence into unique anc frames with a
+    paired pos frame (evaluation/kitti_test_loader.py:24-58)."""
+    dataset: List[Dict] = []
+    seen = set()
+    with open(os.path.join(txt_root, f"{seq:02d}", "groundtruths.txt")) as f:
+        for i, line in enumerate(f):
+            if i == 0:
+                continue  # header
+            parts = line.split()
+            anc_idx, pos_idx = int(parts[0]), int(parts[1])
+            if anc_idx not in seen:
+                seen.add(anc_idx)
+                dataset.append({"seq": seq, "anc_idx": anc_idx, "pos_idx": pos_idx})
+            if pos_idx not in seen:
+                seen.add(pos_idx)
+                dataset.append({"seq": seq, "anc_idx": pos_idx, "pos_idx": anc_idx})
+    return dataset
+
+
+class KittiTestFrames:
+    """Unique test frames from the registration ground-truth lists; yields
+    (pc, sn, seq, anc_idx) for keypoint export."""
+
+    def __init__(self, cfg: DataConfig, txt_root: str, numpy_root: str,
+                 seqs=(9, 10), sn_len: int = 4, seed: int = 0):
+        self.cfg = cfg
+        self.sn_len = sn_len
+        self.numpy_root = numpy_root
+        self._rng = np.random.default_rng(seed)
+        self.items: List[Dict] = []
+        for seq in seqs:
+            self.items.extend(load_kitti_test_pairs(txt_root, seq))
+
+    def __len__(self):
+        return len(self.items)
+
+    def __getitem__(self, index):
+        item = self.items[index]
+        path = os.path.join(self.numpy_root, f"{item['seq']:02d}",
+                            KITTI_NP_FOLDER, f"{item['anc_idx']:06d}.npy")
+        data = subsample_fixed(self._rng, np.load(path), self.cfg.input_pc_num)
+        pc, sn = split_pc_sn(data, self.sn_len)
+        return {"pc": pc, "sn": sn, "seq": np.int64(item["seq"]),
+                "frame": np.int64(item["anc_idx"])}
+
+
+class OxfordTestFrames:
+    """Fixed 828 test models, ENU->cam (evaluation/oxford_test_loader.py:43-88)."""
+
+    def __init__(self, cfg: DataConfig, sn_len: int = 4, seed: int = 0,
+                 count: int = 828):
+        self.cfg = cfg
+        self.sn_len = sn_len
+        self.count = count
+        self._rng = np.random.default_rng(seed)
+        self.folder = os.path.join(cfg.dataroot, "test_models_20k_np_nofilter")
+
+    def __len__(self):
+        return self.count
+
+    def __getitem__(self, index):
+        data = np.load(os.path.join(self.folder, f"{index}.npy"))
+        data = subsample_fixed(self._rng, data, self.cfg.input_pc_num)
+        pc, sn = split_pc_sn(data, self.sn_len)
+        pc = coordinate_enu_to_cam(pc)
+        if self.sn_len >= 3:
+            sn = np.concatenate([coordinate_enu_to_cam(sn[:, :3]), sn[:, 3:]], 1)
+        return {"pc": pc, "sn": sn, "seq": np.int64(0), "frame": np.int64(index)}

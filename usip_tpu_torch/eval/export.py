@@ -1,12 +1,15 @@
-"""Keypoint selection for export: NMS, sigma-ranking, count enforcement
+"""Keypoint export: NMS, sigma-ranking, count enforcement, .bin files
 (counterpart of ``usip_tpu/eval/export.py``; the port keeps its own copy).
 
 Python re-implementation of the reference export tool
-(evaluation/save_keypoints.py:180-227,343-351): greedy NMS keeping the
-smallest sigma first, top-K by sigma, pad-from-cloud."""
+(evaluation/save_keypoints.py:180-227,343-393): greedy NMS keeping the
+smallest sigma first, top-K by sigma, pad-from-cloud, a float32 ``.bin`` per
+frame (the reference's format, so keypoints stay interchangeable with its
+MATLAB eval)."""
 
 from __future__ import annotations
 
+import os
 from typing import Optional, Tuple
 
 import numpy as np
@@ -96,3 +99,15 @@ def select_keypoints(keypoints: np.ndarray, sigmas: np.ndarray,
         sig = np.concatenate([sig, np.full(desired_num - k, np.inf,
                                            sig.dtype)])
     return kp, sig
+
+
+def write_keypoints_bin(path: str, keypoints: np.ndarray) -> None:
+    """float32 row-major .bin, the reference's exchange format
+    (save_keypoints.py:367-393)."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    keypoints.astype(np.float32).tofile(path)
+
+
+def read_keypoints_bin(path: str, dim: int = 3) -> np.ndarray:
+    data = np.fromfile(path, dtype=np.float32)
+    return data.reshape(-1, dim)

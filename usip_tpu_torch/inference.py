@@ -35,9 +35,10 @@ def resolve_device(device) -> torch.device:
 
 
 class KeypointPipeline:
-    """Detector inference on ``device`` from a reference-named ``.pth``."""
+    """Detector inference on ``device`` from a checkpoint file
+    (``weights.load_detector_weights``) or a ``state_dict``."""
 
-    def __init__(self, cfg: Config, detector_checkpoint: str, device,
+    def __init__(self, cfg: Config, detector_checkpoint, device,
                  seed: int = 0):
         self.device = resolve_device(device)
         # full fp32 products on the card: TF32, the cuDNN default, keeps about
@@ -47,11 +48,14 @@ class KeypointPipeline:
         self.cfg = cfg
         self._rng = np.random.default_rng(seed)
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
-        sd = load_detector_weights(detector_checkpoint)
+        named = isinstance(detector_checkpoint, str)
+        sd = (load_detector_weights(detector_checkpoint) if named
+              else detector_checkpoint)
         family = detector_family(sd)
         if family != ("som" if cfg.detector.grouping == "som" else "group"):
             raise ValueError(
-                f"{detector_checkpoint} holds a "
+                f"{detector_checkpoint if named else 'the state_dict'} "
+                "holds a "
                 f"{'grouped (knn/ball)' if family == 'group' else 'som'} "
                 "detector but the config's detector.grouping is "
                 f"{cfg.detector.grouping!r}; the released Oxford model is "

@@ -4,7 +4,8 @@
   ``{'params': ..., 'batch_stats': ...}``) of either trunk family onto the
   port's ``state_dict``;
 * ``load_detector_weights`` reads a reference ``.pth`` (what the reference
-  saves, ``<epoch>_net_detector.pth``);
+  saves, ``<epoch>_net_detector.pth``), the port's ``.pt`` checkpoint or a
+  usip_tpu ``.msgpack``;
 * ``seeded_state_dict`` makes random weights from a seed, with nontrivial
   BatchNorm statistics, for tests and the on-card smoke run.
 """
@@ -82,9 +83,17 @@ def detector_family(state_dict: Mapping) -> str:
 
 
 def load_detector_weights(path: str) -> Dict[str, torch.Tensor]:
-    """A reference-named detector ``state_dict`` from a ``.pth`` file, with
-    the ``nn.DataParallel`` ``module.`` prefix stripped when every key has it."""
+    """A reference-named detector ``state_dict`` from a checkpoint file: a
+    usip_tpu ``.msgpack`` (its parameters and BatchNorm statistics), the
+    port's own ``.pt`` (its ``"model"`` entry) or a reference ``.pth``, with
+    the ``nn.DataParallel`` ``module.`` prefix stripped when every key has
+    it."""
+    if path.endswith(".msgpack"):
+        from usip_tpu_torch.train.checkpoint import state_dict_from_msgpack
+        return state_dict_from_msgpack(path)[0]
     sd = torch.load(path, map_location="cpu", weights_only=True)
+    if "model" in sd and isinstance(sd["model"], Mapping):
+        sd = sd["model"]
     if sd and all(k.startswith("module.") for k in sd):
         sd = {k[len("module."):]: v for k, v in sd.items()}
     return sd
