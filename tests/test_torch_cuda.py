@@ -10,7 +10,8 @@ They cover the main paths' shapes and shapes off them: odd and ragged
 sizes, small widths, K that does not divide the 64-row tile, rows that are
 not a multiple of 32, channel counts that are not a multiple of the scatter
 tile; min/argmin at its four shapes and on ties, -0.0, negative and
-subnormal distances; the train step's nearest-neighbour and scatter-max
+subnormal distances; smallest-k on the descriptor's random-priority ball
+scores, fp32 and bf16; the train step's nearest-neighbour and scatter-max
 gradients against the CPU.
 """
 
@@ -276,6 +277,34 @@ def test_smallest_k_kernel_many_short_rows(dev, k):
     torch.cuda.synchronize()
     assert torch.equal(idx, ridx)
     assert torch.equal(vals, rvals)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("inside", [0.002, 0.05, 0.6])
+def test_smallest_k_kernel_random_priorities(dev, bf16, inside):
+    """The descriptor's ball scores: uniform priorities (fp32, or rounded
+    to bf16: thousands of ties) where a point is in the ball, +inf
+    elsewhere, a few to most of 16384 points inside; and the whole ball
+    query on the card against the CPU with the same priorities."""
+    from usip_tpu_torch.ops import ball_query
+    rng = np.random.default_rng(int(inside * 1000) + bf16)
+    prio = torch.from_numpy(rng.uniform(size=(64, 16384)).astype(np.float32))
+    if bf16:
+        prio = prio.to(torch.bfloat16).float()
+    s = torch.where(torch.from_numpy(rng.uniform(size=prio.shape) < inside),
+                    prio, torch.inf)
+    vals, idx = kernels.smallest_k(s.to(dev), 64)
+    torch.cuda.synchronize()
+    rvals, ridx = kernels.smallest_k_plain(s, 64)
+    assert torch.equal(idx.cpu(), ridx) and torch.equal(vals.cpu(), rvals)
+    pc = torch.from_numpy(rng.normal(0, 8, (2, 16384, 3)).astype(np.float32))
+    kp = pc[:, :256] + 0.3
+    pr = torch.from_numpy(rng.uniform(size=(2, 16384)).astype(np.float32))
+    got = ball_query(pc.to(dev), kp.to(dev), 2.0, 64, pr.to(dev),
+                     round_bf16=bf16)
+    ref = ball_query(pc, kp, 2.0, 64, pr, round_bf16=bf16)
+    for g, r in zip(got, ref):
+        assert torch.equal(g.cpu(), r)
 
 
 def test_smallest_k_grad_on_card(dev):

@@ -98,13 +98,25 @@ def test_ball_query_on_grid_matches_jax(radius, k):
 
 
 def test_ball_query_refuses_what_is_not_ported():
-    pc = torch.zeros((1, 8, 3))
-    with pytest.raises(NotImplementedError, match="random priorities"):
-        tops.ball_query(pc, pc, 1.0, 4, key=0)
-    with pytest.raises(NotImplementedError, match="approx_min_k"):
-        tops.ball_query(pc, pc, 1.0, 4, method="approx")
-    with pytest.raises(NotImplementedError, match="approx_min_k"):
-        Detector(_cfg("ball", **{"detector.group_method": "approx"}).detector)
+    """Random priorities and ``method='approx'`` are ported: usip_tpu's
+    ``lax.approx_min_k`` selection becomes the exact one, so 'approx' gives
+    what 'exact' gives, and a detector with ``group_method='approx'``
+    builds. What is still refused: an unknown method or group_method, and
+    priorities that are not one per point of the cloud."""
+    rng = np.random.default_rng(0)
+    pc = _t(rng.normal(size=(2, 64, 3)).astype(np.float32))
+    prio = _t(rng.uniform(size=(2, 64)).astype(np.float32))
+    exact = tops.ball_query(pc, pc[:, :8], 1.0, 4, prio)
+    approx = tops.ball_query(pc, pc[:, :8], 1.0, 4, prio, method="approx")
+    for a, b in zip(exact, approx):
+        assert torch.equal(a, b)
+    Detector(_cfg("ball", **{"detector.group_method": "approx"}).detector)
+    with pytest.raises(ValueError, match="method"):
+        tops.ball_query(pc, pc, 1.0, 4, method="bucketed")
+    with pytest.raises(ValueError, match="priority"):
+        tops.ball_query(pc, pc, 1.0, 4, prio[:, :8])
+    with pytest.raises(ValueError, match="group_method"):
+        Detector(_cfg("ball", **{"detector.group_method": "topk"}).detector)
 
 
 def _setup(grouping, seed):

@@ -2,8 +2,9 @@
 
 usip_tpu_torch imports nothing of usip_tpu: it keeps its own copies of the
 config presets, ``data/{common,preprocess,synthetic,loaders,pipeline,
-eval_loaders}``, the host coordinate flip, ``utils/logging``,
-``eval/{export,repeatability,eval_runner}`` and the CLI's ``_sn_columns``.
+eval_loaders,descriptor_loaders}``, the host coordinate flip,
+``utils/logging``, ``eval/{export,repeatability,eval_runner,registration}``
+and the CLI's ``_sn_columns``.
 These tests hold each copy equal to usip_tpu's bit for bit on the same
 inputs and seeds (usip_tpu's loaders on their numpy path, its native batch
 loader switched off), and show in a fresh interpreter that importing the
@@ -24,6 +25,7 @@ from usip_tpu import cli as jax_cli
 from usip_tpu import config as jax_config
 from usip_tpu.data import augment as jax_augment
 from usip_tpu.data import common as jax_common
+from usip_tpu.data import descriptor_loaders as jax_desc_loaders
 from usip_tpu.data import eval_loaders as jax_eval_loaders
 from usip_tpu.data import loaders as jax_loaders
 from usip_tpu.data import pipeline as jax_pipeline
@@ -32,12 +34,14 @@ from usip_tpu.data import synthetic as jax_synthetic
 from usip_tpu.data.common import subsample_fixed as jax_subsample_fixed
 from usip_tpu.eval import eval_runner as jax_eval_runner
 from usip_tpu.eval import export as jax_export
+from usip_tpu.eval import registration as jax_registration
 from usip_tpu.eval import repeatability as jax_repeatability
 from usip_tpu.utils import logging as jax_logging
 from usip_tpu_torch import cli as torch_cli
 from usip_tpu_torch import config as torch_config
 from usip_tpu_torch.data import augment as torch_augment
 from usip_tpu_torch.data import common as torch_common
+from usip_tpu_torch.data import descriptor_loaders as torch_desc_loaders
 from usip_tpu_torch.data import eval_loaders as torch_eval_loaders
 from usip_tpu_torch.data import loaders as torch_loaders
 from usip_tpu_torch.data import pipeline as torch_pipeline
@@ -46,6 +50,7 @@ from usip_tpu_torch.data import synthetic as torch_synthetic
 from usip_tpu_torch.data.common import subsample_fixed
 from usip_tpu_torch.eval import eval_runner as torch_eval_runner
 from usip_tpu_torch.eval import export as torch_export
+from usip_tpu_torch.eval import registration as torch_registration
 from usip_tpu_torch.eval import repeatability as torch_repeatability
 from usip_tpu_torch.utils import logging as torch_logging
 
@@ -148,7 +153,8 @@ PORT_MODULES = (
     "data.preprocess", "data.synthetic", "data.loaders", "data.pipeline",
     "data.eval_loaders", "utils.logging", "train.checkpoint", "train.loop",
     "eval.export", "eval.repeatability", "eval.eval_runner",
-    "eval.export_runner", "eval.baselines")
+    "eval.export_runner", "eval.baselines", "eval.registration",
+    "data.descriptor_loaders", "models.descriptor", "train.descriptor_loop")
 
 
 def test_port_imports_nothing_of_usip_tpu():
@@ -164,6 +170,7 @@ def test_port_imports_nothing_of_usip_tpu():
         "       if m.split('.')[0] in ('usip_tpu', 'jax', 'flax', 'msgpack')]\n"
         "assert 'usip_tpu_torch.inference' in sys.modules\n"
         "assert 'usip_tpu_torch.train.loop' in sys.modules\n"
+        "assert 'usip_tpu_torch.train.descriptor_loop' in sys.modules\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -509,3 +516,160 @@ def test_kitti_test_frames_equal_usip_tpu(kitti_trees):
     assert len(fa) == len(fb) >= 4
     for i in range(len(fa)):
         _assert_items_equal(fa[i], fb[i])
+
+
+@pytest.mark.parametrize("mode", ["train", "test"])
+def test_kitti_descriptor_loader_equals_usip_tpu(kitti_trees, monkeypatch,
+                                                 mode):
+    """KittiDescriptorDataset item for item (the bounded positive search,
+    the poses), its pose-distance negative mining, and the pair batches of
+    a BatchLoader; usip_tpu on its numpy path."""
+    monkeypatch.setattr(usip_tpu.native, "available", lambda: False)
+    over = {"data.positive_radius": 6.0, "data.negative_radius": 8.0}
+    ours_cfg, ref_cfg = _kitti_cfgs(kitti_trees["port"], **over)
+    ours = torch_desc_loaders.KittiDescriptorDataset(ours_cfg, mode, seed=5)
+    ref = jax_desc_loaders.KittiDescriptorDataset(ref_cfg, mode, seed=5)
+    assert len(ours) == len(ref) > 0
+    for i in range(len(ours)):
+        _assert_items_equal(ours[i], ref[i])
+    for i in (0, len(ours) - 1):
+        a, b = ours.base.load_pose(i), ref.base.load_pose(i)
+        assert a[0] == b[0] and np.array_equal(a[1], b[1])
+    la = torch_pipeline.BatchLoader(ours, 4, shuffle=True, num_workers=1,
+                                    seed=7)
+    lb = jax_pipeline.BatchLoader(ref, 4, shuffle=True, num_workers=1, seed=7)
+    for a, b in zip(list(la), list(lb), strict=True):
+        _assert_items_equal(a, b)
+        np.testing.assert_array_equal(
+            ours.mine_negative_indices(a["seq"], a["pose"],
+                                       np.random.default_rng(1)),
+            ref.mine_negative_indices(b["seq"], b["pose"],
+                                      np.random.default_rng(1)))
+
+
+def test_oxford_descriptor_loader_equals_usip_tpu(tmp_path):
+    """OxfordDescriptorDataset on a small Oxford tree (train_relative.txt
+    with positive and non-negative lists, the test groundtruths.pkl), and
+    its list-based negative mining."""
+    import pickle
+    rng = np.random.default_rng(14)
+    train = tmp_path / "train_np_nofilter"
+    test = tmp_path / "test_models_20k_np_nofilter"
+    train.mkdir()
+    test.mkdir()
+    lines = []
+    for i in range(6):
+        np.save(train / f"{i}.npy", rng.normal(
+            0, 10, size=(400, 8)).astype(np.float32))
+        pos = [j for j in (i - 1, i + 1) if 0 <= j < 6]
+        lines.append(f"{i}.bin | {' '.join(map(str, pos))} | "
+                     f"{' '.join(map(str, pos + [i]))}")
+    (tmp_path / "train_relative.txt").write_text("\n".join(lines) + "\n")
+    for i in range(4):
+        np.save(test / f"{i}.npy", rng.normal(
+            0, 10, size=(400, 8)).astype(np.float32))
+    with open(test / "groundtruths.pkl", "wb") as f:
+        pickle.dump([{"anc_idx": i, "pos_idx": i + 1} for i in range(3)], f)
+    over = {"data.dataroot": str(tmp_path), "data.input_pc_num": 256}
+    sets = {}
+    for mode in ("train", "test"):
+        ours = torch_desc_loaders.OxfordDescriptorDataset(
+            torch_config.get_config("oxford", **over).data, mode, seed=2)
+        ref = jax_desc_loaders.OxfordDescriptorDataset(
+            jax_config.get_config("oxford", **over).data, mode, seed=2)
+        assert len(ours) == len(ref) > 0
+        for i in range(len(ours)):
+            _assert_items_equal(ours[i], ref[i])
+        sets[mode] = ours, ref
+    ours, ref = sets["train"]
+    idx = np.array([0, 1, 3, 5])
+    np.testing.assert_array_equal(
+        ours.mine_negative_indices(idx, np.random.default_rng(3)),
+        ref.mine_negative_indices(idx, np.random.default_rng(3)))
+    T = np.eye(4)
+    T[:3, 3] = [1.0, -2.0, 0.5]
+    pts = rng.normal(size=(20, 3))
+    assert np.array_equal(torch_desc_loaders.cart_to_hom_apply(T, pts),
+                          jax_desc_loaders.cart_to_hom_apply(T, pts))
+
+
+def test_frame_yaw_matrix_equals_usip_tpu():
+    """The descriptor export's per-frame yaw (``frame_yaw_seed``)."""
+    from usip_tpu.eval import export_runner as jax_export_runner
+    from usip_tpu_torch.eval import export_runner as torch_export_runner
+    for seed, seq, frame in ((0, 9, 0), (5, 10, 17), (123, 0, 4)):
+        assert np.array_equal(
+            torch_export_runner._frame_yaw_matrix(seed, seq, frame),
+            jax_export_runner._frame_yaw_matrix(seed, seq, frame))
+
+
+def _registration_pairs(rng, n_pairs=3, m=40, dim=16):
+    """Keypoint sets with descriptors, the positive a rigidly moved copy
+    of the anchor with a few outliers, and its GT transform."""
+    pairs = []
+    for _ in range(n_pairs):
+        kp = rng.uniform(-20, 20, size=(m, 3))
+        desc = rng.normal(size=(m, dim))
+        yaw = rng.uniform(0, 2 * np.pi)
+        R = np.array([[np.cos(yaw), -np.sin(yaw), 0],
+                      [np.sin(yaw), np.cos(yaw), 0], [0, 0, 1.0]])
+        t = rng.normal(0, 3, size=3)
+        pos = (kp - t) @ R  # anc = R pos + t
+        pos[:5] += rng.normal(0, 5, size=(5, 3))
+        T = np.eye(4)
+        T[:3, :3], T[:3, 3] = R, t
+        pairs.append((kp, desc, pos, desc + rng.normal(0, 0.05, desc.shape),
+                      T))
+    return pairs
+
+
+def test_registration_equals_usip_tpu(kitti_trees, tmp_path):
+    """1-NN matching, Kabsch, RANSAC, transform_error and
+    evaluate_registration on the same pairs and seeds, and run_registration
+    over .bin trees (keypoints and descriptors) with and without the kitti
+    coordinate fix: the same numbers."""
+    rng = np.random.default_rng(15)
+    pairs = _registration_pairs(rng)
+    a = torch_registration.evaluate_registration(pairs, max_trials=500)
+    b = jax_registration.evaluate_registration(pairs, max_trials=500)
+    assert a == b and a.success_rate > 0
+    x1, x2 = pairs[0][0], pairs[0][2]
+    for f in ("kabsch",):
+        for u, v in zip(getattr(torch_registration, f)(x1[:8], x2[:8]),
+                        getattr(jax_registration, f)(x1[:8], x2[:8])):
+            assert np.array_equal(u, v)
+    ra = torch_registration.ransac_rigid(x1, x2, max_trials=300, seed=4)
+    rb = jax_registration.ransac_rigid(x1, x2, max_trials=300, seed=4)
+    assert ra.trials == rb.trials and np.array_equal(ra.inliers, rb.inliers)
+    assert np.array_equal(ra.R, rb.R) and np.array_equal(ra.t, rb.t)
+    assert (torch_registration.transform_error(pairs[0][4], ra.R, ra.t)
+            == jax_registration.transform_error(pairs[0][4], rb.R, rb.t))
+    assert np.array_equal(
+        torch_registration.match_descriptors_1nn(pairs[0][1], pairs[0][3]),
+        jax_registration.match_descriptors_1nn(pairs[0][1], pairs[0][3]))
+
+    root = str(kitti_trees["port"])
+    gt = []
+    for seq in (9, 10):
+        gt.extend(jax_eval_runner.load_kitti_gt_table(
+            os.path.join(root, "kitti-reg-test"), seq))
+    frames = sorted({(r["seq"], r[k]) for r in gt
+                     for k in ("anc_idx", "pos_idx")})
+    kp_dir, desc_dir = str(tmp_path / "kp"), str(tmp_path / "desc")
+    _write_bins(kp_dir, np.random.default_rng(1), frames, rows=30)
+    for seq, frame in frames:
+        torch_export.write_keypoints_bin(
+            os.path.join(desc_dir, f"{seq:02d}", f"{frame}.bin"),
+            np.random.default_rng(frame).normal(size=(30, 16)))
+    calib_root = os.path.join(root, "calib")
+    for kind in ("none", "kitti"):
+        got = torch_eval_runner.run_registration(
+            kp_dir, desc_dir, gt, desc_dim=16, max_trials=200,
+            coord_fix=torch_eval_runner.make_coord_fix(kind, calib_root))
+        want = jax_eval_runner.run_registration(
+            kp_dir, desc_dir, gt, desc_dim=16, max_trials=200,
+            coord_fix=jax_eval_runner.make_coord_fix(kind, calib_root))
+        assert got._asdict().keys() == want._asdict().keys()
+        for k, v in got._asdict().items():
+            w = want._asdict()[k]
+            assert v == w or (np.isnan(v) and np.isnan(w)), k

@@ -2,14 +2,24 @@
 
   python -m usip_tpu_torch.cli train-detector --dataset kitti --dataroot TREE \
       [--synthetic] [--epochs E] [--resume auto] [--device cuda]
+  python -m usip_tpu_torch.cli train-descriptor --dataset kitti \
+      --dataroot TREE --detector-checkpoint ckpt/train/best.pt \
+      [--synthetic] [--epochs E] [--resume auto]
   python -m usip_tpu_torch.cli export-keypoints --dataset kitti \
       --dataroot TREE --checkpoint ckpt/train/best.pt --out kp/
+  python -m usip_tpu_torch.cli export-descriptors --dataset kitti \
+      --dataroot TREE --checkpoint ckpt/train/best.pt \
+      --descriptor-checkpoint ckpt/train_descriptor/best.pt --out feats/
   python -m usip_tpu_torch.cli eval-repeatability --anc-dir kp --pos-dir kp \
       --kitti-gt TREE/kitti-reg-test --coord-fix kitti --calib-root TREE/calib
+  python -m usip_tpu_torch.cli eval-registration --kp-dir feats/keypoints \
+      --desc-dir feats/descriptors --kitti-gt TREE/kitti-reg-test \
+      --coord-fix kitti --calib-root TREE/calib [--sweep-trials 100,1000]
   python -m usip_tpu_torch.cli bench [--device cuda]
   python -m usip_tpu_torch.cli detect --input clouds/ --checkpoint w.pth \
-      --out served/ [--device cuda]
-  python -m usip_tpu_torch.cli serve --checkpoint w.pth [--device cuda]
+      --out served/ [--descriptor-checkpoint d.pt] [--device cuda]
+  python -m usip_tpu_torch.cli serve --checkpoint w.pth \
+      [--descriptor-checkpoint d.pt] [--device cuda]
   python -m usip_tpu_torch.cli serve --dataset oxford \
       --override detector.grouping=ball --checkpoint w.pth
 
@@ -19,7 +29,11 @@ the CPU). A checkpoint is the port's own ``.pt`` (what ``train-detector``
 writes), a usip_tpu ``.msgpack``, or a reference-named detector
 ``state_dict`` (``.pth``): the SOM family (``first_pointnet.*``) under the
 presets as they are, the grouped family (``conv1..5``, e.g. the released
-Oxford ball model) with ``detector.grouping=ball`` or ``knn``.
+Oxford ball model) with ``detector.grouping=ball`` or ``knn``. With a
+descriptor (``--descriptor-checkpoint``, and the descriptor commands) the
+config is the preset's descriptor role, as in usip_tpu. ``train-descriptor
+--resume`` is the port's (usip_tpu's engine resumes, its command does not
+take the flag).
 """
 
 from __future__ import annotations
@@ -60,12 +74,12 @@ def _parse_overrides(items):
     return overrides
 
 
-def _build_config(args):
-    """The preset with ``--override``s, then the run flags a command has
-    (``--dataroot``, ``--name``, ...); an explicit ``--override`` wins over
-    a flag's default, as in usip_tpu."""
+def _build_config(args, role="detector"):
+    """The preset of ``role`` with ``--override``s, then the run flags a
+    command has (``--dataroot``, ``--name``, ...); an explicit
+    ``--override`` wins over a flag's default, as in usip_tpu."""
     overrides = _parse_overrides(args.override)
-    cfg = get_config(args.dataset, role="detector", **overrides)
+    cfg = get_config(args.dataset, role=role, **overrides)
     updates = {key: getattr(args, flag) for flag, key in (
         ("dataroot", "data.dataroot"), ("num_devices", "train.num_devices"),
         ("name", "train.name"), ("checkpoints_dir", "train.checkpoint_dir"))
@@ -79,14 +93,38 @@ def _build_config(args):
 
 
 def _pipeline(args):
+    """The pipeline of ``detect``/``serve``; with a descriptor the
+    descriptor-role config (its engine trained the frozen detector at
+    those widths)."""
     from usip_tpu_torch.inference import KeypointPipeline
-    cfg = _build_config(args)
-    return cfg, KeypointPipeline(cfg, args.checkpoint, args.device)
+    desc = args.descriptor_checkpoint
+    cfg = _build_config(args, role="descriptor" if desc else "detector")
+    return cfg, KeypointPipeline(cfg, args.checkpoint, args.device,
+                                 descriptor_checkpoint=desc)
+
+
+def _detect_one(pipe, args, data, s, out_dir, name, nk, nms):
+    """Keypoints (and descriptors) of one cloud written to ``out_dir``:
+    ``{"keypoints": path, "descriptors": path?, "n": count}``."""
+    pc, sn = data[:, :3], _sn_columns(data, s)
+    reply = {}
+    if args.descriptor_checkpoint:
+        kp, desc = pipe.detect_and_describe(pc, sn, num_keypoints=nk,
+                                            nms_radius=nms)
+        dpath = os.path.join(out_dir, f"{name}.desc.bin")
+        desc.astype(np.float32).tofile(dpath)
+        reply["descriptors"] = dpath
+    else:
+        kp, _ = pipe.detect(pc, sn, num_keypoints=nk, nms_radius=nms)
+    kpath = os.path.join(out_dir, f"{name}.keypoints.bin")
+    kp.astype(np.float32).tofile(kpath)
+    return {"keypoints": kpath, **reply, "n": int(kp.shape[0])}
 
 
 def cmd_detect(args):
-    """Keypoints for arbitrary cloud files: each input .npy holds one (N, 3)
-    or (N, 3+S) cloud; writes ``<name>.keypoints.bin`` per cloud."""
+    """Keypoints (and descriptors) for arbitrary cloud files: each input
+    .npy holds one (N, 3) or (N, 3+S) cloud; writes
+    ``<name>.keypoints.bin`` (and ``<name>.desc.bin``) per cloud."""
     paths = sorted(globmod.glob(os.path.join(args.input, "*.npy"))
                    if os.path.isdir(args.input) else globmod.glob(args.input))
     if not paths:
@@ -95,14 +133,10 @@ def cmd_detect(args):
     os.makedirs(args.out, exist_ok=True)
     s = cfg.detector.surface_normal_len
     for path in paths:
-        data = np.load(path)
         name = os.path.splitext(os.path.basename(path))[0]
-        kp, _ = pipe.detect(data[:, :3], _sn_columns(data, s),
-                            num_keypoints=args.num_keypoints,
-                            nms_radius=args.nms_radius)
-        kp.astype(np.float32).tofile(
-            os.path.join(args.out, f"{name}.keypoints.bin"))
-        print(f"{name}: {kp.shape[0]} keypoints", flush=True)
+        reply = _detect_one(pipe, args, np.load(path), s, args.out, name,
+                            args.num_keypoints, args.nms_radius)
+        print(f"{name}: {reply['n']} keypoints", flush=True)
     print(json.dumps({"clouds": len(paths), "out": args.out}))
 
 
@@ -112,12 +146,15 @@ def cmd_serve(args):
 
     Request:  {"input": "<cloud.npy>", "out": "<dir>", "id": any,
                "num_keypoints": int?, "nms_radius": float?}
-    Reply:    {"id": ..., "keypoints": "<path>.keypoints.bin", "n": int}
+    Reply:    {"id": ..., "keypoints": "<path>.keypoints.bin",
+               "descriptors": "<path>.desc.bin"?, "n": int}
     Errors reply {"id": ..., "error": "..."} and the loop continues. EOF or
     a {"cmd": "shutdown"} line exits cleanly."""
     cfg, pipe = _pipeline(args)
     s = cfg.detector.surface_normal_len
-    print(json.dumps({"status": "ready", "descriptors": False}), flush=True)
+    print(json.dumps({"status": "ready",
+                      "descriptors": args.descriptor_checkpoint is not None}),
+          flush=True)
     for line in sys.stdin:
         line = line.strip()
         if not line:
@@ -140,15 +177,11 @@ def cmd_serve(args):
             out_dir = req.get("out", args.out or ".")
             os.makedirs(out_dir, exist_ok=True)
             name = os.path.splitext(os.path.basename(req["input"]))[0]
-            kp, _ = pipe.detect(
-                data[:, :3], _sn_columns(data, s),
-                num_keypoints=int(req.get("num_keypoints",
-                                          args.num_keypoints)),
-                nms_radius=float(req.get("nms_radius", args.nms_radius)))
-            kpath = os.path.join(out_dir, f"{name}.keypoints.bin")
-            kp.astype(np.float32).tofile(kpath)
-            print(json.dumps({"id": rid, "keypoints": kpath,
-                              "n": int(kp.shape[0])}), flush=True)
+            reply = _detect_one(
+                pipe, args, data, s, out_dir, name,
+                int(req.get("num_keypoints", args.num_keypoints)),
+                float(req.get("nms_radius", args.nms_radius)))
+            print(json.dumps({"id": rid, **reply}), flush=True)
         except Exception as e:  # noqa: BLE001 — a bad request must not kill the server
             print(json.dumps({"id": rid,
                               "error": f"{type(e).__name__}: {e}"}),
@@ -219,6 +252,58 @@ def cmd_train_detector(args):
     engine.fit()
 
 
+def cmd_train_descriptor(args):
+    """Train the descriptor on the frozen detector of
+    ``--detector-checkpoint``; checkpoints and ``<name>_desc_metrics.jsonl``
+    go to ``<checkpoints-dir>/<name>_descriptor/``."""
+    cfg = _build_config(args, role="descriptor")
+    from usip_tpu_torch.train.descriptor_loop import DescriptorEngine
+    if args.synthetic:
+        engine = DescriptorEngine(cfg, args.detector_checkpoint,
+                                  synthetic=True, device=args.device)
+    else:
+        from usip_tpu_torch.data import descriptor_loaders as dl
+        from usip_tpu_torch.data.pipeline import BatchLoader
+        sn = cfg.descriptor.surface_normal_len
+        name = cfg.data.dataset
+        if name == "oxford":
+            ds = dl.OxfordDescriptorDataset(cfg.data, "train", sn_len=sn)
+
+            def mine(raw):
+                return ds.mine_negative_indices(np.asarray(raw["index"]))
+        elif name == "kitti":
+            ds = dl.KittiDescriptorDataset(cfg.data, "train", sn_len=sn)
+
+            def mine(raw):
+                return ds.mine_negative_indices(np.asarray(raw["seq"]),
+                                                np.asarray(raw["pose"]))
+        else:
+            raise SystemExit(
+                f"descriptor training on {name!r} is not ported (oxford and "
+                "kitti are; the reference trains descriptors on oxford, "
+                "kitti and scenenn)")
+        loader = BatchLoader(ds, cfg.train.batch_size, shuffle=True,
+                             num_workers=cfg.data.num_workers)
+        test_loader = None
+        try:
+            test_loader = BatchLoader(
+                type(ds)(cfg.data, "test", sn_len=sn), cfg.train.batch_size,
+                shuffle=False, num_workers=cfg.data.num_workers)
+        except (FileNotFoundError, OSError):
+            pass  # no test split on disk
+        engine = DescriptorEngine(cfg, args.detector_checkpoint,
+                                  train_loader=loader,
+                                  test_loader=test_loader,
+                                  mine_negatives=mine, device=args.device)
+    if args.resume:
+        path = args.resume
+        if path == "auto":
+            path = os.path.join(engine.out_dir, "last.pt")
+        start = engine.resume(path)
+        print(f"resumed from {path} at epoch {start}", flush=True)
+    engine.fit()
+
+
 def cmd_export_keypoints(args):
     cfg = _build_config(args)
     if args.downsample_rate > 1:
@@ -235,6 +320,22 @@ def cmd_export_keypoints(args):
                        synthetic=args.synthetic, method=args.method,
                        noise_sigma=args.noise_sigma,
                        with_sigmas=args.with_sigmas, device=args.device)
+    print(json.dumps(stats), flush=True)
+
+
+def cmd_export_descriptors(args):
+    """Keypoints and their descriptors of the eval frames, as
+    ``<out>/keypoints`` and ``<out>/descriptors`` .bin trees; the
+    descriptor-role config, as the checkpoints were trained under it."""
+    cfg = _build_config(args, role="descriptor")
+    from usip_tpu_torch.eval.export_runner import run_export_with_descriptors
+    stats = run_export_with_descriptors(
+        cfg, detector_checkpoint=args.checkpoint,
+        descriptor_checkpoint=args.descriptor_checkpoint,
+        kp_out=os.path.join(args.out, "keypoints"),
+        desc_out=os.path.join(args.out, "descriptors"),
+        nms_radius=args.nms_radius, desired_num=args.num_keypoints,
+        synthetic=args.synthetic, device=args.device)
     print(json.dumps(stats), flush=True)
 
 
@@ -268,6 +369,26 @@ def cmd_eval_repeatability(args):
     print(json.dumps({"repeatability": mean, "pairs": len(arr),
                       "min": float(arr.min()), "max": float(arr.max())}),
           flush=True)
+
+
+def cmd_eval_registration(args):
+    """RANSAC registration of the GT pairs from exported keypoints and
+    descriptors: one JSON line of ``RegistrationStats``, or one per RANSAC
+    budget with ``--sweep-trials`` (automation_kitti.m:4-19)."""
+    from usip_tpu_torch.eval.eval_runner import make_coord_fix, run_registration
+    gt = _load_gt(args)
+    fix = make_coord_fix(args.coord_fix, args.calib_root)
+    budgets = ([int(t) for t in args.sweep_trials.split(",")]
+               if args.sweep_trials else [args.max_trials])
+    for trials in budgets:
+        stats = run_registration(args.kp_dir, args.desc_dir, gt,
+                                 desc_dim=args.desc_dim,
+                                 threshold=args.inlier_threshold,
+                                 max_trials=trials, coord_fix=fix)
+        line = stats._asdict()
+        if args.sweep_trials:
+            line = {"max_trials": trials, **line}
+        print(json.dumps(line), flush=True)
 
 
 def cmd_bench(args):
@@ -308,8 +429,26 @@ def _add_common(p):
     p.add_argument("--checkpoint", required=True,
                    help="detector checkpoint: the port's .pt, a usip_tpu "
                         ".msgpack or a reference-named state_dict (.pth)")
+    p.add_argument("--descriptor-checkpoint", default=None,
+                   help="also describe the keypoints (<name>.desc.bin): the "
+                        "port's .pt, a usip_tpu .msgpack or a reference "
+                        ".pth")
     p.add_argument("--num-keypoints", type=int, default=128)
     p.add_argument("--nms-radius", type=float, default=0.0)
+
+
+def _add_gt_flags(p):
+    p.add_argument("--gt-dir", default=None)
+    p.add_argument("--kitti-gt", default=None,
+                   help="kitti-reg-test root with <seq>/groundtruths.txt")
+    p.add_argument("--oxford-root", default=None,
+                   help="oxford dataroot (reads test groundtruths.pkl)")
+    p.add_argument("--coord-fix", default="none",
+                   choices=["none", "kitti", "oxford"],
+                   help="convert exported camera-frame keypoints into the GT "
+                        "frame (eval_rep.m:48,70-83)")
+    p.add_argument("--calib-root", default=None,
+                   help="kitti calib tree <root>/<seq:02d>/calib.txt")
 
 
 def main(argv=None):
@@ -325,6 +464,15 @@ def main(argv=None):
     p.add_argument("--lite", action="store_true",
                    help="indoor lite widths (c1=64/c2=256, RPN_DetectorLite)")
     p.set_defaults(fn=cmd_train_detector)
+
+    p = sub.add_parser("train-descriptor")
+    _add_run_flags(p)
+    p.add_argument("--detector-checkpoint", required=True,
+                   help="the frozen detector (.pt or usip_tpu .msgpack)")
+    p.add_argument("--resume", default=None,
+                   help="descriptor checkpoint path, or 'auto' for "
+                        "<out_dir>/last.pt")
+    p.set_defaults(fn=cmd_train_descriptor)
 
     p = sub.add_parser("export-keypoints")
     _add_run_flags(p)
@@ -344,22 +492,33 @@ def main(argv=None):
                    help="write 4-column (xyz, sigma) bins")
     p.set_defaults(fn=cmd_export_keypoints)
 
+    p = sub.add_parser("export-descriptors")
+    _add_run_flags(p)
+    p.add_argument("--checkpoint", required=True, help="detector checkpoint")
+    p.add_argument("--descriptor-checkpoint", required=True)
+    p.add_argument("--out", required=True)
+    p.add_argument("--nms-radius", type=float, default=0.0)
+    p.add_argument("--num-keypoints", type=int, default=128)
+    p.set_defaults(fn=cmd_export_descriptors)
+
     p = sub.add_parser("eval-repeatability")
     p.add_argument("--anc-dir", required=True)
     p.add_argument("--pos-dir", required=True)
-    p.add_argument("--gt-dir", default=None)
-    p.add_argument("--kitti-gt", default=None,
-                   help="kitti-reg-test root with <seq>/groundtruths.txt")
-    p.add_argument("--oxford-root", default=None,
-                   help="oxford dataroot (reads test groundtruths.pkl)")
     p.add_argument("--inlier-radius", type=float, default=0.5)
-    p.add_argument("--coord-fix", default="none",
-                   choices=["none", "kitti", "oxford"],
-                   help="convert exported camera-frame keypoints into the GT "
-                        "frame (eval_rep.m:48,70-83)")
-    p.add_argument("--calib-root", default=None,
-                   help="kitti calib tree <root>/<seq:02d>/calib.txt")
+    _add_gt_flags(p)
     p.set_defaults(fn=cmd_eval_repeatability)
+
+    p = sub.add_parser("eval-registration")
+    p.add_argument("--kp-dir", required=True)
+    p.add_argument("--desc-dir", required=True)
+    p.add_argument("--desc-dim", type=int, default=128)
+    p.add_argument("--inlier-threshold", type=float, default=1.0)
+    p.add_argument("--max-trials", type=int, default=10000)
+    p.add_argument("--sweep-trials", default=None,
+                   help="comma list of RANSAC budgets (automation_kitti.m "
+                        "sweep)")
+    _add_gt_flags(p)
+    p.set_defaults(fn=cmd_eval_registration)
 
     p = sub.add_parser("bench", help="detect throughput on the card: one "
                        "JSON line")

@@ -207,6 +207,12 @@ class KittiDataset(SiameseDetectorDataset):
                 return i, self.seqs[i], index - start
         raise IndexError(index)
 
+    def load_pose(self, index: int) -> Tuple[int, np.ndarray]:
+        i, seq, in_seq = self.locate(index)
+        pose = np.load(os.path.join(self.root, "poses", f"{seq:02d}",
+                                    f"{in_seq:06d}.npz"))["pose"]
+        return seq, pose
+
     def sample_instance(self, rng, index, n=None):
         i, seq, in_seq = self.locate(index)
         data = np.load(os.path.join(self.folders[i], f"{in_seq:06d}.npy"))

@@ -1,8 +1,8 @@
 """Metric runners over exported keypoint .bin trees (counterpart of
-``usip_tpu/eval/eval_runner.py``; the port keeps its own copy of the
-repeatability side): the Python replacement of the MATLAB script eval_rep.m,
-its ground-truth tables and its coordinate-frame fixes. Registration is not
-ported."""
+``usip_tpu/eval/eval_runner.py``; the port keeps its own copy): the Python
+replacement of the MATLAB scripts eval_rep.m and evaluate_kitti.m, their
+ground-truth tables and their coordinate-frame fixes. The indoor runner
+(``eval/indoor.py``) is not ported yet."""
 
 from __future__ import annotations
 
@@ -12,6 +12,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from usip_tpu_torch.eval.export import read_keypoints_bin
+from usip_tpu_torch.eval.registration import evaluate_registration
 from usip_tpu_torch.eval.repeatability import dataset_repeatability
 
 
@@ -136,6 +137,32 @@ def run_repeatability(anc_dir: str, pos_dir: str, gt: List[Dict],
             p = coord_fix(p, row["seq"])
         pairs.append((a, p, row["T_gt"]))
     return dataset_repeatability(pairs, inlier_radius)
+
+
+def run_registration(kp_dir: str, desc_dir: str, gt: List[Dict],
+                     desc_dim: int = 128, threshold: float = 1.0,
+                     max_trials: int = 10000, coord_fix=None):
+    """Registration protocol over GT pairs; keypoints and descriptors read from
+    parallel .bin trees (evaluate_kitti.m:43-54). coord_fix as in
+    run_repeatability (the reference's eval loads keypoints already converted
+    by the test-prepare step; ours converts at eval time)."""
+    pairs = []
+    for row in gt:
+        seq = f"{row['seq']:02d}"
+        a_kp = read_keypoints_bin(
+            os.path.join(kp_dir, seq, f"{row['anc_idx']}.bin"), 3)
+        p_kp = read_keypoints_bin(
+            os.path.join(kp_dir, seq, f"{row['pos_idx']}.bin"), 3)
+        if coord_fix is not None:
+            a_kp = coord_fix(a_kp, row["seq"])
+            p_kp = coord_fix(p_kp, row["seq"])
+        a_d = read_keypoints_bin(
+            os.path.join(desc_dir, seq, f"{row['anc_idx']}.bin"), desc_dim)
+        p_d = read_keypoints_bin(
+            os.path.join(desc_dir, seq, f"{row['pos_idx']}.bin"), desc_dim)
+        pairs.append((a_kp, a_d, p_kp, p_d, row["T_gt"]))
+    return evaluate_registration(pairs, threshold=threshold,
+                                 max_trials=max_trials)
 
 
 def load_oxford_gt_pkl(root: str) -> List[Dict]:

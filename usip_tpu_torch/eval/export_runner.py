@@ -1,13 +1,16 @@
 """Batched keypoint export over an eval dataset (counterpart of
-``usip_tpu/eval/export_runner.py``: ``make_eval_dataset :23``, ``run_export
-:187``): the detector's eval forward on the device, host NMS and sigma
-ranking, a ``.bin`` per frame (the reference's save_keypoints.py main loop,
-:229-414).
+``usip_tpu/eval/export_runner.py``: ``make_eval_dataset :23``,
+``run_export_with_descriptors :95``, ``run_export :187``): the detector's
+eval forward on the device, host NMS and sigma ranking, a ``.bin`` per frame
+(the reference's save_keypoints.py main loop, :229-414); with a descriptor,
+the selected keypoints go back to the device to be described, and their
+descriptors get a parallel ``.bin`` tree (the registration eval's input).
 
 The forward is ``models.fused_infer.detector_infer_fused`` on the restored
 model (the port's serving forward: FPS, min/argmin, scatter-max, smallest-k
 and the fused chain on the card). Methods ``model`` and ``random``; the ISS,
-Harris and SIFT baselines are not ported.
+Harris and SIFT baselines and the indoor fragment export
+(``run_export_fragments``) are not ported.
 """
 
 from __future__ import annotations
@@ -25,14 +28,18 @@ from usip_tpu_torch.eval.baselines import random_keypoints
 from usip_tpu_torch.eval.export import (ensure_keypoint_number,
                                         select_keypoints, write_keypoints_bin)
 from usip_tpu_torch.inference import resolve_device
+from usip_tpu_torch.models import Descriptor
 from usip_tpu_torch.models.fused_infer import detector_infer_fused
 from usip_tpu_torch.ops import sample_nodes
 from usip_tpu_torch.ops.kernels import fusion_chain_params, prepare_chain
 from usip_tpu_torch.train.checkpoint import restore_checkpoint
 from usip_tpu_torch.train.loop import init_detector_state, stream_generator
+from usip_tpu_torch.weights import load_descriptor_weights
 
-# the seed of the export's node draws (usip_tpu's PRNGKey(123))
+# the seed of the export's node draws (usip_tpu's PRNGKey(123)), and of the
+# descriptor export's node and ball draws (PRNGKey(321))
 EXPORT_SEED = 123
+DESCRIPTOR_EXPORT_SEED = 321
 
 
 class _SyntheticFrames:
@@ -108,6 +115,101 @@ class ModelInfer:
         _, kp, sig = detector_infer_fused(self.model, to(pc), to(sn), node,
                                           self.chain)
         return kp.cpu().numpy(), sig.cpu().numpy()
+
+
+def _frame_yaw_matrix(seed: int, seq: int, frame: int) -> np.ndarray:
+    """A fixed yaw for each frame (about the camera frame's vertical y axis,
+    the '2d' regime): ``R = Ry(theta)``, theta ~ U(0, 2 pi) seeded by
+    ``(seed, seq, frame)``."""
+    theta = np.random.default_rng([seed, seq, frame]).uniform(0.0, 2 * np.pi)
+    c, s = np.cos(theta), np.sin(theta)
+    return np.array([[c, 0.0, s], [0.0, 1.0, 0.0], [-s, 0.0, c]], np.float32)
+
+
+class DescriptorInfer:
+    """The descriptor's eval forward from a checkpoint
+    (``weights.load_descriptor_weights``: the port's ``.pt``, a usip_tpu
+    ``.msgpack`` or a reference ``.pth``): ``(pc, sn, keypoints) ->
+    descriptors``, the ball priorities drawn on the device."""
+
+    def __init__(self, cfg: Config, checkpoint: str, device):
+        self.device = resolve_device(device)
+        model = Descriptor(cfg.descriptor)
+        model.load_state_dict(load_descriptor_weights(checkpoint), strict=True)
+        self.model = model.to(self.device).eval()
+
+    @torch.no_grad()
+    def __call__(self, pc: np.ndarray, sn: np.ndarray, keypoints: np.ndarray,
+                 generator: torch.Generator) -> np.ndarray:
+        to = lambda a: torch.from_numpy(  # noqa: E731
+            np.ascontiguousarray(a, np.float32)).to(self.device)
+        desc, _ = self.model(to(pc), to(sn), to(keypoints),
+                             generator=generator)
+        return desc.cpu().numpy()
+
+
+def run_export_with_descriptors(cfg: Config, detector_checkpoint: str,
+                                descriptor_checkpoint: str, kp_out: str,
+                                desc_out: str, nms_radius: float = 0.0,
+                                desired_num: int = 128,
+                                synthetic: bool = False,
+                                batch_size: Optional[int] = None,
+                                dataset=None,
+                                frame_yaw_seed: Optional[int] = None,
+                                device="cuda") -> dict:
+    """Export keypoints and their descriptors as parallel ``.bin`` trees,
+    the input of the registration eval (evaluate_kitti.m:43-54): detection
+    through the fused forward, keypoint selection (NMS, sigma top-K) on the
+    host, then the selected set through the descriptor on the device.
+
+    ``frame_yaw_seed``: each frame's cloud (and ``sn[..., :3]``) is rotated
+    by its own yaw (``_frame_yaw_matrix``) before detection and
+    description, and the keypoints are rotated back before they are
+    written; the registration GT holds unchanged, while the descriptors are
+    computed in mutually yaw-rotated frames (the LiDAR protocol that tells a
+    yaw-trained descriptor from an untrained one).
+    """
+    infer = ModelInfer(cfg, detector_checkpoint, device)
+    describe = DescriptorInfer(cfg, descriptor_checkpoint, device)
+    ds = dataset if dataset is not None else make_eval_dataset(cfg, synthetic)
+    bs = batch_size or cfg.train.batch_size
+    loader = BatchLoader(ds, bs, shuffle=False, num_workers=4, drop_last=False)
+    rng = np.random.default_rng(0)
+    frames = 0
+    for i, raw in enumerate(loader):
+        pc_np, sn_np = np.asarray(raw["pc"]), np.asarray(raw["sn"])
+        real_b = pc_np.shape[0]
+        rots = None
+        if frame_yaw_seed is not None:
+            rots = [_frame_yaw_matrix(frame_yaw_seed, int(raw["seq"][b]),
+                                      int(raw["frame"][b]))
+                    for b in range(real_b)]
+            pc_np = np.stack([pc_np[b] @ rots[b].T for b in range(real_b)])
+            if sn_np.shape[-1] >= 3:
+                sn_np = np.concatenate(
+                    [np.stack([sn_np[b, :, :3] @ rots[b].T
+                               for b in range(real_b)]),
+                     sn_np[..., 3:]], axis=-1)
+        gen = lambda j: stream_generator(  # noqa: E731
+            infer.device, DESCRIPTOR_EXPORT_SEED, 0, j)
+        pc_in, sn_in = _pad_batch(pc_np, bs), _pad_batch(sn_np, bs)
+        kp, sig = infer(pc_in, sn_in, generator=gen(2 * i))
+        selected = np.stack([
+            select_keypoints(kp[b], sig[b], pc_np[b], nms_radius=nms_radius,
+                             desired_num=desired_num, rng=rng)
+            for b in range(real_b)])
+        desc = describe(pc_in, sn_in, _pad_batch(selected, bs),
+                        generator=gen(2 * i + 1))[:real_b]
+        for b in range(real_b):
+            seq, frame = int(raw["seq"][b]), int(raw["frame"][b])
+            kp_write = selected[b] @ rots[b] if rots is not None \
+                else selected[b]
+            write_keypoints_bin(
+                os.path.join(kp_out, f"{seq:02d}", f"{frame}.bin"), kp_write)
+            write_keypoints_bin(
+                os.path.join(desc_out, f"{seq:02d}", f"{frame}.bin"), desc[b])
+            frames += 1
+    return {"frames": frames}
 
 
 def run_export(cfg: Config, checkpoint: Optional[str], out_dir: str,

@@ -4,7 +4,8 @@ Loads the detector once (either trunk family: SOM, or the grouped knn/ball
 trunk), subsamples each cloud to the configured fixed size, samples nodes on
 the device (random subset + FPS kernel), runs the eval forward with the
 fusion stack on the fused chain kernel, and selects keypoints on the host
-exactly like the export tool.
+exactly like the export tool. With a descriptor checkpoint the selected
+keypoints are then described on the device (``detect_and_describe``).
 """
 
 from __future__ import annotations
@@ -17,11 +18,13 @@ import torch
 from usip_tpu_torch.config import Config
 from usip_tpu_torch.data.common import subsample_fixed
 from usip_tpu_torch.eval.export import select_keypoints
+from usip_tpu_torch.models.descriptor import Descriptor
 from usip_tpu_torch.models.detector import Detector
 from usip_tpu_torch.models.fused_infer import detector_infer_fused
 from usip_tpu_torch.ops.kernels import fusion_chain_params, prepare_chain
 from usip_tpu_torch.ops.sampling import sample_nodes
-from usip_tpu_torch.weights import detector_family, load_detector_weights
+from usip_tpu_torch.weights import (detector_family, load_descriptor_weights,
+                                    load_detector_weights)
 
 
 def resolve_device(device) -> torch.device:
@@ -35,11 +38,12 @@ def resolve_device(device) -> torch.device:
 
 
 class KeypointPipeline:
-    """Detector inference on ``device`` from a checkpoint file
-    (``weights.load_detector_weights``) or a ``state_dict``."""
+    """Detector (and optional descriptor) inference on ``device`` from a
+    checkpoint file (``weights.load_detector_weights``) or a
+    ``state_dict``."""
 
     def __init__(self, cfg: Config, detector_checkpoint, device,
-                 seed: int = 0):
+                 seed: int = 0, descriptor_checkpoint=None):
         self.device = resolve_device(device)
         # full fp32 products on the card: TF32, the cuDNN default, keeps about
         # three decimal digits, and the fp32 parity checks need all of them
@@ -68,6 +72,14 @@ class KeypointPipeline:
             *fusion_chain_params(self.detector.knnlayer_1))
         self._eval_ratio = (cfg.data.eval_fps_subsample_ratio
                             or cfg.data.fps_subsample_ratio)
+        self.descriptor = None
+        if descriptor_checkpoint is not None:
+            desc = Descriptor(cfg.descriptor)
+            desc.load_state_dict(
+                load_descriptor_weights(descriptor_checkpoint)
+                if isinstance(descriptor_checkpoint, str)
+                else descriptor_checkpoint, strict=True)
+            self.descriptor = desc.to(self.device).eval()
 
     @torch.inference_mode()
     def infer(self, pc: torch.Tensor, sn: torch.Tensor
@@ -107,3 +119,39 @@ class KeypointPipeline:
         return select_keypoints(kp, sig, fpc, nms_radius=nms_radius,
                                 desired_num=num_keypoints, rng=self._rng,
                                 return_sigmas=True)
+
+    def _to(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    def detect_and_describe(self, pc: np.ndarray,
+                            sn: Optional[np.ndarray] = None, *,
+                            num_keypoints: int = 128,
+                            nms_radius: float = 0.0
+                            ) -> Tuple[np.ndarray, np.ndarray]:
+        """One cloud -> (keypoints ``(K, 3)``, descriptors ``(K, D)``): the
+        selected keypoints described in chunks of ``node_num``, a short
+        chunk padded with random cloud points (one shape a call, as
+        usip_tpu keeps one compiled program)."""
+        if self.descriptor is None:
+            raise ValueError("no descriptor checkpoint loaded")
+        fpc, fsn = self._fix_shape(pc, sn)
+        kp, sig = self.infer(self._to(fpc[None]), self._to(fsn[None]))
+        kp, sig = kp[0].cpu().numpy(), sig[0].cpu().numpy()
+        selected = select_keypoints(kp, sig, fpc, nms_radius=nms_radius,
+                                    desired_num=num_keypoints, rng=self._rng)
+        m = self.cfg.data.node_num
+        k = selected.shape[0]
+        descs = []
+        for off in range(0, k, m):
+            chunk = selected[off:off + m]
+            if chunk.shape[0] < m:
+                extra = fpc[self._rng.choice(fpc.shape[0],
+                                             m - chunk.shape[0])]
+                chunk = np.concatenate([chunk, extra])
+            with torch.inference_mode():
+                d, _ = self.descriptor(self._to(fpc[None]),
+                                       self._to(fsn[None]),
+                                       self._to(chunk[None]),
+                                       generator=self._gen)
+            descs.append(d[0].cpu().numpy()[:min(m, k - off)])
+        return selected, np.concatenate(descs)

@@ -1,5 +1,6 @@
-"""The detector's training losses (port of ``usip_tpu/losses.py``),
-channels-last.
+"""The training losses (port of ``usip_tpu/losses.py``), channels-last.
+
+The detector's:
 
 * ``chamfer_probabilistic``: the probabilistic chamfer between two keypoint
   sets with per-pair averaged sigmas, plus its ``chamfer_pure`` and
@@ -7,19 +8,25 @@ channels-last.
 * ``single_side_chamfer`` / ``point_on_surface``: keypoints must lie on the
   cloud (models/losses.py:102-183).
 
-Every nearest-neighbour search is ``ops.geometry.nearest_neighbor``, the
-min/argmin kernel on CUDA tensors with a backward that never builds the
+Every nearest-neighbour search there is ``ops.geometry.nearest_neighbor``,
+the min/argmin kernel on CUDA tensors with a backward that never builds the
 ``(B, M, N)`` distance matrix.
+
+The descriptor's (models/losses.py:190-369): the scan triplet
+``desc_pair_scan_loss``, the keypoint-level CGF triplet ``desc_cgf_loss``
+(its random draws an input, ``CGFDraws``, or drawn from a generator), and
+the 1-NN ``descriptor_matching_accuracy``. Their minima are ``amin``, which
+splits the gradient among ties as ``jnp.min`` does.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from usip_tpu_torch.ops.geometry import (gather_points, nearest_neighbor,
-                                         safe_sqrt)
+                                         pairwise_dist, safe_sqrt)
 
 Tensor = torch.Tensor
 
@@ -84,3 +91,103 @@ def keypoint_on_pc(keypoints: Tensor, pc: Tensor,
     if sn is None:
         return single_side_chamfer(keypoints, pc)
     return point_on_surface(keypoints, pc, sn)
+
+
+# ------------------------------------------------------------ descriptor ----
+
+def _sigma_weights(sigmas: Tensor, sigma_max: float) -> Tensor:
+    """``clamp(sigma_max - sigma)`` normalised to mean 1 over the keypoints,
+    detached (losses.py:231-234), guarded against an all-clamped batch."""
+    w = (sigma_max - sigmas).clamp_min(0.0)
+    w = w / w.mean(dim=1, keepdim=True).clamp_min(1e-8)
+    return w.detach()
+
+
+def desc_pair_scan_loss(anc_desc: Tensor, pos_desc: Tensor,
+                        neg_desc: Tensor, anc_sigmas: Tensor, *,
+                        gamma: float, sigma_max: float
+                        ) -> Tuple[Tensor, Tensor]:
+    """Scan-level triplet on the smallest descriptor distances
+    (losses.py:190-237): descriptors ``(B, M, C)``, unit length;
+    ``anc_sigmas (B, M)``. Returns the sigma-weighted loss per keypoint
+    ``(B, M)`` and the share of active triplets ``(B,)``."""
+    min_pos = pairwise_dist(anc_desc, pos_desc).amin(dim=2)
+    min_neg = pairwise_dist(anc_desc, neg_desc).amin(dim=2)
+    before_clamp = min_pos - min_neg + gamma
+    active = (before_clamp > 0).float().mean(dim=1)
+    loss = _sigma_weights(anc_sigmas, sigma_max) * before_clamp.clamp_min(0.0)
+    return loss, active
+
+
+class CGFDraws(NamedTuple):
+    """The CGF loss's draws: uniforms ``rand_pos (B, M, M)`` (which in-radius
+    keypoint is the positive), ``rand_out (B, M, M)`` (which outside one is
+    the random negative) and ``select (B, M)`` (below 0.5: the closest
+    outside keypoint is the negative)."""
+    rand_pos: Tensor
+    rand_out: Tensor
+    select: Tensor
+
+
+def desc_cgf_loss(anc_keypoints: Tensor, anc_desc: Tensor,
+                  pos_keypoints: Tensor, pos_desc: Tensor,
+                  anc_sigmas: Tensor, *, cgf_radius: float, gamma: float,
+                  sigma_max: float, draws: Optional[CGFDraws] = None,
+                  generator: Optional[torch.Generator] = None
+                  ) -> Tuple[Tensor, Tensor]:
+    """CGF-style keypoint-level triplet (losses.py:240-369).
+    ``anc_keypoints`` are already aligned to the pos frame. The positive is
+    a random in-radius match; the negative, half the time (per keypoint),
+    the closest outside-radius keypoint, else a random one. The loss is
+    rescaled by ``M / (#matched + 1)`` and sigma-weighted. Returns the loss
+    per keypoint ``(B, M)`` and the active share ``(B,)``."""
+    b, m, _ = anc_keypoints.shape
+    if draws is None:
+        if generator is None:
+            raise ValueError("pass the CGF draws or a torch.Generator")
+        u = lambda shape: torch.rand(shape, generator=generator,  # noqa: E731
+                                     device=generator.device)
+        draws = CGFDraws(u((b, m, m)), u((b, m, m)), u((b, m)))
+    rand_pos, rand_out, select_u = (t.to(anc_desc.device) for t in draws)
+    desc_diff = pairwise_dist(anc_desc, pos_desc)              # (B, M, M)
+    kp_diff = pairwise_dist(anc_keypoints, pos_keypoints)      # (B, M, M)
+    pos_mask = kp_diff <= cgf_radius
+    has_match = pos_mask.any(dim=2).float()                    # (B, M)
+
+    def at(idx):
+        return desc_diff.gather(2, idx[..., None])[..., 0]
+
+    # torch's argmax/argmin give the first extremum, as jnp's do
+    positive_dist = at((pos_mask.float() * rand_pos).argmax(dim=2))
+    far_close_dist = at((kp_diff + pos_mask.float() * 1000.0).argmin(dim=2))
+    outside = (kp_diff > cgf_radius).float()
+    outside_dist = at((rand_out * outside).argmax(dim=2))
+    select = (select_u < 0.5).float()
+    negative_dist = select * far_close_dist + (1.0 - select) * outside_dist
+
+    match_count = has_match.sum(dim=1)                         # (B,)
+    scaling = (m / (match_count + 1.0)).detach()
+    before_clamp = (positive_dist - negative_dist + gamma) * has_match
+    active = (before_clamp > 1e-5).float().sum(dim=1) / (match_count + 1.0)
+    loss = (_sigma_weights(anc_sigmas, sigma_max)
+            * before_clamp.clamp_min(0.0) * scaling[:, None])
+    return loss, active
+
+
+def descriptor_matching_accuracy(anc_keypoints: Tensor, anc_desc: Tensor,
+                                 pos_keypoints: Tensor, pos_desc: Tensor, *,
+                                 radius: float) -> Tensor:
+    """Per-cloud 1-NN descriptor matching accuracy ``(B,)``, the
+    registration proxy of ``train.select_best_by='match_acc'``: among the
+    anchor keypoints with a pos keypoint within ``radius`` (the others are
+    left out of the denominator), the share whose nearest pos descriptor
+    belongs to a pos keypoint within ``radius``. ``anc_keypoints`` are
+    aligned to the pos frame."""
+    desc_diff = pairwise_dist(anc_desc, pos_desc)
+    kp_diff = pairwise_dist(anc_keypoints, pos_keypoints)
+    has_match = (kp_diff <= radius).any(dim=2)
+    nn_idx = desc_diff.argmin(dim=2)
+    nn_kp_dist = kp_diff.gather(2, nn_idx[..., None])[..., 0]
+    correct = (nn_kp_dist <= radius) & has_match
+    denom = has_match.float().sum(dim=1).clamp_min(1.0)
+    return correct.float().sum(dim=1) / denom

@@ -104,10 +104,8 @@ class Detector(nn.Module):
         if cfg.grouping == "som" and cfg.k != 1:
             raise NotImplementedError("only k=1 point->node assignment is "
                                       "wired into the som trunk")
-        if cfg.grouping != "som" and cfg.group_method != "exact":
-            raise NotImplementedError(
-                f"group_method {cfg.group_method!r} selects with "
-                "lax.approx_min_k, which has no torch analog; use 'exact'")
+        if cfg.group_method not in ("exact", "approx"):
+            raise ValueError(f"unknown group_method {cfg.group_method!r}")
         self.cfg = cfg
         dt = compute_dtype(cfg)
         act, norm = cfg.activation, cfg.normalization
@@ -165,7 +163,10 @@ class Detector(nn.Module):
     def group_indices(self, pc: Tensor, node: Tensor) -> Tensor:
         """Each node's neighbourhood ``(B, M, group_k)`` int32: its kNN in
         the cloud, or the first ``group_k`` points within ``group_radius``
-        in index order (the ball detector scans the cloud unpermuted)."""
+        in index order (the ball detector scans the cloud unpermuted).
+        Both select exactly whatever ``group_method`` says: usip_tpu's
+        ``'approx'`` is ``lax.approx_min_k``, a TPU partial reduction with
+        no torch counterpart (``ops.grouping.ball_query``)."""
         cfg = self.cfg
         if cfg.grouping == "knn":
             return knn(node, pc, cfg.group_k)[1]

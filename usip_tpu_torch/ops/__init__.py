@@ -1,6 +1,7 @@
 """Geometry, sampling, grouping and segment ops, channels-last."""
 
-from usip_tpu_torch.ops.geometry import gather_points, knn, pairwise_sqdist
+from usip_tpu_torch.ops.geometry import (gather_points, knn, pairwise_dist,
+                                         pairwise_sqdist)
 from usip_tpu_torch.ops.grouping import (BallQueryResult, NodeAssignment,
                                          assign_points_to_nodes, ball_query)
 from usip_tpu_torch.ops.sampling import (farthest_point_sampling,
@@ -12,6 +13,7 @@ from usip_tpu_torch.ops.topk import smallest_k
 __all__ = [
     "BallQueryResult", "NodeAssignment", "assign_points_to_nodes",
     "ball_query", "farthest_point_sampling", "gather_points", "knn",
-    "masked_scatter_max", "pairwise_sqdist", "random_subset", "sample_nodes",
-    "scatter_back", "segment_mean_count", "smallest_k",
+    "masked_scatter_max", "pairwise_dist", "pairwise_sqdist",
+    "random_subset", "sample_nodes", "scatter_back", "segment_mean_count",
+    "smallest_k",
 ]

@@ -1,10 +1,12 @@
 """Pairwise-distance primitives (PyTorch port of ``usip_tpu/ops/geometry.py``).
 
 Squared distances use the expansion ``|a|^2 - 2 a.b + |b|^2`` in that order,
-clamped at 0, like the reference package. The three coordinate products and
-their sums are separate elementwise ops (no matmul, no fused multiply-add), so
-the CUDA kernels that reproduce them with round-to-nearest intrinsics give
-bit-identical results.
+clamped at 0, like the reference package. For points (3-wide rows) the three
+coordinate products and their sums are separate elementwise ops (no matmul,
+no fused multiply-add), so the CUDA kernels that reproduce them with
+round-to-nearest intrinsics give bit-identical results. Wider rows (the
+descriptors of the descriptor losses) take one fp32 matrix product, as
+usip_tpu's einsum at HIGHEST precision does; the entry points turn TF32 off.
 """
 
 from __future__ import annotations
@@ -29,16 +31,23 @@ def cross_dot(a: Tensor, b: Tensor) -> Tensor:
 
 
 def pairwise_sqdist(a: Tensor, b: Tensor, *, round_bf16: bool = False) -> Tensor:
-    """Squared euclidean distances ``(..., M, N)`` between ``a (..., M, 3)``
-    and ``b (..., N, 3)``, clamped at 0.
+    """Squared euclidean distances ``(..., M, N)`` between ``a (..., M, D)``
+    and ``b (..., N, D)``, clamped at 0: elementwise for points (D = 3),
+    one fp32 matrix product for wider rows.
 
     ``round_bf16`` rounds each fp32 distance to bfloat16 (round to nearest
     even) before the clamp, the reference's ``compute_dtype=bfloat16`` mode
-    used by the point->node assignment. The result is returned as fp32.
+    used by the point->node assignment and the descriptor's ball query. The
+    result is returned as fp32.
     """
     a = a.float()
     b = b.float()
-    sq = sq_norm(a)[..., :, None] - 2.0 * cross_dot(a, b) + sq_norm(b)[..., None, :]
+    if a.shape[-1] == 3:
+        sq = (sq_norm(a)[..., :, None] - 2.0 * cross_dot(a, b)
+              + sq_norm(b)[..., None, :])
+    else:
+        sq = ((a * a).sum(-1)[..., :, None] - 2.0 * (a @ b.transpose(-1, -2))
+              + (b * b).sum(-1)[..., None, :])
     if round_bf16:
         sq = sq.to(torch.bfloat16).float()
     return sq.clamp_min(0.0)
@@ -72,6 +81,12 @@ def safe_sqrt(x: Tensor, eps: float = 1e-12) -> Tensor:
     masked = torch.where(is_zero, torch.ones_like(x), x)
     return torch.where(is_zero, torch.zeros_like(x),
                        torch.sqrt(torch.maximum(masked, x.new_tensor(eps))))
+
+
+def pairwise_dist(a: Tensor, b: Tensor) -> Tensor:
+    """Euclidean distances ``(..., M, N)``, with a zero gradient where a
+    distance is 0 (``safe_sqrt``)."""
+    return safe_sqrt(pairwise_sqdist(a, b))
 
 
 class NearestNeighbor(torch.autograd.Function):

@@ -3,7 +3,7 @@
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -71,14 +71,31 @@ class BallQueryResult(NamedTuple):
     counts: Tensor
 
 
-def ball_scores(points: Tensor, centers: Tensor, radius: float) -> Tensor:
+def ball_scores(points: Tensor, centers: Tensor, radius: float,
+                priority: Optional[Tensor] = None,
+                round_bf16: bool = False) -> Tensor:
     """The ball query's selection scores ``(B, M, N)`` fp32: each point's
-    natural-order priority (its index) where ``sqdist <= radius^2``, +inf
-    outside the ball."""
+    priority where ``sqdist <= radius^2``, +inf outside the ball.
+
+    Without ``priority`` it is the point's index (natural order, fp32
+    distances). ``priority (B, N)`` holds random priorities, one per point
+    shared by every ball of the cloud. ``round_bf16`` is usip_tpu's
+    ``compute_dtype=bfloat16`` (which it applies to random priorities
+    only): the fp32 distances rounded to bf16, then clamped at 0, compared
+    with ``radius^2`` in bf16, and the priorities rounded to bf16 (which
+    makes ties among them).
+    """
     n = points.shape[1]
-    sq = pairwise_sqdist(centers, points)
-    priority = torch.arange(n, dtype=torch.float32, device=points.device)
-    return torch.where(sq <= radius * radius, priority, torch.inf)
+    sq = pairwise_sqdist(centers, points, round_bf16=round_bf16)
+    r2 = torch.tensor(radius * radius, dtype=torch.float32)
+    if priority is None:
+        priority = torch.arange(n, dtype=torch.float32, device=points.device)
+    else:
+        priority = priority.to(points.device, torch.float32)[:, None, :]
+    if round_bf16:
+        r2 = r2.to(torch.bfloat16).float()
+        priority = priority.to(torch.bfloat16).float()
+    return torch.where(sq <= r2.item(), priority, torch.inf)
 
 
 def ball_select(scores: Tensor, k: int) -> BallQueryResult:
@@ -96,24 +113,36 @@ def ball_select(scores: Tensor, k: int) -> BallQueryResult:
 
 
 def ball_query(points: Tensor, centers: Tensor, radius: float, k: int,
-               key=None, method: str = "exact") -> BallQueryResult:
-    """Exact ball query with natural-order priorities: for each center of
-    ``centers (B, M, 3)``, the first k points of ``points (B, N, 3)`` (in
-    index order) within ``radius``, fp32 distances. The reference's ball
-    query scanning an unpermuted cloud, as the ball detector runs it.
+               priority: Optional[Tensor] = None, *,
+               generator: Optional[torch.Generator] = None,
+               method: str = "exact",
+               round_bf16: bool = False) -> BallQueryResult:
+    """For each center of ``centers (B, M, 3)``, the first k points of
+    ``points (B, N, 3)`` within ``radius`` in priority order, cyclically
+    padded (the reference's ball query over a permuted cloud).
 
-    ``key`` (random priorities) and ``method='approx'``, the descriptor's
-    selection through ``lax.approx_min_k``, have no counterpart here: torch
-    has no analog of ``lax.approx_min_k``, and both raise.
+    Priorities: ``priority (B, N)`` (random, e.g. JAX's
+    ``jax.random.uniform(key, (B, N))`` in the tests), else uniform
+    ``[0, 1)`` draws from ``generator``; with neither, natural order (the
+    point's index, as the ball detector scans its cloud). ``round_bf16``
+    applies to random priorities only (``ball_scores``), as in usip_tpu.
+
+    ``method``: usip_tpu's ``'exact'``, ``'auto'`` and ``'approx'`` all
+    select exactly here, on the smallest-k kernel, ties to the lowest index.
+    usip_tpu's ``'approx'`` (and ``'auto'`` on random priorities at N >=
+    4096) runs ``lax.approx_min_k``, a TPU partial reduction: it draws the
+    same uniform in-ball subset under iid priorities, but not the same
+    indices, and torch has no counterpart of it.
     """
-    if key is not None:
-        raise NotImplementedError(
-            "ball_query with random priorities (a key) is the descriptor's "
-            "and is not ported; pass key=None for natural-order priorities")
-    if method == "approx":
-        raise NotImplementedError(
-            "ball_query(method='approx') selects with lax.approx_min_k, "
-            "which has no torch analog; use method='exact'")
-    if method not in ("auto", "exact"):
+    if method not in ("auto", "exact", "approx"):
         raise ValueError(f"unknown ball_query method {method!r}")
-    return ball_select(ball_scores(points, centers, radius), k)
+    if priority is None and generator is not None:
+        priority = torch.rand(points.shape[:2], generator=generator,
+                              device=generator.device)
+    if priority is not None and tuple(priority.shape) != tuple(
+            points.shape[:2]):
+        raise ValueError(f"priority of shape {tuple(priority.shape)}, "
+                         f"expected (B, N) = {tuple(points.shape[:2])}")
+    return ball_select(ball_scores(
+        points, centers, radius, priority,
+        round_bf16=round_bf16 and priority is not None), k)

@@ -1,5 +1,7 @@
-"""The training-quality gate through the port (counterpart of
-``scripts/fullscale_quality.py phase_smoke``):
+"""The training-quality gates through the port.
+
+The detector's (counterpart of ``scripts/fullscale_quality.py
+phase_smoke``):
 
     python -m usip_tpu_torch.quality [--root DIR] [--epochs 16] \
         [--factor 2] [--device cuda] [--override data.node_num=64 ...]
@@ -14,6 +16,27 @@ the trained detector and with random keypoints, scores both with the KITTI
 repeatability protocol (``--coord-fix kitti``, inlier radius 0.5 m), prints
 one JSON line, and exits nonzero unless trained/random >= ``--factor``.
 ``--override``s come after the reduced sizes, so they win.
+
+The descriptor's (counterpart of ``scripts/validate_descriptor.py
+--use-cgf --rot 2d --test-yaw``):
+
+    python -m usip_tpu_torch.quality --descriptor [--factor 2] \
+        [--device cuda]
+
+On synthetic shapes at the modelnet preset (256 shapes of 1024 points, 64
+nodes, c1 64, c2 128, descriptor length 64, balls of 32 points in radius
+0.4, batch 16): it trains the detector 20 epochs, freezes it, trains the
+descriptor 20 epochs with the CGF objective under yaw (GT rotations about
+the vertical axis only, no scale or shift), then matches 12 test shapes
+against a yaw-rotated resampling of themselves: the share of keypoints
+whose descriptor's nearest neighbour in the partner lies within 0.2 of the
+right place, for the trained descriptor, the untrained one and random
+vectors. It prints one JSON line and exits nonzero unless trained /
+untrained >= ``--factor``. Every seed is fixed, and it runs under
+deterministic algorithms, so that a run on one card repeats. Beside the
+verdict it reports the untrained accuracy's spread over 16 descriptor
+initialisations on the same keypoints and draws: the noise of the
+ratio's denominator.
 """
 
 from __future__ import annotations
@@ -62,6 +85,190 @@ def export_and_repeatability(cfg, checkpoint, out_dir, gt, calib_root,
                                   coord_fix=make_coord_fix("kitti", calib_root))
     return {"frames": stats["frames"], "repeatability": float(mean),
             "pairs": len(arr)}
+
+
+# scripts/validate_descriptor.py's defaults, and usip_tpu's
+# tests/test_descriptor_learning.py sizes (the CPU test's gate, 1.3x)
+DESCRIPTOR_GATE = dict(points=1024, nodes=64, c1=64, c2=128, node_knn_k=8,
+                       descriptor_len=64, nsamples=32, ball_radius=0.4,
+                       cgf_radius=0.2, match_radius=0.2, train_size=256,
+                       det_epochs=20, desc_epochs=20, test_items=12,
+                       workers=4, baseline_seeds=16)
+LEARNING_TEST = dict(points=256, nodes=32, c1=32, c2=64, node_knn_k=4,
+                     descriptor_len=32, nsamples=16, ball_radius=0.5,
+                     cgf_radius=0.3, match_radius=0.3, train_size=128,
+                     det_epochs=8, desc_epochs=30, test_items=16, workers=2)
+
+
+def match_accuracy(kp_a, desc_a, kp_p, desc_p, R, radius):
+    """The share of anchor keypoints whose descriptor's 1-NN in the partner
+    lies within ``radius`` of it once rotated back: ``|R^T kp_p[nn] - kp_a|
+    < radius``."""
+    import numpy as np
+    d2 = (np.sum(desc_a ** 2, 1)[:, None] + np.sum(desc_p ** 2, 1)[None]
+          - 2 * desc_a @ desc_p.T)
+    nn = np.argmin(d2, axis=1)
+    err = np.linalg.norm(kp_p[nn] @ R - kp_a, axis=1)
+    return float((err < radius).mean())
+
+
+def run_descriptor(root: str, device="cuda", *, points, nodes, c1, c2,
+                   node_knn_k, descriptor_len, nsamples, ball_radius,
+                   cgf_radius, match_radius, train_size, det_epochs,
+                   desc_epochs, test_items, workers,
+                   baseline_seeds=0) -> dict:
+    """The descriptor gate's phases (``scripts/validate_descriptor.py
+    --use-cgf --rot 2d --test-yaw`` at the given sizes), under
+    deterministic algorithms; returns the three matching accuracies and the
+    phases' seconds; with ``baseline_seeds``, also the untrained
+    accuracy's spread over that many descriptor initialisations."""
+    import torch
+
+    from usip_tpu_torch.inference import resolve_device
+
+    dev = resolve_device(device)
+    # fixed seeds give one answer only with deterministic algorithms: on the
+    # card the backward's atomic accumulations (index_add, scatter_add) and
+    # cuBLAS's split reductions otherwise sum in a run-dependent order, and
+    # the ratio moves between runs
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    was_deterministic = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        return _run_descriptor(root, dev, points, nodes, c1, c2, node_knn_k,
+                               descriptor_len, nsamples, ball_radius,
+                               cgf_radius, match_radius, train_size,
+                               det_epochs, desc_epochs, test_items, workers,
+                               baseline_seeds)
+    finally:
+        torch.use_deterministic_algorithms(was_deterministic)
+
+
+def _run_descriptor(root, dev, points, nodes, c1, c2, node_knn_k,
+                    descriptor_len, nsamples, ball_radius, cgf_radius,
+                    match_radius, train_size, det_epochs, desc_epochs,
+                    test_items, workers, baseline_seeds) -> dict:
+    import numpy as np
+    import torch
+
+    from usip_tpu_torch.config import get_config
+    from usip_tpu_torch.data.augment import rotation_matrix
+    from usip_tpu_torch.data.pipeline import BatchLoader
+    from usip_tpu_torch.data.synthetic import SyntheticDataset
+    from usip_tpu_torch.models import Descriptor
+    from usip_tpu_torch.ops import sample_nodes
+    from usip_tpu_torch.train.checkpoint import save_checkpoint
+    from usip_tpu_torch.train.descriptor_loop import (DescriptorEngine,
+                                                      _SyntheticPairDataset)
+    from usip_tpu_torch.train.loop import DetectorEngine
+
+    seconds = {}
+    cfg = get_config("modelnet", **{
+        "data.input_pc_num": points, "data.node_num": nodes,
+        "detector.c1": c1, "detector.c2": c2,
+        "detector.node_knn_k": node_knn_k,
+        "descriptor.descriptor_len": descriptor_len,
+        "descriptor.ball_nsamples": nsamples,
+        "descriptor.ball_radius": ball_radius,
+        "descriptor.surface_normal_len": 3, "train.batch_size": 16,
+        "train.log_every": 1000})
+    # the detector trains under modelnet's full augmentation; the
+    # descriptor's CGF GT transform is a yaw, with no scale or shift
+    cfg_desc = cfg.with_overrides(**{
+        "loss.cgf_radius": cgf_radius, "augment.rot_3d": False,
+        "augment.rot_horizontal": True, "augment.gt_scale_thre": 0.0,
+        "augment.gt_shift_thre": 0.0})
+    sn_len = cfg.detector.surface_normal_len
+
+    t0 = time.perf_counter()
+    train = BatchLoader(SyntheticDataset(size=train_size, input_pc_num=points,
+                                         surface_normal_len=sn_len, seed=0),
+                        16, num_workers=workers, seed=0)
+    det_engine = DetectorEngine(cfg, train, None,
+                                out_dir=os.path.join(root, "det"),
+                                device=dev)
+    for epoch in range(det_epochs):
+        det_engine.train_epoch(epoch)
+    det_ckpt = os.path.join(root, "det", "final.pt")
+    save_checkpoint(det_ckpt, det_engine.state,
+                    metadata={"epoch": det_epochs})
+    seconds["detector"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    desc_loader = BatchLoader(_SyntheticPairDataset(cfg_desc, size=train_size,
+                                                    seed=0),
+                              16, num_workers=workers, seed=0)
+    engine = DescriptorEngine(cfg_desc, det_ckpt, train_loader=desc_loader,
+                              use_cgf=True, out_dir=os.path.join(root, "desc"),
+                              device=dev)
+    untrained = Descriptor(cfg_desc.descriptor).to(dev).eval()
+    untrained.load_state_dict(engine.state.model.state_dict())
+    for epoch in range(desc_epochs):
+        avg = engine.train_epoch(epoch)
+    seconds["descriptor"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    det, trained = det_engine.state.model.eval(), engine.state.model.eval()
+    ratio = (cfg.data.eval_fps_subsample_ratio
+             or cfg.data.fps_subsample_ratio)
+    gen = lambda s: torch.Generator(device=dev).manual_seed(s)  # noqa: E731
+    to = lambda a: torch.from_numpy(  # noqa: E731
+        np.ascontiguousarray(a[None], np.float32)).to(dev)
+    test_ds = SyntheticDataset(size=16, input_pc_num=points,
+                               surface_normal_len=sn_len, seed=1)
+    rng = np.random.default_rng(3)
+    accs = {"trained": [], "untrained": [], "random": []}
+    # the untrained baseline's spread: descriptors initialised from seeds
+    # 0..baseline_seeds-1 (the gate's own is train.seed + 7), on the same
+    # keypoints and ball draws
+    baselines = []
+    for seed in range(baseline_seeds):
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(seed)
+            baselines.append((f"init {seed}",
+                              Descriptor(cfg_desc.descriptor).to(dev).eval()))
+        accs[f"init {seed}"] = []
+    with torch.no_grad():
+        for i in range(test_items):
+            item = test_ds[i % len(test_ds)]
+            pc, sn = item["src_pc"], item["src_sn"]
+            ang = rng.uniform(0, 2 * np.pi)
+            R = rotation_matrix(torch.tensor([0.0, ang, 0.0])).numpy()
+            pc_r = item["dst_pc"] @ R.T
+            sn_r = np.concatenate([item["dst_sn"][:, :3] @ R.T,
+                                   item["dst_sn"][:, 3:]], axis=1)
+            kps = []
+            for j, (p, s) in enumerate(((pc, sn), (pc_r, sn_r))):
+                node = sample_nodes(to(p), nodes, ratio,
+                                    cfg.data.fps_parallel,
+                                    generator=gen(2 * i + j))
+                kps.append(det(to(p), to(s), node)[1])
+            descs = {}
+            for name, model in (("trained", trained),
+                                ("untrained", untrained), *baselines):
+                descs[name] = [
+                    model(to(p), to(s), kp, generator=gen(seed))[0]
+                    [0].cpu().numpy()
+                    for p, s, kp, seed in ((pc, sn, kps[0], 100 + i),
+                                           (pc_r, sn_r, kps[1], 200 + i))]
+            ka, kp_ = (k[0].cpu().numpy() for k in kps)
+            descs["random"] = [rng.normal(size=d.shape).astype(np.float32)
+                               for d in descs["trained"]]
+            for name, (da, dp) in descs.items():
+                accs[name].append(match_accuracy(ka, da, kp_, dp, R,
+                                                 match_radius))
+    seconds["eval"] = time.perf_counter() - t0
+    out = {k: float(np.mean(accs[k])) for k in ("trained", "untrained",
+                                                "random")}
+    spread = [float(np.mean(accs[name])) for name, _ in baselines]
+    if spread:
+        out["untrained_by_init"] = {
+            "seeds": len(spread), "mean": float(np.mean(spread)),
+            "std": float(np.std(spread)), "min": min(spread),
+            "max": max(spread)}
+    return {**out, "ratio": out["trained"] / max(out["untrained"], 1e-9),
+            "final_loss": avg.get("loss"),
+            "final_match_acc": avg.get("match_acc"), "seconds": seconds}
 
 
 def run(root: str, epochs: int = 16, factor: float = 2.0, device="cuda",
@@ -133,16 +340,27 @@ def main(argv=None):
                     help="remove the working dir on success")
     ap.add_argument("--override", action="append", default=[],
                     help="dotted config override, after the reduced sizes")
+    ap.add_argument("--descriptor", action="store_true",
+                    help="the descriptor's gate (yaw-matching accuracy, "
+                         "trained over untrained) instead of the "
+                         "detector's")
     args = ap.parse_args(argv)
     root = args.root or tempfile.mkdtemp(prefix="usip_smoke_")
-    result = run(root, args.epochs, args.factor, args.device, args.override)
+    if args.descriptor:
+        result = run_descriptor(root, args.device, **DESCRIPTOR_GATE)
+        result.update(phase="descriptor", factor=args.factor,
+                      passed=bool(result["ratio"] >= args.factor))
+        what = "trained/untrained yaw-matching accuracy"
+    else:
+        result = run(root, args.epochs, args.factor, args.device,
+                     args.override)
+        what = "trained/random repeatability"
     print(json.dumps(result), flush=True)
     if args.cleanup and result["passed"]:
         shutil.rmtree(root, ignore_errors=True)
     if not result["passed"]:
-        raise SystemExit(
-            f"smoke gate FAILED: trained/random repeatability "
-            f"{result['ratio']:.2f} < required {args.factor}")
+        raise SystemExit(f"quality gate FAILED: {what} "
+                         f"{result['ratio']:.2f} < required {args.factor}")
     return result
 
 

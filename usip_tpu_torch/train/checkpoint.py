@@ -4,8 +4,9 @@ The port's own format is a ``torch.save`` file (``.pt``) holding ``{"step",
 "model", "optimizer"}``: the model's ``state_dict`` (parameters and
 BatchNorm buffers, under the reference's names) and the Adam state, written
 atomically through a ``.tmp`` rename, with a JSON sidecar (``<path>.json``)
-holding the metadata ``DetectorEngine.resume`` reads (``epoch``, ``loss``,
-``fit_samples``).
+holding the metadata the engines' ``resume`` reads (``epoch``, ``loss``,
+``fit_samples``). The detector's and the descriptor's states are saved and
+restored alike.
 
 usip_tpu's checkpoints (``.msgpack``: flax ``serialization.to_bytes`` of
 ``{"step", "params", "batch_stats", "opt_state"}``) are read without flax or
@@ -141,7 +142,8 @@ def read_msgpack(path: str) -> Dict[str, Any]:
 
 
 def state_dict_from_msgpack(path: str) -> Tuple[Dict[str, torch.Tensor], int]:
-    """The detector ``state_dict`` and step count of a usip_tpu checkpoint."""
+    """The ``state_dict`` (a detector's or a descriptor's, as the tree
+    says) and step count of a usip_tpu checkpoint."""
     payload = read_msgpack(path)
     sd = state_dict_from_jax({"params": payload["params"],
                               "batch_stats": payload.get("batch_stats", {})})

@@ -1,23 +1,26 @@
-"""Detector weights: reference-named ``state_dict``s for the port.
+"""Detector and descriptor weights: reference-named ``state_dict``s for the
+port.
 
 * ``state_dict_from_jax`` maps a usip_tpu variables tree (as numpy arrays,
-  ``{'params': ..., 'batch_stats': ...}``) of either trunk family onto the
-  port's ``state_dict``;
-* ``load_detector_weights`` reads a reference ``.pth`` (what the reference
-  saves, ``<epoch>_net_detector.pth``), the port's ``.pt`` checkpoint or a
-  usip_tpu ``.msgpack``;
-* ``seeded_state_dict`` makes random weights from a seed, with nontrivial
-  BatchNorm statistics, for tests and the on-card smoke run.
+  ``{'params': ..., 'batch_stats': ...}``) of either detector trunk family
+  or of the descriptor (lite or global) onto the port's ``state_dict``;
+* ``load_detector_weights`` / ``load_descriptor_weights`` read a reference
+  ``.pth`` (what the reference saves, ``<epoch>_net_detector.pth``, with the
+  ``nn.DataParallel`` prefix where it has one), the port's ``.pt``
+  checkpoint or a usip_tpu ``.msgpack``;
+* ``seeded_state_dict`` / ``seeded_descriptor_state_dict`` make random
+  weights from a seed, with nontrivial BatchNorm statistics, for tests and
+  the on-card smoke run.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
 
-from usip_tpu_torch.config import DetectorConfig
+from usip_tpu_torch.config import DescriptorConfig, DetectorConfig
 
 # the kNN-fusion layer and the head, shared by both trunk families
 _SHARED_LAYOUT = (
@@ -43,16 +46,31 @@ DETECTOR_LAYOUT = (
 # whose state_dict keys are identical for knn and ball
 GROUP_DETECTOR_LAYOUT = tuple(
     (f"conv{i}", f"conv{i}", None, 2) for i in range(1, 6)) + _SHARED_LAYOUT
+# DescriptorLiteOld's conv1..5, and DescriptorLiteOldGlobal's fc1..3 on top
+DESCRIPTOR_LAYOUT = tuple(
+    (f"conv{i}", f"conv{i}", None, 2) for i in range(1, 6))
+DESCRIPTOR_GLOBAL_LAYOUT = DESCRIPTOR_LAYOUT + tuple(
+    (f"fc{i}", f"fc{i}", None, 1) for i in range(1, 4))
+
+
+def jax_layout(params: Mapping):
+    """The layout of a usip_tpu variables tree: the SOM detector, the
+    grouped (knn/ball) detector, or the descriptor, lite or global; as
+    ``usip_tpu.train.torch_import``'s exporters tell them apart."""
+    if "knnlayer" not in params:
+        return (DESCRIPTOR_GLOBAL_LAYOUT if "fc1" in params
+                else DESCRIPTOR_LAYOUT)
+    return (DETECTOR_LAYOUT if "first_pointnet" in params
+            else GROUP_DETECTOR_LAYOUT)
 
 
 def state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
-    """usip_tpu detector variables -> the port's ``state_dict``. The trunk
-    family (SOM, or the grouped knn/ball trunk) is read from the tree, as
-    ``usip_tpu.train.torch_import.export_detector_state_dict`` does."""
+    """usip_tpu detector or descriptor variables -> the port's
+    ``state_dict``; which model it is, is read from the tree
+    (``jax_layout``)."""
     params = variables["params"]
     stats = variables.get("batch_stats", {})
-    layout = (DETECTOR_LAYOUT if "first_pointnet" in params
-              else GROUP_DETECTOR_LAYOUT)
+    layout = jax_layout(params)
     out: Dict[str, torch.Tensor] = {}
     for src, module, layer, dims in layout:
         p = params[module] if layer is None else params[module][layer]
@@ -83,7 +101,8 @@ def detector_family(state_dict: Mapping) -> str:
 
 
 def load_detector_weights(path: str) -> Dict[str, torch.Tensor]:
-    """A reference-named detector ``state_dict`` from a checkpoint file: a
+    """A reference-named ``state_dict`` (a detector's or a descriptor's)
+    from a checkpoint file: a
     usip_tpu ``.msgpack`` (its parameters and BatchNorm statistics), the
     port's own ``.pt`` (its ``"model"`` entry) or a reference ``.pth``, with
     the ``nn.DataParallel`` ``module.`` prefix stripped when every key has
@@ -99,6 +118,32 @@ def load_detector_weights(path: str) -> Dict[str, torch.Tensor]:
     return sd
 
 
+# a descriptor's files are read alike: the layout is the file's own
+load_descriptor_weights = load_detector_weights
+
+
+def _seeded(names_shapes, seed: int, head: Optional[str]
+            ) -> Dict[str, np.ndarray]:
+    rng = np.random.default_rng(seed)
+    out: Dict[str, np.ndarray] = {}
+    for name, shape in names_shapes:
+        if name.endswith("num_batches_tracked"):
+            out[name] = np.asarray(0, np.int64)
+            continue
+        if name.endswith("conv.weight"):
+            std = (0.05 if head and name.startswith(head)
+                   else np.sqrt(2.0 / shape[1]))
+            v = rng.normal(0.0, std, shape)
+        elif name.endswith("norm.weight"):
+            v = 1.0 + rng.normal(0.0, 0.1, shape)
+        elif name.endswith("norm.running_var"):
+            v = rng.uniform(0.5, 1.5, shape)
+        else:  # conv.bias, norm.bias, norm.running_mean
+            v = rng.normal(0.0, 0.1, shape)
+        out[name] = v.astype(np.float32)
+    return out
+
+
 def seeded_state_dict(cfg: DetectorConfig, seed: int) -> Dict[str, np.ndarray]:
     """Random detector weights in the reference layout, as numpy arrays.
 
@@ -109,22 +154,15 @@ def seeded_state_dict(cfg: DetectorConfig, seed: int) -> Dict[str, np.ndarray]:
     is not trivially satisfied by ``keypoints ~= anchors``.
     """
     from usip_tpu_torch.models.detector import Detector
+    return _seeded(((n, tuple(t.shape)) for n, t in
+                    Detector(cfg).state_dict().items()), seed, "mlp3.")
 
-    rng = np.random.default_rng(seed)
-    out: Dict[str, np.ndarray] = {}
-    for name, t in Detector(cfg).state_dict().items():
-        shape = tuple(t.shape)
-        if name.endswith("num_batches_tracked"):
-            out[name] = np.asarray(0, np.int64)
-            continue
-        if name.endswith("conv.weight"):
-            std = 0.05 if name.startswith("mlp3.") else np.sqrt(2.0 / shape[1])
-            v = rng.normal(0.0, std, shape)
-        elif name.endswith("norm.weight"):
-            v = 1.0 + rng.normal(0.0, 0.1, shape)
-        elif name.endswith("norm.running_var"):
-            v = rng.uniform(0.5, 1.5, shape)
-        else:  # conv.bias, norm.bias, norm.running_mean
-            v = rng.normal(0.0, 0.1, shape)
-        out[name] = v.astype(np.float32)
-    return out
+
+def seeded_descriptor_state_dict(cfg: DescriptorConfig, seed: int
+                                 ) -> Dict[str, np.ndarray]:
+    """Random descriptor weights in the reference layout, as numpy arrays,
+    drawn as ``seeded_state_dict`` draws a detector's (He-normal kernels,
+    no narrower last layer)."""
+    from usip_tpu_torch.models.descriptor import Descriptor
+    return _seeded(((n, tuple(t.shape)) for n, t in
+                    Descriptor(cfg).state_dict().items()), seed, None)
