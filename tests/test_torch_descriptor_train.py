@@ -260,6 +260,33 @@ def test_descriptor_steps_from_a_generator():
         make_descriptor_train_step(cfg, use_cgf=True)
 
 
+@pytest.mark.parametrize("use_cgf,eval_only", [(False, False),
+                                               (True, False), (False, True)])
+def test_descriptor_step_marks_its_parts(use_cgf, eval_only):
+    """``mark`` is called once after each of the step's parts (node
+    sampling, frozen detector, ball queries, trunk, losses, then backward
+    and optimizer when it steps) and changes nothing: from the same start
+    and generator seed the step gives the same metrics and state with and
+    without it."""
+    _, cfg, batch, _, _, det, desc = _setup(CGF if use_cgf else OVERRIDES)
+    start = {k: v.clone() for k, v in desc.state_dict().items()}
+    wire = steps.PackedPairBatch(*(_t(x) for x in pack_pair_batch(*batch)))
+    step = make_descriptor_train_step(cfg, use_cgf, eval_only)
+    calls, runs = [], []
+    for mark in (None, lambda: calls.append(len(calls))):
+        desc.load_state_dict(start)
+        state = TrainState.create(desc, cfg.train.lr)
+        metrics = step(state, det, wire, 1, mark=mark,
+                       generator=torch.Generator().manual_seed(0))
+        runs.append((metrics, {k: v.clone()
+                               for k, v in desc.state_dict().items()}))
+    assert calls == list(range(5 if eval_only else 7))
+    (m0, w0), (m1, w1) = runs
+    assert m0.keys() == m1.keys()
+    assert all(torch.equal(m0[k], m1[k]) for k in m0)
+    assert all(torch.equal(w0[k], w1[k]) for k in w0)
+
+
 # --------------------------------------------------------------- engine ----
 
 TINY = {"data.input_pc_num": 128, "data.node_num": 16,

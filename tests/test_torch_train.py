@@ -537,6 +537,28 @@ TOLERANCES_BF16 = {"forward": [(0, 0), (2e-3, 2e-4), (6e-3, 5e-4)],
                    "loss": 2e-3, "metric": 3e-3, "stats": 5e-4, "cos": 0.998}
 
 
+def test_train_step_marks_its_parts():
+    """``mark`` is called once after each of the step's five parts (inputs,
+    forward, losses, backward, optimizer) and changes nothing: from the
+    same start and generator seed the step gives the same metrics and
+    weights with and without it."""
+    _, cfg, pc, sn, _, _, det = _setup()
+    start = copy.deepcopy(det.state_dict())
+    step = steps.make_detector_train_step(cfg)
+    batch = steps.ParentBatch(_t(pc), _t(sn))
+    calls, runs = [], []
+    for mark in (None, lambda: calls.append(len(calls))):
+        det.load_state_dict(start)
+        state = TrainState.create(det, cfg.train.lr)
+        metrics = step(state, batch, 3, mark=mark,
+                       generator=torch.Generator().manual_seed(0))
+        runs.append((metrics, copy.deepcopy(det.state_dict())))
+    assert calls == [0, 1, 2, 3, 4]
+    (m0, w0), (m1, w1) = runs
+    assert all(torch.equal(m0[k], m1[k]) for k in m0)
+    assert all(torch.equal(w0[k], w1[k]) for k in w0)
+
+
 def _flat_grads(grads, names):
     return torch.cat([torch.as_tensor(np.asarray(grads[n])).flatten()
                       for n in names])

@@ -21,22 +21,20 @@ The descriptor's (counterpart of ``scripts/validate_descriptor.py
 --use-cgf --rot 2d --test-yaw``):
 
     python -m usip_tpu_torch.quality --descriptor [--factor 2] \
-        [--device cuda]
+        [--device cuda] [--override train.seed=1 ...]
 
 On synthetic shapes at the modelnet preset (256 shapes of 1024 points, 64
 nodes, c1 64, c2 128, descriptor length 64, balls of 32 points in radius
-0.4, batch 16): it trains the detector 20 epochs, freezes it, trains the
-descriptor 20 epochs with the CGF objective under yaw (GT rotations about
-the vertical axis only, no scale or shift), then matches 12 test shapes
-against a yaw-rotated resampling of themselves: the share of keypoints
-whose descriptor's nearest neighbour in the partner lies within 0.2 of the
-right place, for the trained descriptor, the untrained one and random
-vectors. It prints one JSON line and exits nonzero unless trained /
+0.4, batch 16; ``--override``s after these, as above): it trains the
+detector 20 epochs, freezes it, trains the descriptor 20 epochs with the
+CGF objective under yaw (GT rotations about the vertical axis only, no
+scale or shift), then matches 12 test shapes against a yaw-rotated
+resampling of themselves (``yaw_matching``): the share of keypoints whose
+descriptor's nearest neighbour in the partner lies within 0.2 of the right
+place, for the trained descriptor, the untrained one and random vectors.
+It prints one JSON line and exits nonzero unless trained /
 untrained >= ``--factor``. Every seed is fixed, and it runs under
-deterministic algorithms, so that a run on one card repeats. Beside the
-verdict it reports the untrained accuracy's spread over 16 descriptor
-initialisations on the same keypoints and draws: the noise of the
-ratio's denominator.
+deterministic algorithms, so that a run on one card repeats.
 """
 
 from __future__ import annotations
@@ -93,7 +91,7 @@ DESCRIPTOR_GATE = dict(points=1024, nodes=64, c1=64, c2=128, node_knn_k=8,
                        descriptor_len=64, nsamples=32, ball_radius=0.4,
                        cgf_radius=0.2, match_radius=0.2, train_size=256,
                        det_epochs=20, desc_epochs=20, test_items=12,
-                       workers=4, baseline_seeds=16)
+                       workers=4)
 LEARNING_TEST = dict(points=256, nodes=32, c1=32, c2=64, node_knn_k=4,
                      descriptor_len=32, nsamples=16, ball_radius=0.5,
                      cgf_radius=0.3, match_radius=0.3, train_size=128,
@@ -115,13 +113,11 @@ def match_accuracy(kp_a, desc_a, kp_p, desc_p, R, radius):
 def run_descriptor(root: str, device="cuda", *, points, nodes, c1, c2,
                    node_knn_k, descriptor_len, nsamples, ball_radius,
                    cgf_radius, match_radius, train_size, det_epochs,
-                   desc_epochs, test_items, workers,
-                   baseline_seeds=0) -> dict:
+                   desc_epochs, test_items, workers, overrides=()) -> dict:
     """The descriptor gate's phases (``scripts/validate_descriptor.py
-    --use-cgf --rot 2d --test-yaw`` at the given sizes), under
-    deterministic algorithms; returns the three matching accuracies and the
-    phases' seconds; with ``baseline_seeds``, also the untrained
-    accuracy's spread over that many descriptor initialisations."""
+    --use-cgf --rot 2d --test-yaw`` at the given sizes, then the dotted
+    ``overrides``), under deterministic algorithms; returns the three
+    matching accuracies and the phases' seconds."""
     import torch
 
     from usip_tpu_torch.inference import resolve_device
@@ -139,7 +135,7 @@ def run_descriptor(root: str, device="cuda", *, points, nodes, c1, c2,
                                descriptor_len, nsamples, ball_radius,
                                cgf_radius, match_radius, train_size,
                                det_epochs, desc_epochs, test_items, workers,
-                               baseline_seeds)
+                               overrides)
     finally:
         torch.use_deterministic_algorithms(was_deterministic)
 
@@ -147,16 +143,11 @@ def run_descriptor(root: str, device="cuda", *, points, nodes, c1, c2,
 def _run_descriptor(root, dev, points, nodes, c1, c2, node_knn_k,
                     descriptor_len, nsamples, ball_radius, cgf_radius,
                     match_radius, train_size, det_epochs, desc_epochs,
-                    test_items, workers, baseline_seeds) -> dict:
-    import numpy as np
-    import torch
-
+                    test_items, workers, overrides) -> dict:
     from usip_tpu_torch.config import get_config
-    from usip_tpu_torch.data.augment import rotation_matrix
     from usip_tpu_torch.data.pipeline import BatchLoader
     from usip_tpu_torch.data.synthetic import SyntheticDataset
     from usip_tpu_torch.models import Descriptor
-    from usip_tpu_torch.ops import sample_nodes
     from usip_tpu_torch.train.checkpoint import save_checkpoint
     from usip_tpu_torch.train.descriptor_loop import (DescriptorEngine,
                                                       _SyntheticPairDataset)
@@ -171,7 +162,7 @@ def _run_descriptor(root, dev, points, nodes, c1, c2, node_knn_k,
         "descriptor.ball_nsamples": nsamples,
         "descriptor.ball_radius": ball_radius,
         "descriptor.surface_normal_len": 3, "train.batch_size": 16,
-        "train.log_every": 1000})
+        "train.log_every": 1000, **_overrides(overrides)})
     # the detector trains under modelnet's full augmentation; the
     # descriptor's CGF GT transform is a yaw, with no scale or shift
     cfg_desc = cfg.with_overrides(**{
@@ -208,26 +199,44 @@ def _run_descriptor(root, dev, points, nodes, c1, c2, node_knn_k,
     seconds["descriptor"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    det, trained = det_engine.state.model.eval(), engine.state.model.eval()
+    out = yaw_matching(cfg, det_engine.state.model,
+                       {"trained": engine.state.model,
+                        "untrained": untrained}, test_items, match_radius)
+    seconds["eval"] = time.perf_counter() - t0
+    return {**out, "ratio": out["trained"] / max(out["untrained"], 1e-9),
+            "final_loss": avg.get("loss"),
+            "final_match_acc": avg.get("match_acc"), "seconds": seconds}
+
+
+def yaw_matching(cfg, det, models, test_items, match_radius) -> dict:
+    """The descriptor gate's test: ``test_items`` synthetic shapes (seed 1)
+    each against a yaw-rotated resampling of itself (numpy seed 3), the
+    keypoints of the frozen detector ``det`` on both (node draws seeded
+    ``2i``, ``2i + 1``), each descriptor of ``models`` (name -> module, ball
+    draws seeded ``100 + i``, ``200 + i``) and random vectors: the mean
+    share of anchor keypoints whose descriptor's 1-NN in the partner lies
+    within ``match_radius`` of the right place, by name (and
+    ``'random'``)."""
+    import numpy as np
+    import torch
+
+    from usip_tpu_torch.data.augment import rotation_matrix
+    from usip_tpu_torch.data.synthetic import SyntheticDataset
+    from usip_tpu_torch.ops import sample_nodes
+
+    det = det.eval()
+    models = {k: m.eval() for k, m in models.items()}
+    dev = next(det.parameters()).device
     ratio = (cfg.data.eval_fps_subsample_ratio
              or cfg.data.fps_subsample_ratio)
     gen = lambda s: torch.Generator(device=dev).manual_seed(s)  # noqa: E731
     to = lambda a: torch.from_numpy(  # noqa: E731
         np.ascontiguousarray(a[None], np.float32)).to(dev)
-    test_ds = SyntheticDataset(size=16, input_pc_num=points,
-                               surface_normal_len=sn_len, seed=1)
+    test_ds = SyntheticDataset(size=16, input_pc_num=cfg.data.input_pc_num,
+                               surface_normal_len=cfg.detector
+                               .surface_normal_len, seed=1)
     rng = np.random.default_rng(3)
-    accs = {"trained": [], "untrained": [], "random": []}
-    # the untrained baseline's spread: descriptors initialised from seeds
-    # 0..baseline_seeds-1 (the gate's own is train.seed + 7), on the same
-    # keypoints and ball draws
-    baselines = []
-    for seed in range(baseline_seeds):
-        with torch.random.fork_rng(devices=[]):
-            torch.manual_seed(seed)
-            baselines.append((f"init {seed}",
-                              Descriptor(cfg_desc.descriptor).to(dev).eval()))
-        accs[f"init {seed}"] = []
+    accs = {name: [] for name in (*models, "random")}
     with torch.no_grad():
         for i in range(test_items):
             item = test_ds[i % len(test_ds)]
@@ -239,36 +248,23 @@ def _run_descriptor(root, dev, points, nodes, c1, c2, node_knn_k,
                                    item["dst_sn"][:, 3:]], axis=1)
             kps = []
             for j, (p, s) in enumerate(((pc, sn), (pc_r, sn_r))):
-                node = sample_nodes(to(p), nodes, ratio,
+                node = sample_nodes(to(p), cfg.data.node_num, ratio,
                                     cfg.data.fps_parallel,
                                     generator=gen(2 * i + j))
                 kps.append(det(to(p), to(s), node)[1])
-            descs = {}
-            for name, model in (("trained", trained),
-                                ("untrained", untrained), *baselines):
-                descs[name] = [
-                    model(to(p), to(s), kp, generator=gen(seed))[0]
-                    [0].cpu().numpy()
-                    for p, s, kp, seed in ((pc, sn, kps[0], 100 + i),
-                                           (pc_r, sn_r, kps[1], 200 + i))]
+            descs = {
+                name: [model(to(p), to(s), kp, generator=gen(seed))[0]
+                       [0].cpu().numpy()
+                       for p, s, kp, seed in ((pc, sn, kps[0], 100 + i),
+                                              (pc_r, sn_r, kps[1], 200 + i))]
+                for name, model in models.items()}
             ka, kp_ = (k[0].cpu().numpy() for k in kps)
             descs["random"] = [rng.normal(size=d.shape).astype(np.float32)
-                               for d in descs["trained"]]
+                               for d in next(iter(descs.values()))]
             for name, (da, dp) in descs.items():
                 accs[name].append(match_accuracy(ka, da, kp_, dp, R,
                                                  match_radius))
-    seconds["eval"] = time.perf_counter() - t0
-    out = {k: float(np.mean(accs[k])) for k in ("trained", "untrained",
-                                                "random")}
-    spread = [float(np.mean(accs[name])) for name, _ in baselines]
-    if spread:
-        out["untrained_by_init"] = {
-            "seeds": len(spread), "mean": float(np.mean(spread)),
-            "std": float(np.std(spread)), "min": min(spread),
-            "max": max(spread)}
-    return {**out, "ratio": out["trained"] / max(out["untrained"], 1e-9),
-            "final_loss": avg.get("loss"),
-            "final_match_acc": avg.get("match_acc"), "seconds": seconds}
+    return {k: float(np.mean(v)) for k, v in accs.items()}
 
 
 def run(root: str, epochs: int = 16, factor: float = 2.0, device="cuda",
@@ -339,7 +335,8 @@ def main(argv=None):
     ap.add_argument("--cleanup", action="store_true",
                     help="remove the working dir on success")
     ap.add_argument("--override", action="append", default=[],
-                    help="dotted config override, after the reduced sizes")
+                    help="dotted config override, after the reduced sizes "
+                         "(either gate)")
     ap.add_argument("--descriptor", action="store_true",
                     help="the descriptor's gate (yaw-matching accuracy, "
                          "trained over untrained) instead of the "
@@ -347,7 +344,8 @@ def main(argv=None):
     args = ap.parse_args(argv)
     root = args.root or tempfile.mkdtemp(prefix="usip_smoke_")
     if args.descriptor:
-        result = run_descriptor(root, args.device, **DESCRIPTOR_GATE)
+        result = run_descriptor(root, args.device, overrides=args.override,
+                                **DESCRIPTOR_GATE)
         result.update(phase="descriptor", factor=args.factor,
                       passed=bool(result["ratio"] >= args.factor))
         what = "trained/untrained yaw-matching accuracy"
