@@ -113,6 +113,7 @@ from usip_tpu_torch.models.detector import knn_group  # noqa: E402
 from usip_tpu_torch.models.fused_infer import detector_infer_fused  # noqa: E402
 from usip_tpu_torch.ops import kernels, pairwise_sqdist, sample_nodes  # noqa: E402
 from usip_tpu_torch.ops.grouping import ball_scores, ball_select  # noqa: E402
+from usip_tpu_torch.quality import DESCRIPTOR_GATE  # noqa: E402
 from usip_tpu_torch.data.descriptor_loaders import (  # noqa: E402
     KittiDescriptorDataset)
 from usip_tpu_torch.data.pipeline import BatchLoader  # noqa: E402
@@ -1736,9 +1737,12 @@ def phase9_engine(card, tmp, root, ckpt, step_rate):
         os.path.join(tmp, "desc_quality"), "--device", "cuda", "--factor",
         str(DESC_QUALITY_FACTOR)])
     res = json.loads(out.strip().splitlines()[-1])
+    g = DESCRIPTOR_GATE
     print(f"[9] {card} | descriptor quality gate (validate_descriptor.py "
-          f"--use-cgf --rot 2d --test-yaw: modelnet, 256 shapes of 1024 "
-          f"points, 64 nodes, 20 + 20 epochs, deterministic) in "
+          f"--use-cgf --rot 2d --test-yaw: modelnet, {g['train_size']} "
+          f"shapes of {g['points']} points, {g['nodes']} nodes, "
+          f"{g['det_epochs']} detector + {g['desc_epochs']} descriptor "
+          f"epochs, deterministic) in "
           f"{t_gate:.1f} s: yaw-matching accuracy trained {res['trained']}, "
           f"untrained {res['untrained']}, random {res['random']}, ratio "
           f"{res['ratio']} (required >= {DESC_QUALITY_FACTOR}); phases (s) "

@@ -2,8 +2,8 @@
 seed, and the spread of its denominator.
 
 For each ``train.seed`` given, on the CPU: usip_tpu's protocol
-(``scripts/validate_descriptor.py --use-cgf --rot 2d --test-yaw``, its
-config given that ``train.seed``) and the port's
+(``scripts/validate_descriptor.py --use-cgf --rot 2d --test-yaw`` at the
+port's gate sizes, its config given that ``train.seed``) and the port's
 (``usip_tpu_torch.quality.run_descriptor`` with ``--override
 train.seed=S``), each giving the trained, untrained and random yaw-matching
 accuracy; then, on each package's own trained detector and the same test
@@ -14,7 +14,8 @@ untrained draw comes from. One JSON line a seed and package.
     JAX_PLATFORMS=cpu python tests/descriptor_gate_probe.py --seeds 0 1 \\
         [--inits 24] [--out DIR]
 
-Each seed takes about 10 minutes on 8 CPU cores.
+Each seed takes about 35 minutes on 8 CPU cores (the port's gate about 11
+minutes on 4 cores, usip_tpu's about 23).
 """
 
 import argparse
@@ -50,8 +51,12 @@ def jax_probe(seed, inits, out):
     get_config = vd.get_config
     vd.get_config = lambda *a, **k: get_config(*a, **{**k,
                                                       "train.seed": seed})
-    argv, sys.argv = sys.argv, ["validate_descriptor.py", "--use-cgf",
-                                "--rot", "2d", "--test-yaw", "--out", out]
+    from usip_tpu_torch.quality import DESCRIPTOR_GATE as gate
+    argv, sys.argv = sys.argv, [
+        "validate_descriptor.py", "--use-cgf", "--rot", "2d", "--test-yaw",
+        "--train-size", str(gate["train_size"]),
+        "--det-epochs", str(gate["det_epochs"]),
+        "--desc-epochs", str(gate["desc_epochs"]), "--out", out]
     buf = io.StringIO()
     try:
         with contextlib.redirect_stdout(buf):

@@ -23,10 +23,10 @@ The descriptor's (counterpart of ``scripts/validate_descriptor.py
     python -m usip_tpu_torch.quality --descriptor [--factor 2] \
         [--device cuda] [--override train.seed=1 ...]
 
-On synthetic shapes at the modelnet preset (256 shapes of 1024 points, 64
+On synthetic shapes at the modelnet preset (512 shapes of 1024 points, 64
 nodes, c1 64, c2 128, descriptor length 64, balls of 32 points in radius
 0.4, batch 16; ``--override``s after these, as above): it trains the
-detector 20 epochs, freezes it, trains the descriptor 20 epochs with the
+detector 20 epochs, freezes it, trains the descriptor 60 epochs with the
 CGF objective under yaw (GT rotations about the vertical axis only, no
 scale or shift), then matches 12 test shapes against a yaw-rotated
 resampling of themselves (``yaw_matching``): the share of keypoints whose
@@ -85,12 +85,18 @@ def export_and_repeatability(cfg, checkpoint, out_dir, gt, calib_root,
             "pairs": len(arr)}
 
 
-# scripts/validate_descriptor.py's defaults, and usip_tpu's
-# tests/test_descriptor_learning.py sizes (the CPU test's gate, 1.3x)
+# scripts/validate_descriptor.py's protocol at the size usip_tpu's 2x
+# verdict was recorded at (``--train-size 512 --desc-epochs 60``,
+# PERFORMANCE.md "yaw-matching accuracy"; the detector keeps its 20 epochs:
+# at 60 its keypoints bunch within the match radius and random vectors
+# match best, in both packages). At the script's defaults (256 shapes, 20
+# descriptor epochs) both packages' expected ratio is the factor itself
+# (ROADMAP Queue C). And usip_tpu's tests/test_descriptor_learning.py
+# sizes (the CPU test's gate, 1.3x)
 DESCRIPTOR_GATE = dict(points=1024, nodes=64, c1=64, c2=128, node_knn_k=8,
                        descriptor_len=64, nsamples=32, ball_radius=0.4,
-                       cgf_radius=0.2, match_radius=0.2, train_size=256,
-                       det_epochs=20, desc_epochs=20, test_items=12,
+                       cgf_radius=0.2, match_radius=0.2, train_size=512,
+                       det_epochs=20, desc_epochs=60, test_items=12,
                        workers=4)
 LEARNING_TEST = dict(points=256, nodes=32, c1=32, c2=64, node_knn_k=4,
                      descriptor_len=32, nsamples=16, ball_radius=0.5,
