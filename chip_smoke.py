@@ -17,7 +17,12 @@ script exits nonzero without the final ``ok`` line:
    keypoint chamfer in both modes, smallest-k also on the descriptor's
    ball scores (8, 256, 16384) k=64 over random fp32 priorities and over
    the bf16 mode's rounded priorities and distances (ties), scatter-max on
-   uniform ids and on the SOM trunk's own assignment ids;
+   uniform ids and on the SOM trunk's own assignment ids; and the indoor
+   shapes on room frames: smallest-k at the ball selection (8, 512, 5000)
+   k=448 (balls past 448 points and short of it) and the lite node kNN
+   (16, 512, 512) k=32 and 4, the chain at the lite widths (K=4 and 32,
+   Cin 67), scatter-max at C=32 and 64, FPS and min/argmin at the indoor
+   sizes;
 3. runs the whole fp32 forward at full width (B=2) on the card and on the
    CPU with the same seeded weights, draws and input, and compares: the
    KITTI SOM detector, the Oxford ball detector and its knn twin, and the
@@ -78,7 +83,22 @@ script exits nonzero without the final ``ok`` line:
    ``eval-registration`` (RTE, RRE, success), ``detect
    --descriptor-checkpoint``, and the descriptor quality gate ``python -m
    usip_tpu_torch.quality --descriptor --device cuda``, which fails the
-   run unless trained/untrained yaw-matching accuracy >= 2.
+   run unless trained/untrained yaw-matching accuracy >= 2;
+10. the indoor pipeline at the scenenn preset's full width (5000-point
+   clouds, 512 keypoints, balls of 448 in radius 0.75, the lite detector,
+   the global-context descriptor, the CGF objective) on synthetic trees
+   (``python -m usip_tpu_torch.indoor gen``, cut to 16 SceneNN frames and
+   one scene of 16 fragments): each kernel timed at the indoor shapes; the
+   fp32 forward (B=2) and one fp32 CGF step on the card against the CPU
+   (phase 9's tolerances); five bf16 steps at batch 8 with the launch
+   counts, the step's time, split and peak memory; five lite detector steps
+   (the detector role); ``train-detector --dataset scenenn --lite`` 2
+   epochs, ``train-descriptor --dataset scenenn`` 2 epochs and ``--resume
+   auto`` to 3, one ``DescriptorEngine`` epoch (clouds/s, idle share);
+   ``python -m usip_tpu_torch.indoor eval`` in process (both arms; all five
+   kernels must launch in the fragment export), ``eval-indoor --estimator
+   fgr``; a rotated-ModelNet tree through ``export-keypoints --subset
+   original|rotated`` and ``eval-repeatability``.
 
 The second-to-last line is a JSON object with one entry per kernel (time,
 plain and library times, bound, launches); the last is ``{"ok": true,
@@ -87,6 +107,7 @@ checks that at its end.
 """
 
 import contextlib
+import functools
 import io
 import json
 import os
@@ -114,16 +135,20 @@ from usip_tpu_torch.models.fused_infer import detector_infer_fused  # noqa: E402
 from usip_tpu_torch.ops import kernels, pairwise_sqdist, sample_nodes  # noqa: E402
 from usip_tpu_torch.ops.grouping import ball_scores, ball_select  # noqa: E402
 from usip_tpu_torch.quality import DESCRIPTOR_GATE  # noqa: E402
+from usip_tpu_torch import indoor as indoor_protocol  # noqa: E402
 from usip_tpu_torch.data.descriptor_loaders import (  # noqa: E402
-    KittiDescriptorDataset)
+    KittiDescriptorDataset, SceneNNDescriptorDataset)
+from usip_tpu_torch.data.preprocess import build_modelnet_rotated  # noqa: E402
 from usip_tpu_torch.data.pipeline import BatchLoader  # noqa: E402
 from usip_tpu_torch.train import (PackedPairBatch, ParentBatch,  # noqa: E402
                                   TrainState, make_descriptor_train_step,
                                   make_detector_train_step, pack_pair_batch)
 from usip_tpu_torch.train.descriptor_loop import DescriptorEngine  # noqa: E402
 from usip_tpu_torch.train import steps as train_steps  # noqa: E402
-from usip_tpu_torch.train.checkpoint import find_checkpoint  # noqa: E402
-from usip_tpu_torch.train.loop import DetectorEngine  # noqa: E402
+from usip_tpu_torch.train.checkpoint import (find_checkpoint,  # noqa: E402
+                                             save_checkpoint)
+from usip_tpu_torch.train.loop import (DetectorEngine,  # noqa: E402
+                                       init_detector_state)
 from usip_tpu_torch.data.synthetic import build_synthetic_kitti_tree  # noqa: E402
 from usip_tpu_torch.weights import (seeded_descriptor_state_dict,  # noqa: E402
                                     seeded_state_dict)
@@ -147,6 +172,8 @@ K2_SHAPES = {"serve (8, 16384) x 512 bf16": (8, 16384, 512, True),
              "train (16, 16384) x 512 bf16": (16, 16384, 512, True),
              "keypoint->cloud (8, 512) x 16384 fp32": (8, 512, 16384, False),
              "chamfer (8, 512) x 512 fp32": (8, 512, 512, False),
+             # the KITTI descriptor step's frozen detector (256 nodes)
+             "descriptor step (16, 16384) x 256 bf16": (16, 16384, 256, True),
              # the serve shape in the fp32 mode, for comparison
              "(8, 16384) x 512 fp32": (8, 16384, 512, False)}
 
@@ -216,6 +243,11 @@ PATH_KERNELS = {
     "descriptor_engine": ("fps", "min_argmin", "scatter_max", "smallest_k"),
     "descriptor_export": ("fps", "min_argmin", "scatter_max", "fusion_chain",
                           "smallest_k"),
+    "indoor_detector": ("fps", "min_argmin", "scatter_max", "smallest_k"),
+    "indoor_descriptor": ("fps", "min_argmin", "scatter_max", "smallest_k"),
+    "indoor_engine": ("fps", "min_argmin", "scatter_max", "smallest_k"),
+    "fragment_export": ("fps", "min_argmin", "scatter_max", "fusion_chain",
+                        "smallest_k"),
 }
 # train steps in the train path's counted run
 TRAIN_STEPS = 5
@@ -545,12 +577,15 @@ def phase2(cfg):
                   f"scatter_max {name}: empty nodes are 0")
             worst = max(worst, err)
     errs["scatter_max"] = worst
+    # the indoor path's shapes (phase 10)
+    for name, err in indoor_kernel_checks(rng, dev).items():
+        errs[name] = max(errs[name], err)
     return errs
 
 
 def k2_inputs(rng, b, n, m, dev):
     """K2's queries and candidates at ``(b, n) x m``: where the queries are
-    LiDAR-like clouds (n > m), 512 nodes drawn from them; where they are
+    LiDAR-like clouds (n > m), m nodes drawn from them; where they are
     512 keypoints, nodes of a cloud moved by N(0, 0.3^2), against the cloud
     (m = 16384) or against another such set of keypoints (m = 512)."""
     if n > m:
@@ -1087,6 +1122,31 @@ def profile_busy(fn, calls):
     return busy, ops, wall
 
 
+def grad_errors(tag, grads):
+    """Per parameter, card against CPU: max|card - CPU| over its max|CPU
+    gradient|, that max floored at GRAD_TOL[0] of the largest gradient (a
+    gradient below it is rounding noise: a conv bias ahead of a train-mode
+    BatchNorm, whose gradient is 0, or one whose shift BatchNorm all but
+    removes), and the cosine where the gradient is above the floor.
+    Returns the worst error, the lowest cosine (each with its parameter)
+    and ``{name: (max|g| / largest, error, cosine)}``."""
+    check(set(grads["cuda"]) == set(grads["cpu"]), f"{tag}: the same "
+          "parameters have gradients on the card and on the CPU")
+    gmax = max(float(g.abs().max()) for g in grads["cpu"].values())
+    leaf = {}
+    for nm, ref in grads["cpu"].items():
+        scale = float(ref.abs().max()) / gmax
+        err = float((grads["cuda"][nm] - ref).abs().max()) / (
+            max(scale, GRAD_TOL[0]) * gmax)
+        cos = float(torch.nn.functional.cosine_similarity(
+            grads["cuda"][nm].flatten(), ref.flatten(), 0)) \
+            if scale >= GRAD_TOL[0] else None
+        leaf[nm] = (scale, err, cos)
+    worst = max((e, nm) for nm, (_, e, _) in leaf.items())
+    low = min((c, nm) for nm, (_, _, c) in leaf.items() if c is not None)
+    return worst, low, leaf
+
+
 def phase6(card):
     """The train path: five full-width steps with the launch counts reset
     before and read after; one fp32 step on the card against the CPU; the
@@ -1147,25 +1207,7 @@ def phase6(card):
           f"CPU: card {json.dumps(gpu)}, CPU {json.dumps(cpu)}, relative "
           f"differences {json.dumps(rel)} (tolerance: loss and its parts "
           "1e-4, grad_norm 1e-3)", flush=True)
-    # per parameter: max|card - CPU| over its max|CPU gradient|, that max
-    # floored at GRAD_TOL[0] of the largest gradient (a gradient below it is
-    # rounding noise: a conv bias ahead of a train-mode BatchNorm, whose
-    # gradient is 0, or one whose shift BatchNorm all but removes), and the
-    # cosine where the gradient is above the floor
-    check(set(grads["cuda"]) == set(grads["cpu"]), "the same parameters "
-          "have gradients on the card and on the CPU")
-    gmax = max(float(g.abs().max()) for g in grads["cpu"].values())
-    leaf = {}
-    for n, ref in grads["cpu"].items():
-        scale = float(ref.abs().max()) / gmax
-        err = float((grads["cuda"][n] - ref).abs().max()) / (
-            max(scale, GRAD_TOL[0]) * gmax)
-        cos = float(torch.nn.functional.cosine_similarity(
-            grads["cuda"][n].flatten(), ref.flatten(), 0)) \
-            if scale >= GRAD_TOL[0] else None
-        leaf[n] = (scale, err, cos)
-    worst = max((e, n) for n, (_, e, _) in leaf.items())
-    low = min((c, n) for n, (_, _, c) in leaf.items() if c is not None)
+    worst, low, leaf = grad_errors("fp32 train step", grads)
     noise = sum(c is None for *_, c in leaf.values())
     print(f"[6] train kitti fp32 batch 2, gradients card against CPU, "
           f"{len(leaf)} parameters ({noise} below {GRAD_TOL[0]:g} of the "
@@ -1511,20 +1553,7 @@ def phase9_step(card):
     gpu, cpu = ({k: float(v) for k, v in res[d].items()}
                 for d in ("cuda", "cpu"))
     rel = {k: abs(gpu[k] - cpu[k]) / max(abs(cpu[k]), 1e-30) for k in cpu}
-    check(set(grads["cuda"]) == set(grads["cpu"]), "the same descriptor "
-          "parameters have gradients on the card and on the CPU")
-    gmax = max(float(g.abs().max()) for g in grads["cpu"].values())
-    leaf = {}
-    for nm, ref in grads["cpu"].items():
-        scale = float(ref.abs().max()) / gmax
-        err = float((grads["cuda"][nm] - ref).abs().max()) / (
-            max(scale, GRAD_TOL[0]) * gmax)
-        cos = float(torch.nn.functional.cosine_similarity(
-            grads["cuda"][nm].flatten(), ref.flatten(), 0)) \
-            if scale >= GRAD_TOL[0] else None
-        leaf[nm] = (scale, err, cos)
-    worst = max((e, nm) for nm, (_, e, _) in leaf.items())
-    low = min((c, nm) for nm, (_, _, c) in leaf.items() if c is not None)
+    worst, low, leaf = grad_errors("fp32 descriptor step", grads)
     print(f"[9] train descriptor kitti fp32 batch 2, one step on the card "
           f"and on the CPU (the CPU detector's keypoints on both): card "
           f"{json.dumps(gpu)}, CPU {json.dumps(cpu)}, relative differences "
@@ -1752,6 +1781,717 @@ def phase9_engine(card, tmp, root, ckpt, step_rate):
     return launches
 
 
+# ------------------------------------------------------- indoor, phase 10 --
+
+# the scenenn descriptor preset with an fp32 trunk and an fp32 frozen lite
+# detector, for the card-against-CPU checks (its balls are fp32 already)
+INDOOR_FP32 = {"detector.compute_dtype": "float32",
+               "descriptor.compute_dtype": "float32"}
+# train steps in each counted indoor run
+INDOOR_STEPS = 5
+# phase 10's synthetic indoor trees, in the layout of ``python -m
+# usip_tpu_torch.indoor gen`` cut in depth (the script's defaults: 48 train
+# frames, 2 scenes of 16 fragments): 16 SceneNN train frames of 15000
+# points (2 detector steps of batch 8 an epoch), 8 test frames, 1 scene of
+# 16 fragments of 20000 points (a ring of 16 views, so that non-adjacent
+# pairs overlap and enter the recall)
+INDOOR_SCENES, INDOOR_FRAGMENTS = 1, 16
+INDOOR_GEN = ["--frames", "16", "--scenes", str(INDOOR_SCENES),
+              "--fragments", str(INDOOR_FRAGMENTS)]
+
+
+@functools.lru_cache(maxsize=None)
+def _room(seed):
+    from usip_tpu_torch.data import synthetic
+    pts, _, _, (w, d, _) = synthetic._make_room(np.random.default_rng(seed))
+    return pts, w, d
+
+
+def room_frame(seed, n):
+    """One synthetic SceneNN-style frame of ``n`` points: a view cone of
+    one of 8 rooms of ``data/synthetic.py``, from a seeded viewpoint, in
+    its camera frame."""
+    from usip_tpu_torch.data import synthetic
+    pts, w, d = _room(seed % 8)
+    rng = np.random.default_rng(seed)
+    cam = np.array([w / 2, d / 2, 1.4]) + rng.uniform(-0.5, 0.5, 3) * [
+        1.0, 1.0, 0.2]
+    yaw = rng.uniform(0, 2 * np.pi)
+    pose = synthetic._camera_pose(
+        cam, cam + 3.0 * np.array([np.cos(yaw), np.sin(yaw), -0.15]))
+    mask = synthetic._view_points(pts, cam, pose[:3, 2], 6.0,
+                                  np.cos(np.deg2rad(60.0)))
+    (p,) = synthetic._fixed_count(rng, [pts[mask]], n)
+    return ((p - cam) @ pose[:3, :3]).astype(np.float32)
+
+
+def room_ball_scores(rng, b, dev):
+    """The indoor ball selection's scores (b, 512, 5000): room frames, 512
+    keypoints a frame (points moved by N(0, 0.05^2)), fp32 uniform
+    priorities, radius 0.75."""
+    pc = torch.from_numpy(np.stack([room_frame(100 + i, 5000)
+                                    for i in range(b)])).to(dev)
+    sel = torch.from_numpy(np.stack([rng.choice(5000, 512, replace=False)
+                                     for _ in range(b)])).to(dev)
+    kp = torch.gather(pc, 1, sel[..., None].expand(-1, -1, 3)) + \
+        torch.from_numpy(rng.normal(0, 0.05, (b, 512, 3)).astype(
+            np.float32)).to(dev)
+    prio = torch.from_numpy(rng.uniform(size=(b, 5000)).astype(
+        np.float32)).to(dev)
+    return pc, ball_scores(pc, kp.contiguous(), 0.75, prio)
+
+
+def chain_bound(b, m, k, cin, c, c2):
+    """K3's bound at (b, m, k, cin) -> (b, m, c2): its bf16 products over
+    the tensor cores' rate, or the input read, the output written and the
+    weights read once over the memory rate."""
+    rows = b * m * k
+    flops = 2 * rows * (cin * c + 2 * c * c + c * c2 + c2 * c2) \
+        + 2 * b * m * c * c2
+    nbytes = rows * cin * 4 + b * m * c2 * 4 + 2 * (
+        cin * c + 2 * c * c + 2 * c * c2 + c2 * c2)
+    return bound(nbytes, flops, BF16_FLOPS)
+
+
+# the indoor path's kernel shapes: label -> (kernel, its arguments). A
+# lite detector step launches FPS on (8, 2560) twice, min/argmin on (16,
+# 10240) x 512 once, the node kNN (16, 512, 512) k=32 once, scatter-max on
+# (16, 10240) at C=32 and 64; a descriptor step FPS on (8, 1250) twice,
+# min/argmin on (16, 5000) x 512, the node kNN at k=4, the ball selection
+# twice, scatter-max at (16, 5000); the fragment export (batch 4) each
+# once a batch and the chain at K=4 (K=32: a lite detector's own export)
+INDOOR_SHAPES = {
+    "fps (8, 2560) -> 512": ("fps", (8, 2560, 512)),
+    "fps (8, 1250) -> 512": ("fps", (8, 1250, 512)),
+    "min_argmin (16, 10240) x 512 bf16": ("min_argmin", (16, 10240, 512)),
+    "min_argmin (16, 5000) x 512 bf16": ("min_argmin", (16, 5000, 512)),
+    "fusion_chain (8, 512, 4, 67) -> 256": ("fusion_chain", 4),
+    "fusion_chain (8, 512, 32, 67) -> 256": ("fusion_chain", 32),
+    "smallest_k ball (8, 512, 5000) k=448": ("smallest_k", (5000, 448)),
+    "smallest_k node kNN (16, 512, 512) k=32": ("smallest_k", (512, 32)),
+    "smallest_k node kNN (16, 512, 512) k=4": ("smallest_k", (512, 4)),
+    "scatter_max (16, 10240) C=32+64": ("scatter_max", 10240),
+    "scatter_max (16, 5000) C=32+64": ("scatter_max", 5000),
+}
+
+
+def lite_chain(dev):
+    """The folded, packed fusion chain of the seeded lite detector (scenenn
+    descriptor role: c1 64, c2 256)."""
+    det = seeded_detector(get_config("scenenn", role="descriptor"), dev)
+    ws, bs = kernels.fusion_chain_params(det.knnlayer_1)
+    return ws, bs, kernels.prepare_chain(ws, bs)
+
+
+def indoor_kernel_checks(rng, dev):
+    """Phase 2 at the indoor shapes: K4 at the ball selection (8, 512,
+    5000) k=448 on room balls (some past k points, some fewer) and at the
+    lite detector's node kNN (16, 512, 512) k=32 and 4, K3 at the lite
+    widths, K5 at C=32 and 64, K1 and K2 at the indoor sizes. Returns the
+    worst error of each kernel."""
+    errs = {}
+    _, scores = room_ball_scores(rng, B_BENCH, dev)
+    inside = torch.isfinite(scores).sum(-1)
+    nodes = torch.from_numpy(np.stack([room_frame(200 + i, 5000)[
+        rng.choice(5000, 512, replace=False)] for i in range(16)])).to(dev)
+    worst = 0.0
+    nd = pairwise_sqdist(nodes, nodes)
+    for name, (sc, k) in {"indoor ball scores r=0.75": (scores, 448),
+                          "lite node knn distances": (nd, 32),
+                          "descriptor-role node knn distances": (
+                              nd, 4)}.items():
+        vals, idx = kernels.smallest_k(sc, k)
+        rvals, ridx = kernels.smallest_k_plain(sc, k)
+        sync()
+        mism = int((idx != ridx).sum())
+        fin = torch.isfinite(rvals)
+        print(f"[2] K4 smallest_k {name}: {tuple(sc.shape)} k={k}, {mism} "
+              f"indices differ, {float((~fin).float().mean()):.4f} of picks "
+              "+inf" + (f"; balls holding more than k points "
+                        f"{float((inside > k).float().mean()):.4f}, fewer "
+                        f"{float((inside < k).float().mean()):.4f}, in-ball "
+                        f"counts {int(inside.min())}-{int(inside.max())}"
+                        if k == 448 else ""), flush=True)
+        check(torch.equal(idx, ridx) and torch.equal(vals, rvals),
+              f"smallest_k {name}: values and indices identical")
+        if k == 448:
+            check(bool((inside > k).any() and (inside < k).any()),
+                  "some room balls hold more than 448 points and some fewer")
+        worst = max(worst, float((vals[fin] - rvals[fin]).abs().max()))
+    errs["smallest_k"] = worst
+
+    ws, bs, chain = lite_chain(dev)
+    worst = 0.0
+    for k in (4, 32):
+        grouped = torch.from_numpy(np.concatenate(
+            [rng.normal(0, 0.5, size=(B_BENCH, 512, k, 3)),
+             np.abs(rng.normal(size=(B_BENCH, 512, k, 64)))], -1).astype(
+                 np.float32)).to(dev)
+        got = kernels.fusion_chain(grouped, chain)
+        ref = kernels.fusion_chain_plain(grouped, ws, bs)
+        sync()
+        scale, err = float(ref.abs().max()), (got - ref).abs()
+        print(f"[2] K3 fusion_chain lite: (8, 512, {k}, 67) -> (8, 512, "
+              f"256), max|plain| {scale}, max |diff| {float(err.max())}, "
+              f"median |diff| {float(err.median())}", flush=True)
+        check(scale > 0 and float(err.max()) <= 1e-2 * scale
+              and float(err.median()) <= 1e-3 * scale,
+              f"fusion_chain lite K={k} within 1e-2 (max) and 1e-3 (median) "
+              "of max|plain|")
+        worst = max(worst, float(err.max()))
+    errs["fusion_chain"] = worst
+
+    worst = 0.0
+    for n in (10240, 5000):
+        ids = torch.from_numpy(rng.integers(0, 500, size=(16, n))).to(dev)
+        for c in (32, 64):
+            f = torch.from_numpy(rng.normal(size=(16, n, c)).astype(
+                np.float32)).to(dev)
+            got = kernels.scatter_max(f, ids, 512)
+            ref = kernels.scatter_max_plain(f, ids, 512)
+            sync()
+            check(torch.equal(got, ref), f"scatter_max (16, {n}) C={c} "
+                  "equals scatter_reduce amax")
+            worst = max(worst, float((got - ref).abs().max()))
+    print(f"[2] K5 scatter_max lite: (16, 10240) and (16, 5000), C=32 and "
+          f"64 onto 512 nodes (the last 12 empty): identical", flush=True)
+    errs["scatter_max"] = worst
+
+    worst = 0.0
+    for s_ in (2560, 1250):
+        pts = torch.from_numpy(np.stack([room_frame(300 + i, s_)
+                                         for i in range(8)])).to(dev)
+        first = torch.from_numpy(rng.integers(0, s_, 8).astype(
+            np.int32)).to(dev)
+        got, ref = kernels.fps(pts, first, 512), kernels.fps_plain(
+            pts, first, 512)
+        sync()
+        check(torch.equal(got, ref), f"fps room frames (8, {s_}) -> 512 "
+              "picks identical")
+        worst = max(worst, float((got - ref).abs().max()))
+    errs["fps"] = worst
+    worst = 0.0
+    for n in (10240, 5000):
+        pc = torch.from_numpy(np.stack([room_frame(400 + i, n)
+                                        for i in range(16)])).to(dev)
+        cand = pc[:, :512].contiguous()
+        for bf16 in (False, True):
+            mins, idx = kernels.min_argmin(pc, cand, bf16)
+            rmins, ridx = kernels.min_argmin_plain(pc, cand, bf16)
+            sync()
+            check(torch.equal(idx, ridx) and torch.equal(mins, rmins),
+                  f"min_argmin room frames (16, {n}) x 512 round_bf16="
+                  f"{bf16} identical")
+            worst = max(worst, float((mins - rmins).abs().max()))
+    errs["min_argmin"] = worst
+    print("[2] K1 fps room frames (8, 2560) and (8, 1250) -> 512, K2 "
+          "min_argmin room frames (16, 10240) and (16, 5000) x 512 in both "
+          "modes: identical", flush=True)
+    return errs
+
+
+def indoor_kernel_times(card, rng):
+    """Each kernel at the indoor path's shapes: CUDA-graph time, the plain
+    version's, the library call's (``torch.topk`` for K4,
+    ``scatter_reduce('amax')`` for K5), back-to-back events, the bound."""
+    dev = torch.device("cuda")
+    out = {}
+    for label, (name, arg) in INDOOR_SHAPES.items():
+        lib = None
+        if name == "fps":
+            b, s_, k = arg
+            pts = torch.from_numpy(np.stack([room_frame(500 + i, s_)
+                                             for i in range(b)])).to(dev)
+            first = torch.zeros(b, dtype=torch.int32, device=dev)
+            run = lambda p=pts, f=first, k=k: kernels.fps(p, f, k)  # noqa: E731
+            plain = lambda p=pts, f=first, k=k: kernels.fps_plain(p, f, k)  # noqa: E731
+            bnd = bound(b * s_ * 12 + b * 4 + b * k * 4,
+                        8 * b * (k - 1) * s_, FP32_FLOPS)
+        elif name == "min_argmin":
+            b, n, m = arg
+            pc = torch.from_numpy(np.stack([room_frame(600 + i, n)
+                                            for i in range(b)])).to(dev)
+            cand = pc[:, :m].contiguous()
+            run = lambda p=pc, c=cand: kernels.min_argmin(p, c, True)  # noqa: E731
+            plain = lambda p=pc, c=cand: kernels.min_argmin_plain(  # noqa: E731
+                p, c, True)
+            bnd = min_argmin_bound(b, n, m)
+        elif name == "fusion_chain":
+            ws, bs, chain = lite_chain(dev)
+            g = torch.from_numpy(np.abs(rng.normal(
+                size=(B_BENCH, 512, arg, 67))).astype(np.float32)).to(dev)
+            run = lambda g=g, c=chain: kernels.fusion_chain(g, c)  # noqa: E731
+            plain = lambda g=g, w=ws, b_=bs: kernels.fusion_chain_plain(  # noqa: E731
+                g, w, b_)
+            bnd = chain_bound(B_BENCH, 512, arg, 67, 128, 256)
+        elif name == "smallest_k":
+            n, k = arg
+            if n == 5000:
+                _, sc = room_ball_scores(rng, B_BENCH, dev)
+                rows = B_BENCH * 512
+            else:
+                nodes = torch.from_numpy(np.stack([room_frame(700 + i, 5000)[
+                    :512] for i in range(16)])).to(dev)
+                sc = pairwise_sqdist(nodes, nodes)
+                rows = 16 * 512
+            run = lambda s=sc, k=k: kernels.smallest_k(s, k)  # noqa: E731
+            plain = lambda s=sc, k=k: kernels.smallest_k_plain(s, k)  # noqa: E731
+            lib = graph_ms(lambda s=sc, k=k: torch.topk(
+                s, k, dim=-1, largest=False, sorted=True), 20)
+            bnd = bound(rows * n * 4 + rows * k * 8, 0, FP32_FLOPS)
+        else:
+            n = arg
+            ids = torch.from_numpy(rng.integers(0, 512, size=(16, n))).to(dev)
+            fs = [torch.from_numpy(rng.normal(size=(16, n, c)).astype(
+                np.float32)).to(dev) for c in (32, 64)]
+            run = lambda fs=fs, i=ids: [kernels.scatter_max(f, i, 512)  # noqa: E731
+                                        for f in fs]
+            plain = lambda fs=fs, i=ids: [  # noqa: E731
+                kernels.scatter_max_plain(f, i, 512) for f in fs]
+            lib = graph_ms(plain, 20)
+            bnd = bound(sum(16 * n * c * 4 + 16 * n * 8 + 16 * 512 * c * 4
+                            for c in (32, 64)), 0, FP32_FLOPS)
+        out[label] = {"ms": graph_ms(run, 20), "plain_ms": time_ms(plain, 3),
+                      "library_ms": lib, "events_ms": time_ms(run, 20),
+                      "bound_ms": bnd[0], "bound_by": bnd[1]}
+        r = out[label]
+        print(f"[10] {card} | {label}: kernel {r['ms']:.4f} ms (back-to-back "
+              f"events {r['events_ms']:.4f} ms), plain {r['plain_ms']:.4f} "
+              f"ms, library {'none' if lib is None else f'{lib:.4f} ms'}, "
+              f"bound {bnd[0]:.4f} ms by {bnd[1]}", flush=True)
+    return out
+
+
+def lite_detector(cfg, device):
+    """The seeded lite detector, its head at the training init's scale
+    (``seeded_detector(head_init=True)``) and the sigma channel's bias at
+    -1.5: sigmas near softplus(-1.5) = 0.20, below the indoor descriptor
+    loss's sigma_max of 0.5 (above it a keypoint's weight is 0), as a
+    trained indoor detector's are."""
+    det = seeded_detector(cfg, device, head_init=True)
+    with torch.no_grad():
+        det.mlp3.conv.bias[3] = -1.5
+    return det
+
+
+def indoor_pairs(root, b, cfg, wire):
+    """``b`` anchor/positive pairs of the synthetic SceneNN tree through
+    ``SceneNNDescriptorDataset`` (the anchor ICP-aligned onto its
+    positive), packed in ``wire``; negatives a shifted permutation."""
+    ds = SceneNNDescriptorDataset(cfg.data, "train",
+                                  sn_len=cfg.descriptor.surface_normal_len)
+    items = [ds[i] for i in range(b)]
+    st = {k: np.stack([it[k] for it in items]) for k in items[0]}
+    packed = pack_pair_batch(st["anc_pc"], st["anc_sn"], st["pos_pc"],
+                             st["pos_sn"], (np.arange(b) + 1) % b, wire=wire)
+    return packed
+
+
+def phase10_numerics(card, root):
+    """The scenenn descriptor preset at full width on the card: the fp32
+    forward and one fp32 CGF step against the CPU; five bf16 steps at batch
+    8 with the launch counts; the step's time, split and peak memory; five
+    lite detector steps (the detector role) with their launches and time."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(10)
+    over = {"data.dataroot": os.path.join(root, "scenenn")}
+    cfg32 = get_config("scenenn", role="descriptor", **over, **INDOOR_FP32)
+    k = cfg32.descriptor.ball_nsamples
+    # the fp32 forward, B=2: the lite detector on both devices (nodes
+    # identical, keypoints within compare_slice's tolerance), then the
+    # global-context descriptor on the CPU detector's keypoints on both
+    # (the same balls), seeded weights and priorities
+    x = torch.from_numpy(indoor_pairs(root, 2, cfg32, "float32").x)
+    pc, sn = x[:, 0, :, :3].contiguous(), x[:, 0, :, 3:].contiguous()
+    n = pc.shape[1]
+    sub = n // cfg32.data.fps_subsample_ratio
+    subset = torch.from_numpy(np.stack([rng.permutation(n)[:sub]
+                                        for _ in range(2)]))
+    first = torch.from_numpy(rng.integers(0, sub, 2).astype(np.int32))
+    prio = torch.from_numpy(rng.uniform(size=(2, n)).astype(np.float32))
+    outs = {}
+    for device in ("cuda", "cpu"):
+        det = lite_detector(cfg32, device)
+        with torch.inference_mode():
+            node = sample_nodes(pc.to(device), cfg32.data.node_num,
+                                cfg32.data.fps_subsample_ratio,
+                                subset_idx=subset.to(device),
+                                first=first.to(device))
+            _, kp, sig = det(pc.to(device), sn.to(device), node)
+        outs[device] = [t.cpu() for t in (node, kp, sig)]
+    check(torch.equal(outs["cuda"][0], outs["cpu"][0]), "indoor nodes "
+          "identical on card and CPU")
+    kp_err = float((outs["cuda"][1] - outs["cpu"][1]).abs().max())
+    kp_cpu = outs["cpu"][1]
+    descs = {}
+    for device in ("cuda", "cpu"):
+        desc = seeded_descriptor(cfg32, device).eval()
+        with torch.inference_mode():
+            d, feats = desc(pc.to(device), sn.to(device), kp_cpu.to(device),
+                            prio.to(device))
+        descs[device] = (d.cpu(), feats.cpu())
+    (gd, gf), (cd, cf) = descs["cuda"], descs["cpu"]
+    inside = (pairwise_sqdist(kp_cpu, pc) <= 0.75 ** 2).sum(-1)
+    err = (gd - cd).abs()
+    print(f"[10] scenenn descriptor fp32 (2, {n}) x {kp_cpu.shape[1]} "
+          f"keypoints, balls of {k} in 0.75 (past {k} points "
+          f"{float((inside > k).float().mean()):.4f}, fewer "
+          f"{float((inside < k).float().mean()):.4f}): lite detector nodes "
+          f"identical, keypoints max |diff| {kp_err}; ball features "
+          f"identical: {torch.equal(gf, cf)}; descriptors max |diff| "
+          f"{float(err.max())}, median {float(err.median())}", flush=True)
+    check(kp_err <= 2e-2 * float(kp_cpu.abs().max()), "indoor keypoints "
+          "within 2e-2 of max|keypoint|")
+    check(torch.equal(gf, cf), "indoor ball features identical on card and "
+          "CPU")
+    check(bool(torch.isfinite(gd).all()) and float(err.max()) <= 1e-4
+          and float(err.median()) <= 1e-6, "indoor descriptor fp32 forward "
+          "on the card within 1e-4 (max) and 1e-6 (median) of the CPU's")
+
+    # one fp32 CGF step, batch 2, on the card and on the CPU from the same
+    # weights, pairs and draws, the CPU detector's keypoints on both,
+    # deterministic algorithms (phase 9's check and tolerances)
+    batch2 = indoor_pairs(root, 2, cfg32, "float32")
+    cpu_det = lite_detector(cfg32, "cpu").requires_grad_(False)
+    res, grads = {}, {}
+    for device in ("cuda", "cpu"):
+        st = TrainState.create(seeded_descriptor(cfg32, device),
+                               cfg32.train.lr)
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            res[device] = make_descriptor_train_step(cfg32, True)(
+                st, KeypointsFrom(cpu_det), PackedPairBatch(
+                    torch.from_numpy(batch2.x).to(device),
+                    torch.from_numpy(batch2.neg_idx).long().to(device)), 0,
+                generator=torch.Generator().manual_seed(SEED + 1))
+        finally:
+            torch.use_deterministic_algorithms(False)
+        grads[device] = {nm: p.grad.detach().double().cpu() for nm, p in
+                         st.model.named_parameters() if p.grad is not None}
+    gpu, cpu = ({kk: float(v) for kk, v in res[d].items()}
+                for d in ("cuda", "cpu"))
+    rel = {kk: abs(gpu[kk] - cpu[kk]) / max(abs(cpu[kk]), 1e-30)
+           for kk in cpu}
+    check(cpu["loss"] > 0, "the indoor fp32 step has a loss to compare")
+    worst, low, leaf = grad_errors("fp32 indoor step", grads)
+    print(f"[10] train descriptor scenenn fp32 batch 2 (CGF), one step on "
+          f"the card and on the CPU: card {json.dumps(gpu)}, CPU "
+          f"{json.dumps(cpu)}, relative differences {json.dumps(rel)}; "
+          f"gradients of {len(leaf)} parameters: worst {worst[0]:.3e} "
+          f"({worst[1]}), lowest cosine {low[0]:.9f} ({low[1]}) (tolerance "
+          f"{GRAD_TOL[1]:g}, cosine >= {GRAD_TOL[2]})", flush=True)
+    for kk, r in rel.items():
+        check(r <= (1e-3 if kk == "grad_norm" else 1e-4), f"fp32 indoor "
+              f"step {kk} on the card within tolerance of the CPU")
+    check(worst[0] <= GRAD_TOL[1] and low[0] >= GRAD_TOL[2], "fp32 indoor "
+          "step gradients on the card within tolerance of the CPU, "
+          "parameter by parameter")
+
+    # five bf16 steps at batch 8 with the counts; then time, split, memory
+    cfg = get_config("scenenn", role="descriptor", **over)
+    b = cfg.train.batch_size
+    packed = indoor_pairs(root, b, cfg, cfg.data.wire_dtype)
+    batch = PackedPairBatch(torch.from_numpy(packed.x).to(dev),
+                            torch.from_numpy(packed.neg_idx).long().to(dev))
+    det = lite_detector(cfg, dev).requires_grad_(False)
+    state = TrainState.create(seeded_descriptor(cfg, dev), cfg.train.lr)
+    step = make_descriptor_train_step(cfg, True)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    history = [step(state, det, batch, 0, generator=gen)
+               for _ in range(INDOOR_STEPS)]
+    sync()
+    launches = {"indoor_descriptor": dict(kernels.LAUNCHES)}
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    losses = [float(h["loss"]) for h in history]
+    norms = [float(h["grad_norm"]) for h in history]
+    print(f"[10] train descriptor scenenn bf16 batch {b} ({b} pairs of "
+          f"{cfg.data.input_pc_num} points, {cfg.data.node_num} keypoints, "
+          f"balls of {k} in {cfg.descriptor.ball_radius}, CGF), "
+          f"{INDOOR_STEPS} steps: losses {losses}, grad norms {norms}, "
+          f"match_acc {[round(float(h['match_acc']), 4) for h in history]}; "
+          f"launches {launches['indoor_descriptor']}; peak memory "
+          f"{peak:.0f} MiB", flush=True)
+    check(all(np.isfinite(losses + norms)), "indoor descriptor losses and "
+          "gradient norms finite")
+    for name in PATH_KERNELS["indoor_descriptor"]:
+        check(launches["indoor_descriptor"][name] > 0, f"kernel {name} "
+              "launched on the indoor descriptor path")
+    iters = 5
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        step(state, det, batch, 0, generator=gen)
+    sync()
+    step_ms = (time.perf_counter() - t0) / iters * 1e3
+    split = event_split(
+        lambda mark: step(state, det, batch, 0, generator=gen, mark=mark),
+        ("prep (node sampling)", "frozen detector", "ball query",
+         "descriptor forward", "losses", "backward", "optimizer"), iters)
+    busy, ops, _ = profile_busy(lambda: step(state, det, batch, 0,
+                                             generator=gen), 2)
+    desc_rate = 2 * b * 1e3 / step_ms
+    print(f"[10] {card} | train step descriptor scenenn bf16 batch {b}: "
+          f"{step_ms:.3f} ms a step (mean of {iters}, pipelined), "
+          f"{desc_rate:.2f} clouds/s; split (ms, CUDA events between the "
+          "parts): " + json.dumps({kk: round(v, 4) for kk, v in split.items()})
+          + f"; peak memory {peak:.0f} MiB; torch.profiler over 2 steps: "
+          f"kernels {busy:.3f} ms a step ({busy / step_ms:.4f} of the "
+          "unprofiled step); by operator [name, ms a step, calls a step]: "
+          + json.dumps([[kk, round(t, 4), c] for t, c, kk in ops[:12]]),
+          flush=True)
+    del state, batch, history
+    torch.cuda.empty_cache()
+
+    # the lite detector's train step (the scenenn detector role, --lite):
+    # batch 8 parents of 12288 points, two 10240-point copies each
+    dcfg = get_config("scenenn", **over)
+    dcfg = dcfg.with_overrides(**{"detector.c1": 64, "detector.c2": 256})
+    parents = torch.from_numpy(np.stack([room_frame(800 + i, dcfg.data.
+                                                    parent_pc_num)
+                                         for i in range(b)])).to(dev)
+    sn_p = torch.from_numpy(rng.normal(size=parents.shape[:2] + (4,)).astype(
+        np.float32)).to(dev)
+    pb = ParentBatch(parents, sn_p)
+    dstate = TrainState.create(seeded_detector(dcfg, dev, head_init=True),
+                               dcfg.train.lr)
+    dstep = make_detector_train_step(dcfg)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    hist = [dstep(dstate, pb, 0, generator=gen) for _ in range(INDOOR_STEPS)]
+    sync()
+    launches["indoor_detector"] = dict(kernels.LAUNCHES)
+    check(all(np.isfinite([float(h["loss"]) for h in hist])),
+          "lite detector losses finite")
+    for name in PATH_KERNELS["indoor_detector"]:
+        check(launches["indoor_detector"][name] > 0, f"kernel {name} "
+              "launched on the lite detector's train path")
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        dstep(dstate, pb, 0, generator=gen)
+    sync()
+    dstep_ms = (time.perf_counter() - t0) / iters * 1e3
+    dpeak = torch.cuda.max_memory_allocated() / 2**20
+    dsplit = event_split(
+        lambda mark: dstep(dstate, pb, 0, generator=gen, mark=mark),
+        ("prep", "forward", "losses", "backward", "optimizer"), iters)
+    print(f"[10] {card} | train step lite detector scenenn bf16 batch {b} "
+          f"({2 * b} clouds of {dcfg.data.input_pc_num} points, node kNN "
+          f"{dcfg.detector.node_knn_k}): {dstep_ms:.3f} ms a step, "
+          f"{2 * b * 1e3 / dstep_ms:.2f} clouds/s, peak memory {dpeak:.0f} "
+          "MiB; split (ms): "
+          + json.dumps({kk: round(v, 4) for kk, v in dsplit.items()})
+          + f"; losses {[round(float(h['loss']), 4) for h in hist]}; "
+          f"launches {launches['indoor_detector']}", flush=True)
+    return launches, desc_rate
+
+
+def phase10_entry(card, root, desc_rate):
+    """The indoor pipeline through its entry points on the synthetic trees:
+    train-detector --lite and train-descriptor (and its resume) as
+    subprocesses, the protocol's eval in process with the counts of the
+    fragment export, eval-indoor --estimator fgr."""
+    launches = {}
+    ckpt_dir = os.path.join(root, "ckpt")
+    sroot = os.path.join(root, "scenenn")
+    common = ["--dataroot", sroot, "--name", "indoor", "--checkpoints-dir",
+              ckpt_dir, "--device", "cuda", "--override", "train.log_every=5"]
+    _, t_det = run_module("train-detector --lite", [
+        "usip_tpu_torch.cli", "train-detector", "--dataset", "scenenn",
+        "--lite", "--epochs", "2"] + common)
+    det_dir = os.path.join(ckpt_dir, "indoor")
+    with open(os.path.join(det_dir, "config.json")) as f:
+        saved = json.load(f)
+    check((saved["data"]["input_pc_num"], saved["detector"]["c1"],
+           saved["detector"]["c2"], saved["detector"]["node_knn_k"])
+          == (10240, 64, 256, 32), "train-detector --lite ran the scenenn "
+          "detector role at the lite widths")
+    drecs = read_jsonl(os.path.join(det_dir, "indoor_metrics.jsonl"))
+    check(all(np.isfinite([r["loss"] for r in drecs if "loss" in r])),
+          "every lite detector loss finite")
+    base = ["usip_tpu_torch.cli", "train-descriptor", "--dataset", "scenenn",
+            "--detector-checkpoint", find_checkpoint(det_dir)] + common
+    _, t_desc = run_module("train-descriptor scenenn", base + ["--epochs",
+                                                              "2"])
+    out_dir = os.path.join(ckpt_dir, "indoor_descriptor")
+    first = read_jsonl(os.path.join(out_dir, "indoor_desc_metrics.jsonl"))
+    out, t_resume = run_module("train-descriptor scenenn --resume auto",
+                               base + ["--epochs", "3", "--resume", "auto"])
+    check("at epoch 2" in out, "the resumed indoor descriptor run starts at "
+          "epoch 2")
+    recs = read_jsonl(os.path.join(out_dir, "indoor_desc_metrics.jsonl"))
+    check({r["epoch"] for r in recs[len(first):]} == {2}, "the resumed "
+          "indoor descriptor run trains epoch 2 only")
+    check(all(np.isfinite([r["loss"] for r in recs if "loss" in r])),
+          "every indoor descriptor loss finite")
+    epochs = [(r["epoch"], round(r["loss"], 4), round(r["match_acc"], 4))
+              for r in recs if r["prefix"] == "desc_epoch"]
+    tests = [(r["epoch"], round(r["loss"], 4), round(r["match_acc"], 4))
+             for r in recs if r["prefix"] == "desc_test"]
+    # the descriptor engine in process: a warm-up epoch, a timed one with
+    # the launch counts, a profiled one (idle share)
+    cfg = get_config("scenenn", role="descriptor",
+                     **{"data.dataroot": sroot, "train.log_every": 100})
+    ds = SceneNNDescriptorDataset(cfg.data, "train",
+                                  sn_len=cfg.descriptor.surface_normal_len)
+    loader = BatchLoader(ds, cfg.train.batch_size, shuffle=True,
+                         num_workers=cfg.data.num_workers)
+    engine = DescriptorEngine(cfg, find_checkpoint(det_dir),
+                              train_loader=loader, device="cuda",
+                              out_dir=os.path.join(root, "desc_engine"))
+    engine.train_epoch(0)
+    sync()
+    steps = len(loader)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    avg = engine.train_epoch(1)
+    sync()
+    wall = time.perf_counter() - t0
+    launches["indoor_engine"] = dict(kernels.LAUNCHES)
+    check(all(np.isfinite(list(avg.values()))), "indoor descriptor engine "
+          "epoch metrics finite")
+    for name in PATH_KERNELS["indoor_engine"]:
+        check(launches["indoor_engine"][name] > 0, f"kernel {name} launched "
+              "on the indoor descriptor engine path")
+    busy, _, pwall = profile_busy(lambda: engine.train_epoch(2), 1)
+    print(f"[10] {card} | descriptor engine scenenn bf16 batch "
+          f"{cfg.train.batch_size}, one epoch of {steps} steps ({len(ds)} "
+          f"pairs) in process: {2 * cfg.train.batch_size * steps / wall:.2f}"
+          f" clouds/s ({wall / steps * 1e3:.3f} ms a step); the bare step "
+          f"{desc_rate:.2f} clouds/s; device busy {busy:.3f} ms over the "
+          f"profiled epoch ({pwall * 1e3:.3f} ms profiled), idle share "
+          f"{1.0 - busy / (wall * 1e3):.4f} of the unprofiled epoch's "
+          f"{wall * 1e3:.3f} ms; launches {launches['indoor_engine']}",
+          flush=True)
+    del engine
+
+    print(f"[10] train-detector --dataset scenenn --lite --device cuda: 2 "
+          f"epochs in {t_det:.1f} s; train-descriptor --dataset scenenn: 2 "
+          f"epochs in {t_desc:.1f} s, --resume auto to epoch 3 in "
+          f"{t_resume:.1f} s (process start-up included); [epoch, train "
+          f"loss, match_acc] {epochs}, [epoch, test loss, match_acc] "
+          f"{tests}; the bare descriptor step {desc_rate:.2f} clouds/s",
+          flush=True)
+
+    # the protocol's eval in process: both arms' fragment exports counted
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        res = indoor_protocol.main(["eval", "--root", root, "--device",
+                                    "cuda"])
+    sync()
+    t_eval = time.perf_counter() - t0
+    launches["fragment_export"] = dict(kernels.LAUNCHES)
+    for name in PATH_KERNELS["fragment_export"]:
+        check(launches["fragment_export"][name] > 0, f"kernel {name} "
+              "launched on the fragment export path")
+    n_frag = INDOOR_SCENES * INDOOR_FRAGMENTS
+    for arm in ("trained_desc", "untrained_desc"):
+        check(res[arm]["frames"] == n_frag and all(
+            0.0 <= res[arm][kk] <= 1.0 for kk in ("mean_recall",
+                                                  "mean_precision")),
+              f"indoor eval {arm}: {n_frag} fragments, recall and "
+              "precision")
+    feats = os.path.join(root, "features_trained")
+    for scene in res["scenes"]:
+        for i in range(INDOOR_FRAGMENTS):
+            rows = np.fromfile(os.path.join(feats, scene, f"{i}.bin"),
+                               np.float32).reshape(-1, 131)
+            check(rows.shape[0] == 512 and np.isfinite(rows).all()
+                  and np.allclose(np.linalg.norm(rows[:, 3:], axis=1), 1.0,
+                                  atol=1e-3),
+                  f"{scene}/{i}.bin: 512 keypoints, 512 unit descriptors")
+    arms = {arm: {kk: res[arm][kk] for kk in ("mean_recall",
+                                             "mean_precision")}
+            for arm in ("trained_desc", "untrained_desc")}
+    per = {arm: {s: [res[arm]["per_scene"][s][kk] for kk in (
+        "recall", "precision", "good", "gt_num", "rs_num")]
+        for s in res["scenes"]} for arm in arms}
+    print(f"[10] {card} | python -m usip_tpu_torch.indoor eval --device "
+          f"cuda ({len(res['scenes'])} scene(s) of {INDOOR_FRAGMENTS} "
+          f"fragments, 512 "
+          f"keypoints, RANSAC 1000, both arms) in {t_eval:.1f} s: "
+          f"{json.dumps(arms)}; per scene [recall, precision, good, gt, "
+          f"proposed] {json.dumps(per)}; launches (two exports of {n_frag} "
+          f"fragments, batch 4) {launches['fragment_export']}", flush=True)
+
+    m3d = os.path.join(root, "match3d")
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main(["eval-indoor", "--gt-root", os.path.join(m3d, "gt"),
+                  "--pc-root", os.path.join(m3d, "fragments"),
+                  "--result-root", feats, "--scenes",
+                  ",".join(res["scenes"]), "--out",
+                  os.path.join(root, "logs_fgr"), "--estimator", "fgr",
+                  "--overlapped-only"])
+    lines = [json.loads(x) for x in buf.getvalue().strip().splitlines()]
+    check(len(lines) == len(res["scenes"]) + 1
+          and 0.0 <= lines[-1]["mean_recall"] <= 1.0,
+          f"eval-indoor --estimator fgr lines {lines}")
+    print(f"[10] eval-indoor --estimator fgr --overlapped-only (trained "
+          f"features) in {time.perf_counter() - t0:.1f} s: "
+          f"{json.dumps(lines[-1])}", flush=True)
+    return launches
+
+
+def phase10_modelnet(card, tmp):
+    """A rotated-ModelNet tree (``build_modelnet_rotated`` over synthetic
+    shapes), ``export-keypoints`` of its original and rotated halves at the
+    modelnet preset on the card, and ``eval-repeatability``."""
+    from usip_tpu_torch.data.synthetic import SyntheticDataset
+    cfg = get_config("modelnet")
+    shapes = SyntheticDataset(size=8, input_pc_num=cfg.data.input_pc_num,
+                              surface_normal_len=3, seed=3)
+    src = []
+    for i in range(8):
+        item = shapes[i]
+        path = os.path.join(tmp, f"shape{i}.npy")
+        np.save(path, np.concatenate([item["src_pc"], item["src_sn"]], 1))
+        src.append(path)
+    root = os.path.join(tmp, "modelnet_rotated")
+    check(build_modelnet_rotated(src, root, seed=0) == 8, "8 rotated shapes")
+    det = os.path.join(tmp, "modelnet_det.pt")
+    save_checkpoint(det, init_detector_state(cfg, 0))
+    for sub in ("original", "rotated"):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            cli.main(["export-keypoints", "--dataset", "modelnet",
+                      "--dataroot", root, "--checkpoint", det, "--out",
+                      os.path.join(tmp, f"kp_{sub}"), "--subset", sub,
+                      "--device", "cuda"])
+        stats = json.loads(buf.getvalue().strip().splitlines()[-1])
+        check(stats["frames"] == 8, f"export-keypoints --subset {sub}")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main(["eval-repeatability", "--anc-dir",
+                  os.path.join(tmp, "kp_original"), "--pos-dir",
+                  os.path.join(tmp, "kp_rotated"), "--gt-dir",
+                  os.path.join(root, "rotated")])
+    rep = json.loads(buf.getvalue().strip().splitlines()[-1])
+    check(rep["pairs"] == 8 and 0.0 <= rep["repeatability"] <= 1.0,
+          f"rotated modelnet repeatability {rep}")
+    print(f"[10] {card} | rotated ModelNet (8 synthetic shapes of "
+          f"{cfg.data.input_pc_num} points, a seeded modelnet detector): "
+          f"export-keypoints --subset original and rotated, "
+          f"eval-repeatability {json.dumps(rep)}", flush=True)
+
+
+def phase10(card, tmp):
+    """The indoor pipeline at the scenenn preset's full width."""
+    root = os.path.join(tmp, "indoor")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        indoor_protocol.main(["gen", "--root", root] + INDOOR_GEN)
+    print(f"[10] python -m usip_tpu_torch.indoor gen {' '.join(INDOOR_GEN)}"
+          f": {time.perf_counter() - t0:.1f} s", flush=True)
+    times = indoor_kernel_times(card, np.random.default_rng(11))
+    launches, desc_rate = phase10_numerics(card, root)
+    launches.update(phase10_entry(card, root, desc_rate))
+    phase10_modelnet(card, tmp)
+    return launches, times
+
+
 def main():
     walls = {}
     t0 = time.perf_counter()
@@ -1787,6 +2527,9 @@ def main():
         lap("9 descriptor step")
         launches.update(phase9_engine(card, tmp, root, ckpt, desc_rate))
         lap("9 descriptor entry points, quality gate")
+        indoor_launches, indoor_times = phase10(card, tmp)
+        launches.update(indoor_launches)
+        lap("10 indoor pipeline")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"[t] wall time by phase (s): {json.dumps(walls)}", flush=True)
@@ -1829,7 +2572,15 @@ def main():
              "launches_descriptor_engine_epoch":
                  launches["descriptor_engine"][name],
              "launches_descriptor_export":
-                 launches["descriptor_export"][name]}
+                 launches["descriptor_export"][name],
+             "launches_per_indoor_detector_step": (
+                 launches["indoor_detector"][name] / INDOOR_STEPS),
+             "launches_per_indoor_descriptor_step": (
+                 launches["indoor_descriptor"][name] / INDOOR_STEPS),
+             "launches_indoor_engine_epoch": launches["indoor_engine"][name],
+             "launches_fragment_export": launches["fragment_export"][name],
+             "indoor_shapes": {label: t for label, t in indoor_times.items()
+                               if INDOOR_SHAPES[label][0] == name}}
             for name, (src, rep) in meta.items()]
     # K2 at each of its four shapes (the entry's own time is the serve one)
     line[1]["shapes"] = k2

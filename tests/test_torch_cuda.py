@@ -11,8 +11,11 @@ sizes, small widths, K that does not divide the 64-row tile, rows that are
 not a multiple of 32, channel counts that are not a multiple of the scatter
 tile; min/argmin at its four shapes and on ties, -0.0, negative and
 subnormal distances; smallest-k on the descriptor's random-priority ball
-scores, fp32 and bf16; the train step's nearest-neighbour and scatter-max
-gradients against the CPU.
+scores, fp32 and bf16, on the indoor descriptor's (8, 512, 5000) k=448
+balls over room frames, at k = 256, 448 and 512 on long rows and at the
+lite detector's node kNN (16, 512, 512) k=32; the fusion chain and
+scatter-max at the lite widths; the train step's nearest-neighbour and
+scatter-max gradients against the CPU.
 """
 
 import numpy as np
@@ -180,7 +183,9 @@ def test_min_argmin_kernel_adversarial(dev, kind, n, m, round_bf16):
                                            (9, 64, 16, 32, 32),
                                            (1000, 16, 67, 128, 256),
                                            (3, 1, 40, 64, 128),
-                                           (513, 32, 131, 256, 512)])
+                                           (513, 32, 131, 256, 512),
+                                           (4096, 4, 67, 128, 256),
+                                           (4096, 32, 67, 128, 256)])
 def test_fusion_chain_kernel_matches_plain(dev, bm, k, cin, c, c2):
     """Within 1e-2 * max|plain| (max) and 1e-3 * max|plain| (median): bf16
     operands, fp32 sums in another order. The kernel takes the weights
@@ -307,6 +312,80 @@ def test_smallest_k_kernel_random_priorities(dev, bf16, inside):
         assert torch.equal(g.cpu(), r)
 
 
+def _room_frame(seed, n=5000):
+    """One synthetic SceneNN-style frame of ``n`` points (a view cone of a
+    room of ``data/synthetic.py``), in its camera frame."""
+    from usip_tpu_torch.data import synthetic
+    rng = np.random.default_rng(seed)
+    pts, _, _, (w, d, _) = synthetic._make_room(rng)
+    cam = np.array([w / 2, d / 2, 1.4])
+    target = cam + np.array([w, d * 0.3, -0.4])
+    pose = synthetic._camera_pose(cam, target)
+    mask = synthetic._view_points(pts, cam, pose[:3, 2], 6.0,
+                                  np.cos(np.deg2rad(60.0)))
+    (p,) = synthetic._fixed_count(rng, [pts[mask]], n)
+    return ((p - cam) @ pose[:3, :3]).astype(np.float32)
+
+
+@pytest.mark.parametrize("k", [448, 32])
+def test_smallest_k_kernel_indoor_ball(dev, k):
+    """The indoor descriptor's ball selection, (8, 512, 5000) k=448 in
+    radius 0.75 on fp32 random priorities over room frames: some balls
+    hold more than k points (past the radix list's 2048 keys in their
+    first bin), some fewer (+inf picks past their count); and k=32."""
+    from usip_tpu_torch.ops.grouping import ball_scores
+    rng = np.random.default_rng(k)
+    pc = torch.from_numpy(np.stack([_room_frame(s) for s in range(8)]))
+    kp = torch.stack([pc[b, torch.from_numpy(rng.choice(5000, 512,
+                                                        replace=False))]
+                      for b in range(8)]) + 0.05
+    prio = torch.from_numpy(rng.uniform(size=(8, 5000)).astype(np.float32))
+    s = ball_scores(pc, kp, 0.75, prio)
+    inside = torch.isfinite(s).sum(-1)
+    assert bool((inside > 448).any() and (inside < 448).any())
+    vals, idx = kernels.smallest_k(s.to(dev), k)
+    torch.cuda.synchronize()
+    rvals, ridx = kernels.smallest_k_plain(s, k)
+    assert torch.equal(idx.cpu(), ridx) and torch.equal(vals.cpu(), rvals)
+
+
+@pytest.mark.parametrize("inside", [0.02, 0.3, 0.95])
+@pytest.mark.parametrize("k", [256, 448, 512])
+def test_smallest_k_kernel_large_k(dev, inside, k):
+    """k of 256, 448 and 512 on long rows (N = 16384 and 5000) of random
+    priorities, fp32, rounded to bf16 (ties), and in [0.5, 1) (every finite
+    key in one first-pass bin, more than the radix list's 2048 keys), a few
+    to most entries finite: the block form's candidate sort of 256 and
+    512."""
+    rng = np.random.default_rng(k + int(inside * 100))
+    for n in (16384, 5000):
+        prio = rng.uniform(size=(64, n)).astype(np.float32)
+        prio[32:48] = torch.from_numpy(prio[32:48]).to(
+            torch.bfloat16).float()
+        prio[48:] = 0.5 + 0.5 * prio[48:]
+        s = torch.from_numpy(np.where(rng.uniform(size=prio.shape) < inside,
+                                      prio, np.inf).astype(np.float32))
+        vals, idx = kernels.smallest_k(s.to(dev), k)
+        torch.cuda.synchronize()
+        rvals, ridx = kernels.smallest_k_plain(s, k)
+        assert torch.equal(idx.cpu(), ridx) and torch.equal(vals.cpu(), rvals)
+
+
+def test_smallest_k_kernel_node_knn_k32(dev):
+    """The lite detector's node kNN in the detector role: (16, 512, 512)
+    k=32, on the edge of the warp-per-row form, on the squared distances
+    of 512 FPS-like nodes of room frames."""
+    from usip_tpu_torch.ops import pairwise_sqdist
+    rng = np.random.default_rng(5)
+    pc = torch.from_numpy(np.stack([_room_frame(s)[rng.choice(
+        5000, 512, replace=False)] for s in range(16)]))
+    d = pairwise_sqdist(pc, pc)
+    vals, idx = kernels.smallest_k(d.to(dev), 32)
+    torch.cuda.synchronize()
+    rvals, ridx = kernels.smallest_k_plain(d, 32)
+    assert torch.equal(idx.cpu(), ridx) and torch.equal(vals.cpu(), rvals)
+
+
 def test_smallest_k_grad_on_card(dev):
     """The autograd wrapper's backward on the card equals the CPU one."""
     from usip_tpu_torch.ops.topk import smallest_k
@@ -404,7 +483,9 @@ def test_masked_scatter_max_grad_on_card(dev, backend):
 
 
 @pytest.mark.parametrize("b,n,m,c", [(8, 16384, 512, 64), (2, 1000, 77, 13),
-                                     (3, 333, 5, 40), (1, 17, 600, 3)])
+                                     (3, 333, 5, 40), (1, 17, 600, 3),
+                                     (16, 10240, 512, 32),
+                                     (16, 5000, 512, 64)])
 def test_scatter_max_kernel_matches_plain(dev, b, n, m, c):
     """Equal to scatter_reduce('amax') with empty nodes 0, including nodes no
     point maps to and negative features."""

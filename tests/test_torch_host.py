@@ -2,9 +2,11 @@
 
 usip_tpu_torch imports nothing of usip_tpu: it keeps its own copies of the
 config presets, ``data/{common,preprocess,synthetic,loaders,pipeline,
-eval_loaders,descriptor_loaders}``, the host coordinate flip,
-``utils/logging``, ``eval/{export,repeatability,eval_runner,registration}``
-and the CLI's ``_sn_columns``.
+eval_loaders,descriptor_loaders}`` (the indoor tree builders, the
+SceneNN pair loader and the Redwood, 3DMatch and rotated-ModelNet frames
+among them), the host coordinate flip, ``utils/logging``,
+``eval/{export,repeatability,eval_runner,registration,indoor,fgr}`` and the
+CLI's ``_sn_columns``.
 These tests hold each copy equal to usip_tpu's bit for bit on the same
 inputs and seeds (usip_tpu's loaders on their numpy path, its native batch
 loader switched off), and show in a fresh interpreter that importing the
@@ -34,6 +36,7 @@ from usip_tpu.data import synthetic as jax_synthetic
 from usip_tpu.data.common import subsample_fixed as jax_subsample_fixed
 from usip_tpu.eval import eval_runner as jax_eval_runner
 from usip_tpu.eval import export as jax_export
+from usip_tpu.eval import indoor as jax_indoor
 from usip_tpu.eval import registration as jax_registration
 from usip_tpu.eval import repeatability as jax_repeatability
 from usip_tpu.utils import logging as jax_logging
@@ -50,6 +53,7 @@ from usip_tpu_torch.data import synthetic as torch_synthetic
 from usip_tpu_torch.data.common import subsample_fixed
 from usip_tpu_torch.eval import eval_runner as torch_eval_runner
 from usip_tpu_torch.eval import export as torch_export
+from usip_tpu_torch.eval import indoor as torch_indoor
 from usip_tpu_torch.eval import registration as torch_registration
 from usip_tpu_torch.eval import repeatability as torch_repeatability
 from usip_tpu_torch.utils import logging as torch_logging
@@ -154,7 +158,8 @@ PORT_MODULES = (
     "data.eval_loaders", "utils.logging", "train.checkpoint", "train.loop",
     "eval.export", "eval.repeatability", "eval.eval_runner",
     "eval.export_runner", "eval.baselines", "eval.registration",
-    "data.descriptor_loaders", "models.descriptor", "train.descriptor_loop")
+    "data.descriptor_loaders", "models.descriptor", "train.descriptor_loop",
+    "eval.indoor", "eval.fgr", "indoor")
 
 
 def test_port_imports_nothing_of_usip_tpu():
@@ -171,6 +176,7 @@ def test_port_imports_nothing_of_usip_tpu():
         "assert 'usip_tpu_torch.inference' in sys.modules\n"
         "assert 'usip_tpu_torch.train.loop' in sys.modules\n"
         "assert 'usip_tpu_torch.train.descriptor_loop' in sys.modules\n"
+        "assert 'usip_tpu_torch.eval.fgr' in sys.modules\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -673,3 +679,229 @@ def test_registration_equals_usip_tpu(kitti_trees, tmp_path):
         for k, v in got._asdict().items():
             w = want._asdict()[k]
             assert v == w or (np.isnan(v) and np.isnan(w)), k
+
+
+# ------------------------------------------------------------- indoor ----
+
+@pytest.fixture(scope="module")
+def indoor_trees(tmp_path_factory):
+    """The same small synthetic SceneNN tree (6 train frames, 8 test
+    frames of 700 points) and 3DMatch fragment tree (one scene of 5
+    fragments of 900 points) written by the port and by usip_tpu."""
+    roots = {k: tmp_path_factory.mktemp(f"indoor_{k}") for k in ("port",
+                                                                  "ref")}
+    for mod, key in ((torch_synthetic, "port"), (jax_synthetic, "ref")):
+        root = roots[key]
+        counts = mod.build_synthetic_scenenn_tree(
+            str(root / "scenenn"), train_frames=6, test_frames=8,
+            target_points=700, seed=2)
+        frags = mod.build_synthetic_match3d_fragments(
+            str(root / "match3d"), scenes=1, fragments_per_scene=5,
+            target_points=900, seed=3)
+        roots[key + "_counts"] = (counts, frags)
+    assert roots["port_counts"] == roots["ref_counts"]
+    return roots
+
+
+def test_indoor_trees_equal_usip_tpu(indoor_trees):
+    """Same files, every byte identical: frames, ``info_<mode>.pkl``,
+    fragments, ``gt.log`` and ``gt.info``."""
+    port, ref = indoor_trees["port"], indoor_trees["ref"]
+    files = _tree_files(port)
+    assert files == _tree_files(ref) and len(files) > 20
+    for name in ("info_train.pkl", "gt.log", "gt.info"):
+        assert any(f.endswith(name) for f in files), name
+    for f in files:
+        with open(os.path.join(port, f), "rb") as fa, \
+                open(os.path.join(ref, f), "rb") as fb:
+            assert fa.read() == fb.read(), f
+
+
+@pytest.mark.parametrize("mode", ["train", "test"])
+def test_scenenn_descriptor_loader_equals_usip_tpu(indoor_trees, mode):
+    """SceneNNDescriptorDataset: the anchor ICP-aligned onto its positive,
+    the test split subsampled by 3."""
+    over = {"data.dataroot": str(indoor_trees["port"] / "scenenn"),
+            "data.input_pc_num": 512}
+    ours = torch_desc_loaders.SceneNNDescriptorDataset(
+        torch_config.get_config("scenenn", "descriptor", **over).data, mode,
+        seed=5)
+    ref = jax_desc_loaders.SceneNNDescriptorDataset(
+        jax_config.get_config("scenenn", "descriptor", **over).data, mode,
+        seed=5)
+    assert len(ours) == len(ref) > 0
+    for i in range(len(ours)):
+        _assert_items_equal(ours[i], ref[i])
+
+
+def test_indoor_eval_frames_equal_usip_tpu(indoor_trees, tmp_path):
+    """RedwoodFrames and Match3DEvalFrames over the fragment tree (its
+    files renamed ``cloud_bin_<i>.npy`` for the latter), and
+    ModelNetRotatedFrames over ``build_modelnet_rotated``'s tree, which
+    both packages write byte for byte alike; ``make_eval_dataset`` picks
+    the same classes."""
+    from usip_tpu.eval import export_runner as jax_export_runner
+    from usip_tpu_torch.eval import export_runner as torch_export_runner
+    frag = indoor_trees["port"] / "match3d" / "fragments"
+    scenes = sorted(os.listdir(frag))
+    m3d = tmp_path / "m3d"
+    for scene in scenes:
+        (m3d / scene).mkdir(parents=True)
+        for f in os.listdir(frag / scene):
+            (m3d / scene / f"cloud_bin_{f}").write_bytes(
+                (frag / scene / f).read_bytes())
+    rng = np.random.default_rng(6)
+    src = []
+    for i in range(3):
+        path = tmp_path / f"shape{i}.npy"
+        np.save(path, rng.normal(size=(300, 6)).astype(np.float32))
+        src.append(str(path))
+    for mod, key in ((torch_preprocess, "port"), (jax_preprocess, "ref")):
+        assert mod.build_modelnet_rotated(src, str(tmp_path / key), seed=1) \
+            == 3
+    assert _tree_files(tmp_path / "port") == _tree_files(tmp_path / "ref")
+    for f in _tree_files(tmp_path / "port"):
+        assert ((tmp_path / "port" / f).read_bytes()
+                == (tmp_path / "ref" / f).read_bytes()), f
+    cases = [("scenenn", str(frag), "RedwoodFrames", {"scenes": scenes}),
+             ("match3d", str(m3d), "Match3DEvalFrames", {"scenes": scenes})]
+    cases += [("modelnet", str(tmp_path / "port"), "ModelNetRotatedFrames",
+               {"subset": sub}) for sub in ("original", "rotated")]
+    for dataset, root, cls, kw in cases:
+        over = {"data.dataroot": root, "data.input_pc_num": 256}
+        cfg = torch_config.get_config(dataset, **over)
+        jcfg = jax_config.get_config(dataset, **over)
+        sn = cfg.detector.surface_normal_len
+        ours = getattr(torch_eval_loaders, cls)(cfg.data, sn_len=sn, seed=4,
+                                                **kw)
+        ref = getattr(jax_eval_loaders, cls)(jcfg.data, sn_len=sn, seed=4,
+                                             **kw)
+        assert len(ours) == len(ref) > 0
+        for i in range(len(ours)):
+            _assert_items_equal(ours[i], ref[i])
+        sub = kw.get("subset", "original")
+        got = torch_export_runner.make_eval_dataset(cfg, subset=sub)
+        want = jax_export_runner.make_eval_dataset(jcfg, subset=sub)
+        assert type(got).__name__ == type(want).__name__ == cls
+        if cls != "ModelNetRotatedFrames":
+            continue  # the default scene lists are not in this tree
+        for i in range(len(got)):
+            _assert_items_equal(got[i], want[i])
+
+
+def test_normals_and_voxels_equal_usip_tpu():
+    """``estimate_normals`` (oriented to the origin and to a point) and
+    ``voxel_downsample``."""
+    rng = np.random.default_rng(7)
+    pts = rng.normal(0, 2, size=(400, 3)).astype(np.float32)
+    for k, toward in ((16, None), (7, np.array([1.0, 2.0, 3.0]))):
+        for a, b in zip(torch_preprocess.estimate_normals(pts, k, toward),
+                        jax_preprocess.estimate_normals(pts, k, toward)):
+            assert a.dtype == b.dtype and np.array_equal(a, b)
+    feats = np.concatenate([pts, rng.normal(size=(400, 2))], 1)
+    for size in (0.3, 1.0):
+        assert np.array_equal(torch_preprocess.voxel_downsample(feats, size),
+                              jax_preprocess.voxel_downsample(feats, size))
+
+
+def _fragments(rng, n_frag=4, n_pc=600, m=60, dim=16):
+    """Fragments of one scene: a shared point set seen from moved frames,
+    keypoints on the same points but 10 (drawn anew a fragment), with
+    descriptors that match across fragments up to noise, and 5 outlier
+    keypoints; the gt poses."""
+    world = rng.uniform(-3, 3, size=(n_pc, 3))
+    base_desc = rng.normal(size=(n_pc, dim))
+    frags, poses = [], []
+    for _ in range(n_frag):
+        sel = np.concatenate([np.arange(m - 10), rng.choice(
+            np.arange(m - 10, n_pc), 10, replace=False)])
+        yaw = rng.uniform(0, 2 * np.pi)
+        R = np.array([[np.cos(yaw), -np.sin(yaw), 0],
+                      [np.sin(yaw), np.cos(yaw), 0], [0, 0, 1.0]])
+        T = np.eye(4)
+        T[:3, :3], T[:3, 3] = R, rng.normal(0, 1, size=3)
+        local = (world - T[:3, 3]) @ R
+        kp = local[sel] + rng.normal(0, 0.01, size=(m, 3))
+        kp[:5] += rng.normal(0, 2, size=(5, 3))
+        desc = base_desc[sel] + rng.normal(0, 0.05, size=(m, dim))
+        frags.append((local, kp, desc))
+        poses.append(T)
+    return frags, poses
+
+
+def test_indoor_registration_equals_usip_tpu(tmp_path):
+    """``knn_union_matches``, ``information_matrix``, ``register_fragments``
+    with RANSAC and with FGR, ``run_scene_registration``, the ``.log``
+    writers and readers (the same bytes), ``transformation_error``,
+    ``evaluate_scene(s)`` and ``summarize``: the same numbers."""
+    rng = np.random.default_rng(8)
+    frags, poses = _fragments(rng)
+    (pc1, kp1, d1), (pc2, kp2, d2) = frags[0], frags[1]
+    for k in (1, 5):
+        assert np.array_equal(torch_indoor.knn_union_matches(d1, d2, k),
+                              jax_indoor.knn_union_matches(d1, d2, k))
+    assert np.array_equal(torch_indoor.information_matrix(kp1),
+                          jax_indoor.information_matrix(kp1))
+    for est in ("ransac", "fgr"):
+        a = torch_indoor.register_fragments(pc1, pc2, kp1, d1, kp2, d2,
+                                            max_trials=3000, seed=2,
+                                            estimator=est)
+        b = jax_indoor.register_fragments(pc1, pc2, kp1, d1, kp2, d2,
+                                          max_trials=3000, seed=2,
+                                          estimator=est)
+        assert a.num_inliers == b.num_inliers > 0, est
+        assert a.inlier_ratio == b.inlier_ratio, est
+        assert a.ratio_aligned == b.ratio_aligned, est
+        assert np.array_equal(a.trans, b.trans), est
+        assert np.array_equal(a.information, b.information), est
+    n = len(frags)
+    gt = [jax_indoor.LogEntry(i, j, n, np.linalg.inv(poses[i]) @ poses[j])
+          for i in range(n) for j in range(i + 1, n)]
+    info = [jax_indoor.LogEntry(e.i, e.j, n, np.eye(4),
+                                information=jax_indoor.information_matrix(
+                                    frags[e.i][1]))
+            for e in gt]
+    gt_dir = tmp_path / "gt" / "s0-evaluation"
+    gt_dir.mkdir(parents=True)
+    with open(gt_dir / "gt.log", "w") as f:
+        for e in gt:
+            f.write(f"{e.i}\t{e.j}\t{e.n}\n")
+            for row in e.trans:
+                f.write("\t".join(f"{v:.10f}" for v in row) + "\n")
+    with open(gt_dir / "gt.info", "w") as f:
+        for e in info:
+            f.write(f"{e.i}\t{e.j}\t{e.n}\n")
+            for row in e.information:
+                f.write("\t".join(f"{v:.8f}" for v in row) + "\n")
+    logs = {}
+    for mod, key in ((torch_indoor, "port"), (jax_indoor, "ref")):
+        for est in ("ransac", "fgr"):
+            entries = mod.run_scene_registration(frags, max_trials=3000,
+                                                 seed=3, estimator=est)
+            path = tmp_path / f"{key}_{est}.log"
+            mod.write_log_my(str(path), entries)
+            logs[key, est] = str(path)
+    for est in ("ransac", "fgr"):
+        assert (open(logs["port", est], "rb").read()
+                == open(logs["ref", est], "rb").read()), est
+        assert torch_indoor.load_result_log(logs["port", est])
+    for loader in ("load_log", "load_info", "load_log_my"):
+        path = str(gt_dir / ("gt.info" if loader == "load_info" else
+                             "gt.log")) if loader != "load_log_my" \
+            else logs["port", "ransac"]
+        for e, f in zip(getattr(torch_indoor, loader)(path),
+                        getattr(jax_indoor, loader)(path)):
+            assert (e.i, e.j, e.n) == (f.i, f.j, f.n)
+            assert np.array_equal(e.trans, f.trans)
+    delta = np.linalg.inv(gt[1].trans) @ poses[2]
+    assert (torch_indoor.transformation_error(delta, info[1].information)
+            == jax_indoor.transformation_error(delta, info[1].information))
+    for est in ("ransac", "fgr"):
+        got = torch_indoor.evaluate_scenes({"s0": logs["port", est]},
+                                           str(tmp_path / "gt"))
+        want = jax_indoor.evaluate_scenes({"s0": logs["port", est]},
+                                          str(tmp_path / "gt"))
+        assert json.dumps({k: v._asdict() for k, v in got.items()}) == \
+            json.dumps({k: v._asdict() for k, v in want.items()})
+        assert torch_indoor.summarize(got) == jax_indoor.summarize(want)
+        assert got["s0"].rs_num > 0

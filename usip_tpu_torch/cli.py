@@ -15,6 +15,9 @@
   python -m usip_tpu_torch.cli eval-registration --kp-dir feats/keypoints \
       --desc-dir feats/descriptors --kitti-gt TREE/kitti-reg-test \
       --coord-fix kitti --calib-root TREE/calib [--sweep-trials 100,1000]
+  python -m usip_tpu_torch.cli eval-indoor --gt-root TREE/gt \
+      --pc-root TREE/fragments --result-root feats/ --scenes s0,s1 \
+      --out logs/ [--estimator ransac|fgr] [--overlapped-only]
   python -m usip_tpu_torch.cli bench [--device cuda]
   python -m usip_tpu_torch.cli detect --input clouds/ --checkpoint w.pth \
       --out served/ [--descriptor-checkpoint d.pt] [--device cuda]
@@ -277,11 +280,13 @@ def cmd_train_descriptor(args):
             def mine(raw):
                 return ds.mine_negative_indices(np.asarray(raw["seq"]),
                                                 np.asarray(raw["pose"]))
+        elif name == "scenenn":
+            ds = dl.SceneNNDescriptorDataset(cfg.data, "train", sn_len=sn)
+            mine = None  # the CGF loss mines per keypoint on the device
         else:
-            raise SystemExit(
-                f"descriptor training on {name!r} is not ported (oxford and "
-                "kitti are; the reference trains descriptors on oxford, "
-                "kitti and scenenn)")
+            raise SystemExit(f"descriptor training not defined for {name!r} "
+                             "(the reference trains descriptors on oxford, "
+                             "kitti and scenenn only)")
         loader = BatchLoader(ds, cfg.train.batch_size, shuffle=True,
                              num_workers=cfg.data.num_workers)
         test_loader = None
@@ -319,7 +324,8 @@ def cmd_export_keypoints(args):
                        desired_num=args.num_keypoints,
                        synthetic=args.synthetic, method=args.method,
                        noise_sigma=args.noise_sigma,
-                       with_sigmas=args.with_sigmas, device=args.device)
+                       with_sigmas=args.with_sigmas, device=args.device,
+                       subset=args.subset)
     print(json.dumps(stats), flush=True)
 
 
@@ -389,6 +395,69 @@ def cmd_eval_registration(args):
         if args.sweep_trials:
             line = {"max_trials": trials, **line}
         print(json.dumps(line), flush=True)
+
+
+def register_scenes(pc_root, result_root, gt_root, scenes, out,
+                    desc_dim=128, max_trials=1000, estimator="ransac",
+                    overlapped_only=False):
+    """Register each scene's fragment pairs (all, or the gt-overlapped ones)
+    from ``<result_root>/<scene>/<i>.bin`` features into
+    ``<out>/<scene>.log``; returns ``{scene: log path}``."""
+    from usip_tpu_torch.eval import indoor
+    os.makedirs(out, exist_ok=True)
+    logs = {}
+    for scene in scenes:
+        pc_dir = os.path.join(pc_root, scene)
+        n_frag = len([f for f in os.listdir(pc_dir) if f.endswith(".npy")])
+        fragments = []
+        for i in range(n_frag):
+            pc = np.load(os.path.join(pc_dir, f"{i}.npy"))
+            kp, desc = indoor.load_fragment_features(
+                os.path.join(result_root, scene, f"{i}.bin"), desc_dim)
+            fragments.append((pc, kp, desc))
+        pairs = None
+        if overlapped_only:
+            gt = indoor.load_log(os.path.join(
+                gt_root, f"{scene}-evaluation", "gt.log"))
+            pairs = [(e.i, e.j) for e in gt]
+        entries = indoor.run_scene_registration(
+            fragments, pairs=pairs, max_trials=max_trials,
+            estimator=estimator)
+        logs[scene] = os.path.join(out, f"{scene}.log")
+        indoor.write_log_my(logs[scene], entries)
+    return logs
+
+
+def cmd_eval_indoor(args):
+    """3DMatch/Redwood fragment-registration eval (the ElasticReconstruction
+    lite protocol, eval_indoor/fullEvaluation.m): register the gated pairs
+    of each scene into ``<out>/<scene>.log``, then recall and precision
+    against the ground truth, one JSON line a scene and one for the mean.
+    With ``--logs-only``, evaluates existing logs (the Redwood loop
+    protocol, eval_loop.m)."""
+    from usip_tpu_torch.eval import indoor
+    scenes = args.scenes.split(",")
+    if args.logs_only:
+        if not args.log_dir:
+            raise SystemExit("eval-indoor: --logs-only requires --log-dir")
+        logs = {scene: os.path.join(args.log_dir, f"{scene}.log")
+                for scene in scenes}
+    else:
+        missing = [f for f, v in (("--pc-root", args.pc_root),
+                                  ("--result-root", args.result_root),
+                                  ("--out", args.out)) if not v]
+        if missing:
+            raise SystemExit(
+                f"eval-indoor: register mode requires {' '.join(missing)} "
+                "(or pass --logs-only with --log-dir)")
+        logs = register_scenes(args.pc_root, args.result_root, args.gt_root,
+                               scenes, args.out, args.desc_dim,
+                               args.max_trials, args.estimator,
+                               args.overlapped_only)
+    per_scene = indoor.evaluate_scenes(logs, args.gt_root)
+    for scene, r in per_scene.items():
+        print(json.dumps({"scene": scene, **r._asdict()}), flush=True)
+    print(json.dumps(indoor.summarize(per_scene)), flush=True)
 
 
 def cmd_bench(args):
@@ -488,6 +557,10 @@ def main(argv=None):
     p.add_argument("--downsample-rate", type=int, default=1,
                    help="detect on input_pc_num/rate points "
                         "(save_keypoints.py downsample_rate)")
+    p.add_argument("--subset", default="original",
+                   choices=["original", "rotated"],
+                   help="modelnet/shrec: which half of the rotated-pair "
+                        "repeatability protocol to export")
     p.add_argument("--with-sigmas", action="store_true",
                    help="write 4-column (xyz, sigma) bins")
     p.set_defaults(fn=cmd_export_keypoints)
@@ -519,6 +592,29 @@ def main(argv=None):
                         "sweep)")
     _add_gt_flags(p)
     p.set_defaults(fn=cmd_eval_registration)
+
+    p = sub.add_parser("eval-indoor")
+    p.add_argument("--gt-root", required=True,
+                   help="dir with <scene>-evaluation/gt.log+gt.info")
+    p.add_argument("--scenes", default="livingroom1,livingroom2,office1,office2")
+    p.add_argument("--pc-root", help="fragment npy tree <root>/<scene>/<i>.npy")
+    p.add_argument("--result-root",
+                   help="keypoint+descriptor bins <root>/<scene>/<i>.bin")
+    p.add_argument("--out", default="indoor_logs",
+                   help="where to write <scene>.log result logs")
+    p.add_argument("--desc-dim", type=int, default=128)
+    p.add_argument("--estimator", default="ransac", choices=["ransac", "fgr"],
+                   help="pose estimator: RANSAC (register2Fragments.m) or "
+                        "Fast Global Registration (register2FragmentsFGR.m)")
+    p.add_argument("--max-trials", type=int, default=1000,
+                   help="RANSAC cap (lite protocol, fullEvaluation.m:5)")
+    p.add_argument("--overlapped-only", action="store_true",
+                   help="register only gt-overlapped pairs (lite protocol)")
+    p.add_argument("--logs-only", action="store_true",
+                   help="skip registration; evaluate existing logs "
+                        "(Redwood loop protocol)")
+    p.add_argument("--log-dir", help="dir with <scene>.log for --logs-only")
+    p.set_defaults(fn=cmd_eval_indoor)
 
     p = sub.add_parser("bench", help="detect throughput on the card: one "
                        "JSON line")

@@ -8,9 +8,11 @@ Reference semantics:
     (oxford_descriptor_loader.py:127-146,231-281),
   * kitti: positive = random nearby scan within positive_radius (pose-distance
     bounded search); negatives = in-batch entries >negative_radius away or in a
-    different sequence (kitti_descriptor_loader.py:154-203,278-317).
-
-The indoor pair loader (SceneNN) is not ported yet.
+    different sequence (kitti_descriptor_loader.py:154-203,278-317),
+  * scenenn (indoor): real pair list; the anchor is ICP-aligned into the positive's
+    frame (hom2cart(icp @ cart2hom(pc)), scenenn_descriptor_loader.py:230-240); the
+    CGF loss then uses the device-side GT transform and mines its negatives
+    per keypoint on the device, so this loader mines none.
 """
 
 from __future__ import annotations
@@ -174,3 +176,48 @@ def cart_to_hom_apply(T: np.ndarray, pc: np.ndarray) -> np.ndarray:
     homo = np.concatenate([pc, np.ones((pc.shape[0], 1), pc.dtype)], axis=1)
     out = homo @ T.T
     return out[:, :3] / out[:, 3:4]
+
+
+class SceneNNDescriptorDataset:
+    """Indoor pair loader: anchor frame ICP-aligned onto its positive frame."""
+
+    def __init__(self, cfg: DataConfig, mode: str, sn_len: int = 4, seed: int = 0,
+                 test_subsample: int = 3):
+        self.cfg = cfg
+        self.sn_len = sn_len
+        self.mode = mode
+        self._rng = np.random.default_rng(seed)
+        root = cfg.dataroot
+        self.frame_folder = os.path.join(root, "frames_" + mode)
+        with open(os.path.join(root, f"info_{mode}.pkl"), "rb") as f:
+            info = pickle.load(f)
+        self.pairs_np = np.asarray(info["pairs_np"])  # (P, 2) [anc, pos]
+        self.icp_np = np.asarray(info["icp_np"])      # (P, 4, 4)
+        if mode != "train" and test_subsample > 1:
+            # test set subsampled x1/3 (scenenn_descriptor_loader.py:92-96)
+            keep = np.arange(0, len(self.pairs_np), test_subsample)
+            self.pairs_np = self.pairs_np[keep]
+            self.icp_np = self.icp_np[keep]
+
+    def __len__(self):
+        return len(self.pairs_np)
+
+    def _load(self, rng, frame_idx: int):
+        data = np.load(os.path.join(self.frame_folder, f"{frame_idx}.npy"))
+        data = subsample_fixed(rng, data, self.cfg.input_pc_num)
+        return split_pc_sn(data, self.sn_len)
+
+    def __getitem__(self, index: int) -> Dict[str, np.ndarray]:
+        rng = self._rng
+        anc_idx, pos_idx = (int(self.pairs_np[index][0]),
+                            int(self.pairs_np[index][1]))
+        anc_pc, anc_sn = self._load(rng, anc_idx)
+        pos_pc, pos_sn = self._load(rng, pos_idx)
+        icp = self.icp_np[index].astype(np.float64)
+        anc_pc = cart_to_hom_apply(icp, anc_pc).astype(np.float32)
+        if self.sn_len >= 3:
+            R = icp[:3, :3].astype(np.float32)
+            anc_sn = np.concatenate([anc_sn[:, :3] @ R.T, anc_sn[:, 3:]], axis=1)
+        return {"anc_pc": anc_pc, "anc_sn": anc_sn,
+                "pos_pc": pos_pc, "pos_sn": pos_sn,
+                "index": np.int64(index)}

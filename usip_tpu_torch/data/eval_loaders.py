@@ -1,8 +1,7 @@
 """Evaluation-only frame loaders feeding keypoint export (counterpart of
-``usip_tpu/data/eval_loaders.py:18-89``; the port keeps its own copy of the
-KITTI and Oxford test frames, replacing the reference's
-evaluation/{kitti_test,oxford_test}_loader.py). The Redwood, 3DMatch and
-rotated-ModelNet frames are not ported."""
+``usip_tpu/data/eval_loaders.py``; the port keeps its own copy, replacing
+the reference's evaluation/{kitti_test,oxford_test,redwood}_loader.py and
+data/{match3d_eval,modelnet_rotated}_loader.py)."""
 
 from __future__ import annotations
 
@@ -85,4 +84,100 @@ class OxfordTestFrames:
         pc = coordinate_enu_to_cam(pc)
         if self.sn_len >= 3:
             sn = np.concatenate([coordinate_enu_to_cam(sn[:, :3]), sn[:, 3:]], 1)
+        return {"pc": pc, "sn": sn, "seq": np.int64(0), "frame": np.int64(index)}
+
+
+class RedwoodFrames:
+    """Redwood eval scenes: <root>/<scene>/*.npy (evaluation/redwood_loader.py)."""
+
+    SCENES = ("livingroom1", "livingroom2", "office1", "office2")
+
+    def __init__(self, cfg: DataConfig, sn_len: int = 4, seed: int = 0,
+                 scenes=None):
+        self.cfg = cfg
+        self.sn_len = sn_len
+        self._rng = np.random.default_rng(seed)
+        self.items = []
+        for si, scene in enumerate(scenes or self.SCENES):
+            folder = os.path.join(cfg.dataroot, scene)
+            if not os.path.isdir(folder):
+                continue
+            n = len([f for f in os.listdir(folder) if f.endswith(".npy")])
+            for i in range(n):
+                self.items.append((si, scene, i))
+
+    def __len__(self):
+        return len(self.items)
+
+    def __getitem__(self, index):
+        si, scene, frame = self.items[index]
+        data = np.load(os.path.join(self.cfg.dataroot, scene, f"{frame}.npy"))
+        data = subsample_fixed(self._rng, data, self.cfg.input_pc_num)
+        pc, sn = split_pc_sn(data, self.sn_len)
+        return {"pc": pc, "sn": sn, "seq": np.int64(si), "frame": np.int64(frame)}
+
+
+class Match3DEvalFrames:
+    """3DMatch eval fragments: 8 fixed scenes (data/match3d_eval_loader.py:39-57)."""
+
+    SCENES = (
+        "7-scenes-redkitchen",
+        "sun3d-home_at-home_at_scan1_2013_jan_1",
+        "sun3d-home_md-home_md_scan9_2012_sep_30",
+        "sun3d-hotel_uc-scan3",
+        "sun3d-hotel_umd-maryland_hotel1",
+        "sun3d-hotel_umd-maryland_hotel3",
+        "sun3d-mit_76_studyroom-76-1studyroom2",
+        "sun3d-mit_lab_hj-lab_hj_tea_nov_2_2012_scan1_erika",
+    )
+
+    def __init__(self, cfg: DataConfig, sn_len: int = 4, seed: int = 0,
+                 scenes=None):
+        self.cfg = cfg
+        self.sn_len = sn_len
+        self._rng = np.random.default_rng(seed)
+        self.items = []
+        for si, scene in enumerate(scenes or self.SCENES):
+            folder = os.path.join(cfg.dataroot, scene)
+            if not os.path.isdir(folder):
+                continue
+            n = len([f for f in os.listdir(folder) if f.endswith(".npy")])
+            for i in range(n):
+                self.items.append((si, scene, i))
+
+    def __len__(self):
+        return len(self.items)
+
+    def __getitem__(self, index):
+        si, scene, frame = self.items[index]
+        data = np.load(os.path.join(self.cfg.dataroot, scene,
+                                    f"cloud_bin_{frame}.npy"))
+        data = subsample_fixed(self._rng, data, self.cfg.input_pc_num)
+        pc, sn = split_pc_sn(data, self.sn_len)
+        return {"pc": pc, "sn": sn, "seq": np.int64(si), "frame": np.int64(frame)}
+
+
+class ModelNetRotatedFrames:
+    """Original + rotated ModelNet test clouds for repeatability
+    (data/modelnet_rotated_loader.py:18-29): <root>/{original,rotated}/<i>.npy and
+    gt transforms <root>/rotated/<i>_gt.npy (4x4), if present."""
+
+    def __init__(self, cfg: DataConfig, sn_len: int = 3, seed: int = 0,
+                 subset: str = "original"):
+        self.cfg = cfg
+        self.sn_len = sn_len
+        self.subset = subset
+        self._rng = np.random.default_rng(seed)
+        folder = os.path.join(cfg.dataroot, subset)
+        self.count = len([f for f in os.listdir(folder)
+                          if f.endswith(".npy") and not f.endswith("_gt.npy")])
+
+    def __len__(self):
+        return self.count
+
+    def __getitem__(self, index):
+        data = np.load(os.path.join(self.cfg.dataroot, self.subset,
+                                    f"{index}.npy"))
+        data = subsample_fixed(self._rng, data, self.cfg.input_pc_num)
+        pc, sn = split_pc_sn(data, self.sn_len)
         return {"pc": pc, "sn": sn, "seq": np.int64(0), "frame": np.int64(index)}

@@ -1,8 +1,8 @@
 """Metric runners over exported keypoint .bin trees (counterpart of
 ``usip_tpu/eval/eval_runner.py``; the port keeps its own copy): the Python
 replacement of the MATLAB scripts eval_rep.m and evaluate_kitti.m, their
-ground-truth tables and their coordinate-frame fixes. The indoor runner
-(``eval/indoor.py``) is not ported yet."""
+ground-truth tables and their coordinate-frame fixes. The indoor fragment
+registration and its recall/precision live in ``eval/indoor.py``."""
 
 from __future__ import annotations
 

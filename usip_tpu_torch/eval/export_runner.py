@@ -1,16 +1,18 @@
 """Batched keypoint export over an eval dataset (counterpart of
 ``usip_tpu/eval/export_runner.py``: ``make_eval_dataset :23``,
-``run_export_with_descriptors :95``, ``run_export :187``): the detector's
-eval forward on the device, host NMS and sigma ranking, a ``.bin`` per frame
+``run_export_with_descriptors :95``, ``run_export :187``,
+``FragmentFrames``/``run_export_fragments :276-368``): the detector's eval
+forward on the device, host NMS and sigma ranking, a ``.bin`` per frame
 (the reference's save_keypoints.py main loop, :229-414); with a descriptor,
 the selected keypoints go back to the device to be described, and their
-descriptors get a parallel ``.bin`` tree (the registration eval's input).
+descriptors get a parallel ``.bin`` tree (the registration eval's input),
+or, for indoor fragments, one ``[x y z d_0..d_127]`` row per keypoint (the
+input of ``eval-indoor``).
 
 The forward is ``models.fused_infer.detector_infer_fused`` on the restored
 model (the port's serving forward: FPS, min/argmin, scatter-max, smallest-k
 and the fused chain on the card). Methods ``model`` and ``random``; the ISS,
-Harris and SIFT baselines and the indoor fragment export
-(``run_export_fragments``) are not ported.
+Harris and SIFT baselines are not ported.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import numpy as np
 import torch
 
 from usip_tpu_torch.config import Config
+from usip_tpu_torch.data.common import split_pc_sn, subsample_fixed
 from usip_tpu_torch.data.pipeline import BatchLoader
 from usip_tpu_torch.eval.baselines import random_keypoints
 from usip_tpu_torch.eval.export import (ensure_keypoint_number,
@@ -60,7 +63,11 @@ class _SyntheticFrames:
                 "seq": np.int64(0), "frame": np.int64(i)}
 
 
-def make_eval_dataset(cfg: Config, synthetic: bool = False, seed: int = 0):
+def make_eval_dataset(cfg: Config, synthetic: bool = False, seed: int = 0,
+                      subset: str = "original"):
+    """The eval frames of ``cfg.data.dataset`` (usip_tpu's, dataset by
+    dataset); ``subset`` picks the original or the rotated half of the
+    rotated-ModelNet repeatability protocol (modelnet_rotated_loader.py)."""
     if synthetic:
         return _SyntheticFrames(cfg, seed)
     from usip_tpu_torch.data import eval_loaders as el
@@ -73,9 +80,13 @@ def make_eval_dataset(cfg: Config, synthetic: bool = False, seed: int = 0):
                                     "numpy"), sn_len=sn)
     if name == "oxford":
         return el.OxfordTestFrames(cfg.data, sn_len=sn)
-    raise NotImplementedError(
-        f"export of the {name!r} eval frames is not ported (kitti, oxford "
-        "and --synthetic are)")
+    if name == "scenenn":
+        return el.RedwoodFrames(cfg.data, sn_len=sn)
+    if name == "match3d":
+        return el.Match3DEvalFrames(cfg.data, sn_len=sn)
+    if name in ("modelnet", "shrec"):
+        return el.ModelNetRotatedFrames(cfg.data, sn_len=sn, subset=subset)
+    raise KeyError(name)
 
 
 def _pad_batch(a: np.ndarray, batch_size: int) -> np.ndarray:
@@ -140,10 +151,13 @@ class DescriptorInfer:
 
     @torch.no_grad()
     def __call__(self, pc: np.ndarray, sn: np.ndarray, keypoints: np.ndarray,
-                 generator: torch.Generator) -> np.ndarray:
+                 generator: Optional[torch.Generator] = None,
+                 priority: Optional[torch.Tensor] = None) -> np.ndarray:
         to = lambda a: torch.from_numpy(  # noqa: E731
             np.ascontiguousarray(a, np.float32)).to(self.device)
-        desc, _ = self.model(to(pc), to(sn), to(keypoints),
+        if priority is not None:
+            priority = priority.to(self.device)
+        desc, _ = self.model(to(pc), to(sn), to(keypoints), priority,
                              generator=generator)
         return desc.cpu().numpy()
 
@@ -217,7 +231,8 @@ def run_export(cfg: Config, checkpoint: Optional[str], out_dir: str,
                synthetic: bool = False, batch_size: Optional[int] = None,
                dataset=None, method: str = "model", noise_sigma: float = 0.0,
                with_sigmas: bool = False, device="cuda",
-               node_draws: Optional[Callable] = None) -> dict:
+               node_draws: Optional[Callable] = None,
+               subset: str = "original") -> dict:
     """Export every frame of the eval set; returns summary stats (frames,
     mean keypoint count, clouds/s after the first batch).
 
@@ -228,7 +243,7 @@ def run_export(cfg: Config, checkpoint: Optional[str], out_dir: str,
     reference's visualize_keypoints viewer reads; pad-from-cloud rows carry
     sigma=inf. ``node_draws(i)``, where given, returns batch ``i``'s node
     draws ``(subset rows, FPS seed rows)`` instead of the generator's (the
-    tests pass JAX's).
+    tests pass JAX's). ``subset``: the rotated-ModelNet half to export.
     """
     if method not in ("model", "random"):
         raise NotImplementedError(f"export method {method!r} is not ported "
@@ -237,7 +252,8 @@ def run_export(cfg: Config, checkpoint: Optional[str], out_dir: str,
         raise ValueError("with_sigmas requires method='model' (classical "
                          "baselines carry no uncertainty estimate)")
     infer = ModelInfer(cfg, checkpoint, device) if method == "model" else None
-    ds = dataset if dataset is not None else make_eval_dataset(cfg, synthetic)
+    ds = dataset if dataset is not None else make_eval_dataset(
+        cfg, synthetic, subset=subset)
     bs = batch_size or cfg.train.batch_size
     loader = BatchLoader(ds, bs, shuffle=False, num_workers=4, drop_last=False)
     rng = np.random.default_rng(0)
@@ -289,3 +305,93 @@ def run_export(cfg: Config, checkpoint: Optional[str], out_dir: str,
     return {"frames": frames,
             "mean_keypoints": float(np.mean(counts)) if counts else 0.0,
             "clouds_per_sec": timed / elapsed if elapsed > 0 else 0.0}
+
+
+class FragmentFrames:
+    """Eval dataset over an indoor fragment tree ``<pc_root>/<scene>/<i>.npy``
+    (the layout of ``cli eval-indoor --pc-root`` and the real 3DMatch
+    fragment dumps, match3d_eval_loader.py:39-57): yields fixed-size
+    subsamples with (seq=scene index, frame=i) keys."""
+
+    def __init__(self, cfg: Config, pc_root: str, scenes, sn_len: int = 4,
+                 seed: int = 0):
+        self.cfg = cfg.data
+        self.pc_root = pc_root
+        self.sn_len = sn_len
+        self._rng = np.random.default_rng(seed)
+        self.items = []
+        for si, scene in enumerate(scenes):
+            folder = os.path.join(pc_root, scene)
+            n = len([f for f in os.listdir(folder) if f.endswith(".npy")])
+            for i in range(n):
+                self.items.append((si, scene, i))
+
+    def __len__(self):
+        return len(self.items)
+
+    def __getitem__(self, index):
+        si, scene, frame = self.items[index]
+        data = np.load(os.path.join(self.pc_root, scene, f"{frame}.npy"))
+        data = subsample_fixed(self._rng, data, self.cfg.input_pc_num)
+        pc, sn = split_pc_sn(data, self.sn_len)
+        return {"pc": pc, "sn": sn, "seq": np.int64(si),
+                "frame": np.int64(frame)}
+
+
+def run_export_fragments(cfg: Config, detector_checkpoint: str,
+                         descriptor_checkpoint: str, pc_root: str,
+                         out_root: str, scenes, nms_radius: float = 0.0,
+                         desired_num: int = 256,
+                         batch_size: Optional[int] = None, device="cuda",
+                         node_draws: Optional[Callable] = None,
+                         ball_priorities: Optional[Callable] = None) -> dict:
+    """Export per-fragment keypoint+descriptor features as the combined
+    ``<out_root>/<scene>/<i>.bin`` rows ``[x y z d_0..d_{D-1}]``, the input
+    of the indoor registration eval (register2Fragments.m:23-30 via
+    Utils.load_descriptors; read by ``eval/indoor.py
+    load_fragment_features`` and ``cli eval-indoor --result-root``).
+
+    Batch ``i``'s node draws come from ``stream_generator(device, 321, 0,
+    2 i)`` and its ball priorities from ``(..., 2 i + 1)`` (usip_tpu's
+    ``fold_in(PRNGKey(321), 2 i)`` and ``2 i + 1``), or, where given, from
+    ``node_draws(i)`` (subset rows, FPS seed rows) and ``ball_priorities(i)``
+    (``(B, N)``): the tests pass JAX's.
+    """
+    infer = ModelInfer(cfg, detector_checkpoint, device)
+    describe = DescriptorInfer(cfg, descriptor_checkpoint, device)
+    ds = FragmentFrames(cfg, pc_root, scenes,
+                        sn_len=cfg.detector.surface_normal_len)
+    bs = batch_size or cfg.train.batch_size
+    loader = BatchLoader(ds, bs, shuffle=False, num_workers=2,
+                         drop_last=False)
+    rng = np.random.default_rng(0)
+    frames = 0
+    scene_names = list(scenes)
+    for i, raw in enumerate(loader):
+        gen = lambda j: stream_generator(  # noqa: E731
+            infer.device, DESCRIPTOR_EXPORT_SEED, 0, j)
+        real_b = raw["pc"].shape[0]
+        pc_in, sn_in = _pad_batch(raw["pc"], bs), _pad_batch(raw["sn"], bs)
+        kp, sig = infer(pc_in, sn_in,
+                        generator=None if node_draws else gen(2 * i),
+                        draws=node_draws(i) if node_draws else None)
+        selected = np.stack([
+            select_keypoints(kp[b], sig[b], raw["pc"][b],
+                             nms_radius=nms_radius, desired_num=desired_num,
+                             rng=rng)
+            for b in range(real_b)])
+        desc = describe(
+            pc_in, sn_in, _pad_batch(selected, bs),
+            generator=None if ball_priorities else gen(2 * i + 1),
+            priority=ball_priorities(i) if ball_priorities else None)[:real_b]
+        for b in range(real_b):
+            scene = scene_names[int(raw["seq"][b])]
+            frame = int(raw["frame"][b])
+            rows = np.concatenate(
+                [selected[b].astype(np.float32),
+                 desc[b].astype(np.float32)], axis=1)
+            path = os.path.join(out_root, scene, f"{frame}.bin")
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            rows.tofile(path)
+            frames += 1
+    return {"frames": frames, "scenes": len(scene_names)}
