@@ -98,7 +98,31 @@ script exits nonzero without the final ``ok`` line:
    ``python -m usip_tpu_torch.indoor eval`` in process (both arms; all five
    kernels must launch in the fragment export), ``eval-indoor --estimator
    fgr``; a rotated-ModelNet tree through ``export-keypoints --subset
-   original|rotated`` and ``eval-repeatability``.
+   original|rotated`` and ``eval-repeatability``;
+11. the grouped-trunk detectors in training at the Oxford preset's full
+   width (the released Oxford ball model's trunk and its knn twin: batch 8
+   parents of 20480 points, two 16384-point copies, 512 nodes, balls of 64
+   in 2 m or 64 nearest neighbours, bf16 trunk) and SOM with k=2 nodes a
+   point at the KITTI preset's: smallest-k at the steps' own shapes (the
+   ball scores and knn distances (16, 512, 16384) k=64, the node kNN (16,
+   512, 512) k=16, the SOM k=2 assignment (16, 16384, 512) k=2) identical
+   to its plain version and timed beside its bound and ``torch.topk``;
+   five ball and five knn steps with each kernel's launches a step checked
+   (K1 2, K2 4, K3 0, K4 2, K5 0), their time, split, peak memory and
+   operators; one fp32 ball step (batch 2) card against CPU under
+   ``GRAD_TOL`` (from the CPU's prepared clouds; each device's own prep
+   printed beside it); usip_tpu's learning check (the fixed-draw eval loss
+   of a fresh ball detector falls over 80 steps on one batch); three SOM
+   k=2 steps with their launches (K1 2, K2 4, K4 2, K5 2) and the fp32 SOM
+   k=2 forward card against CPU; then on a synthetic Oxford tree
+   (``tests/oxford_tree.py``: 24 train and 9 test scans of 20480 points)
+   ``train-detector --dataset oxford --override detector.grouping=ball``
+   2 epochs and ``--resume auto`` to 3, one ``DetectorEngine`` epoch
+   (launches, clouds/s, idle share), ``export-keypoints`` with the trained
+   checkpoint (K1, K3, K4 must launch), random keypoints and the ISS
+   baseline, ``eval-repeatability --oxford-root --coord-fix oxford`` on
+   each, and the quality gate with the ball trunk (its ratio reported, not
+   held).
 
 The second-to-last line is a JSON object with one entry per kernel (time,
 plain and library times, bound, launches); the last is ``{"ok": true,
@@ -107,6 +131,7 @@ checks that at its end.
 """
 
 import contextlib
+import copy
 import functools
 import io
 import json
@@ -123,17 +148,21 @@ import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
+# the synthetic Oxford tree (tests/oxford_tree.py) is written by test code
+sys.path.insert(1, os.path.join(REPO, "tests"))
 
 from usip_tpu_torch import _build  # noqa: E402
-from usip_tpu_torch import cli  # noqa: E402
+from usip_tpu_torch import cli, quality  # noqa: E402
 from usip_tpu_torch.bench import bench_rate  # noqa: E402
 from usip_tpu_torch.config import get_config  # noqa: E402
 from usip_tpu_torch.inference import KeypointPipeline  # noqa: E402
 from usip_tpu_torch.models import Descriptor, Detector  # noqa: E402
 from usip_tpu_torch.models.detector import knn_group  # noqa: E402
 from usip_tpu_torch.models.fused_infer import detector_infer_fused  # noqa: E402
-from usip_tpu_torch.ops import kernels, pairwise_sqdist, sample_nodes  # noqa: E402
-from usip_tpu_torch.ops.grouping import ball_scores, ball_select  # noqa: E402
+from usip_tpu_torch.ops import (assign_points_to_nodes, kernels,  # noqa: E402
+                                pairwise_sqdist, sample_nodes)
+from usip_tpu_torch.ops.grouping import (ball_query, ball_scores,  # noqa: E402
+                                         ball_select)
 from usip_tpu_torch.quality import DESCRIPTOR_GATE  # noqa: E402
 from usip_tpu_torch import indoor as indoor_protocol  # noqa: E402
 from usip_tpu_torch.data.descriptor_loaders import (  # noqa: E402
@@ -152,6 +181,7 @@ from usip_tpu_torch.train.loop import (DetectorEngine,  # noqa: E402
 from usip_tpu_torch.data.synthetic import build_synthetic_kitti_tree  # noqa: E402
 from usip_tpu_torch.weights import (seeded_descriptor_state_dict,  # noqa: E402
                                     seeded_state_dict)
+from oxford_tree import build_oxford_tree  # noqa: E402
 
 B_BENCH = 8
 SEED = 0
@@ -365,7 +395,8 @@ def oxford_cloud(rng, b, n):
     poles = np.stack([cxy[..., 0] + pr * np.cos(pt),
                       cxy[..., 1] + pr * np.sin(pt),
                       rng.uniform(0, 4, size=(b, n - ng))], -1)
-    pc = rng.permuted(np.concatenate([ground, poles], 1), axis=1)
+    pc = np.concatenate([ground, poles], 1)
+    pc = np.stack([c[rng.permutation(n)] for c in pc])
     nrm = rng.normal(size=(b, n, 3))
     nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
     sn = np.concatenate([nrm, rng.uniform(size=(b, n, 1))], -1)
@@ -634,7 +665,7 @@ def assignment_ids(rng, dev):
     return kernels.min_argmin(pc, nodes, True)[1].long()
 
 
-def compare_slice(label, cfg, cloud_fn, rng):
+def compare_slice(label, cfg, cloud_fn, rng, tag="[3]"):
     """One full-width fp32 forward (B=2) on the card and on the CPU with the
     same seeded weights, draws and input; nodes (and for the grouped trunks
     the group indices) identical, keypoints and sigmas within 2e-2 x
@@ -658,7 +689,7 @@ def compare_slice(label, cfg, cloud_fn, rng):
             if device == "cuda" and cfg.detector.grouping == "ball":
                 r, k = cfg.detector.group_radius, cfg.detector.group_k
                 inside = (pairwise_sqdist(node, to(pc)) <= r * r).sum(-1)
-                print(f"[3] {label}: balls holding more than {k} points "
+                print(f"{tag} {label}: balls holding more than {k} points "
                       f"{float((inside > k).float().mean()):.4f}, fewer "
                       f"(padded) {float((inside < k).float().mean()):.4f}, "
                       f"empty {float((inside == 0).float().mean()):.4f}",
@@ -673,7 +704,7 @@ def compare_slice(label, cfg, cloud_fn, rng):
     if grouped:
         check(torch.equal(gpu[4], cpu[4]), f"{label}: group indices "
               "identical on card and CPU")
-    print(f"[3] {label} fp32 (2, {n}) -> {cfg.data.node_num}: nodes "
+    print(f"{tag} {label} fp32 (2, {n}) -> {cfg.data.node_num}: nodes "
           f"identical{', group indices identical' if grouped else ''}, "
           f"anchors max |diff| {anc_err}", flush=True)
     check(anc_err <= 1e-4, f"{label}: anchors within 1e-4")
@@ -682,7 +713,7 @@ def compare_slice(label, cfg, cloud_fn, rng):
         check(bool(torch.isfinite(g).all()), f"{label}: {name} finite")
         scale = float(c.abs().max())
         err = (g - c).abs()
-        print(f"[3] {label} {name}: max|ref| {scale}, max |diff| "
+        print(f"{tag} {label} {name}: max|ref| {scale}, max |diff| "
               f"{float(err.max())}, median |diff| {float(err.median())}",
               flush=True)
         check(float(err.max()) <= 2e-2 * scale, f"{label}: {name} max "
@@ -692,7 +723,7 @@ def compare_slice(label, cfg, cloud_fn, rng):
     # the offsets depend on the trunk: keypoints are not just the anchors
     off = float((cpu[2] - cpu[1]).abs().max())
     check(off > 1e-2, f"{label}: keypoint offsets nontrivial")
-    print(f"[3] {label}: max |keypoint - anchor| {off}", flush=True)
+    print(f"{tag} {label}: max |keypoint - anchor| {off}", flush=True)
 
 
 def seeded_descriptor(cfg, device):
@@ -2492,6 +2523,521 @@ def phase10(card, tmp):
     return launches, times
 
 
+# --------------------------------------------------------------- phase 11 --
+# the Oxford grouped detectors in training: steps a counted run, and the
+# kernels each step launches (K1 the two node samplings, K2 the losses'
+# keypoint -> cloud and chamfer, K4 the ball or knn grouping and the node
+# kNN over both copies at once; the fusion runs layered in training and the
+# grouped trunk does not scatter)
+OX_STEPS = 5
+OX_STEP_LAUNCHES = {"fps": 2, "min_argmin": 4, "fusion_chain": 0,
+                    "smallest_k": 2, "scatter_max": 0}
+# the SOM trunk with k=2 nodes a point at the KITTI preset's width: the
+# assignment selects on K4 (k > 1), both scatter-maxes run over 2N points
+SOM_K = 2
+SOM_K_STEPS = 3
+SOM_K_LAUNCHES = {"fps": 2, "min_argmin": 4, "fusion_chain": 0,
+                  "smallest_k": 2, "scatter_max": 2}
+# the learning check: train steps on one fixed batch from a fresh init. At
+# the Oxford preset's full width the fixed-draw eval loss (running
+# BatchNorm statistics) first rises while the statistics catch up with the
+# moving weights, then falls: on an H100 1.695 -> 1.855 at 20 steps, 1.491
+# at 80, while the same draws' train-mode loss falls from the start (1.868,
+# 1.760, 1.529)
+LEARN_STEPS = 80
+# the synthetic Oxford tree of phase 11 (tests/oxford_tree.py): full-size
+# 20480-point scans, 24 to train (3 steps of batch 8 an epoch), 9 test scans
+# (8 ground-truth pairs: one test batch)
+OX_TREE = {"train_scans": 24, "test_scans": 9, "points": 20480, "seed": 0}
+# the grouped trunk as the released Oxford model and its knn twin
+OX_GROUPED = ("ball", "knn")
+
+
+def oxford_parents(rng, b, p, device):
+    """Urban-like parents (``oxford_cloud``) in the camera frame the Oxford
+    loaders give (ENU turned as ``coordinate_enu_to_cam`` turns it: the up
+    axis is y, which the step's height scale stretches)."""
+    pc, sn = oxford_cloud(rng, b, p)
+
+    def cam(x):
+        return np.stack([x[..., 0], -x[..., 2], x[..., 1]], -1)
+
+    sn = np.concatenate([cam(sn[..., :3]), sn[..., 3:]], -1)
+    return ParentBatch(*(torch.from_numpy(np.ascontiguousarray(
+        x, np.float32)).to(device) for x in (cam(pc), sn)))
+
+
+def k4_case(card, label, scores, k):
+    """K4 against its plain version on ``scores`` (identical values and
+    indices) and its times: the kernel (CUDA-graph replay), the plain
+    version, ``torch.topk`` (the library call) and the bound (the scores
+    read once, k values and indices written a row)."""
+    vals, idx = kernels.smallest_k(scores, k)
+    rvals, ridx = kernels.smallest_k_plain(scores, k)
+    sync()
+    mism = int((idx != ridx).sum())
+    inside = torch.isfinite(scores).sum(-1)
+    check(torch.equal(idx, ridx) and torch.equal(vals, rvals),
+          f"smallest_k {label}: values and indices identical")
+    rows, n = scores.numel() // scores.shape[-1], scores.shape[-1]
+    bnd = bound(rows * n * 4 + rows * k * 8, 0, FP32_FLOPS)
+    res = {"ms": graph_ms(lambda: kernels.smallest_k(scores, k), 10),
+           "plain_ms": time_ms(lambda: kernels.smallest_k_plain(scores, k),
+                               3),
+           "library_ms": graph_ms(lambda: torch.topk(scores, k,
+                                                     largest=False), 10),
+           "bound_ms": bnd[0], "bound_by": bnd[1]}
+    print(f"[11] {card} | K4 smallest_k {label}: {tuple(scores.shape)} "
+          f"k={k}, {mism} indices differ, rows with more than k finite "
+          f"{float((inside > k).float().mean()):.4f}, fewer "
+          f"{float((inside < k).float().mean()):.4f}; "
+          + json.dumps(res), flush=True)
+    return res
+
+
+def k5_som_k2_case(card, ids, gen):
+    """K5 against its plain version at the SOM k=2 step's own shape: the
+    stacked ids ``(16, 2 x 16384)`` (each point twice, k-major) onto 512
+    nodes, fp32 features of C=64 and 128 (both masked scatter-maxes of one
+    forward); identical, empty nodes 0. Times both calls: the kernel
+    (CUDA-graph replay), the plain version, ``scatter_reduce('amax')`` (the
+    plain version is that library call) and the bound (features and ids
+    read once, the node features written)."""
+    b, kn = ids.shape
+    m = 512
+    counts = torch.zeros((b, m), dtype=torch.int64, device=ids.device)
+    counts.scatter_add_(1, ids, torch.ones_like(ids))
+    empty = counts == 0
+    fs = [torch.randn((b, kn, c), generator=gen, device=ids.device)
+          for c in (64, 128)]
+    for f in fs:
+        got = kernels.scatter_max(f, ids, m)
+        ref = kernels.scatter_max_plain(f, ids, m)
+        sync()
+        check(torch.equal(got, ref), f"scatter_max SOM k={SOM_K} stacked "
+              f"ids ({b}, {kn}) C={f.shape[-1]} equals scatter_reduce amax")
+        check(bool((got[empty] == 0).all()), f"scatter_max SOM k={SOM_K} "
+              "stacked ids: empty nodes are 0")
+    run = lambda: [kernels.scatter_max(f, ids, m) for f in fs]  # noqa: E731
+    plain = lambda: [kernels.scatter_max_plain(f, ids, m)  # noqa: E731
+                     for f in fs]
+    bnd = bound(sum(b * kn * c * 4 + b * kn * 8 + b * m * c * 4
+                    for c in (64, 128)), 0, FP32_FLOPS)
+    res = {"ms": graph_ms(run, 10), "plain_ms": time_ms(plain, 3),
+           "library_ms": graph_ms(plain, 10), "bound_ms": bnd[0],
+           "bound_by": bnd[1]}
+    print(f"[11] {card} | K5 scatter_max SOM k={SOM_K} stacked ids "
+          f"({b}, {kn}) onto {m} nodes, C=64+128 (form "
+          f"{kernels.scatter_max_form(kn, m)}): identical, "
+          f"{int(empty.sum())} empty nodes, at most {int(counts.max())} "
+          "stacked points on a node; " + json.dumps(res), flush=True)
+    return res
+
+
+def oxford_kernel_checks(card, rng):
+    """K4 at the new shapes of this phase, from the steps' own inputs: the
+    natural-order ball scores r=2 and the knn distances of both siamese
+    copies of 8 Oxford parents (16, 512, 16384) k=64, the node kNN (16,
+    512, 512) k=16, and the SOM k=2 assignment's bf16 distances (16, 16384,
+    512) k=2 of 8 KITTI parents; K5 on that assignment's stacked ids (16,
+    32768). Returns K4's and K5's results."""
+    dev = torch.device("cuda")
+    cfg = oxford_config("ball")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    with torch.no_grad():
+        src, dst, _ = train_steps._prepare_detector_inputs(
+            oxford_parents(rng, 8, cfg.data.parent_pc_num, dev), cfg, True,
+            generator=gen)
+        pc, node = torch.cat([src[0], dst[0]]), torch.cat([src[2], dst[2]])
+        shapes = {"oxford_ball": ("Oxford ball scores r=2, natural order",
+                                  ball_scores(pc, node, 2.0), 64)}
+        shapes["oxford_knn"] = ("Oxford knn distances",
+                                pairwise_sqdist(node, pc), 64)
+        shapes["oxford_node_knn"] = ("Oxford node kNN distances",
+                                     pairwise_sqdist(node, node), 16)
+        kcfg = get_config("kitti", **{"detector.k": SOM_K})
+        ksrc, kdst, _ = train_steps._prepare_detector_inputs(
+            parent_batch(rng, kcfg, 8, dev), kcfg, True, generator=gen)
+        kpc, knode = (torch.cat([ksrc[0], kdst[0]]),
+                      torch.cat([ksrc[2], kdst[2]]))
+        shapes["som_k2_assignment"] = (
+            "SOM k=2 assignment bf16 distances",
+            pairwise_sqdist(kpc, knode, round_bf16=True), SOM_K)
+        ids = assign_points_to_nodes(kpc, knode, k=SOM_K,
+                                     round_bf16=True).ids
+    out = {}
+    for key, (label, scores, k) in shapes.items():
+        out[key] = k4_case(card, label, scores, k)
+    del shapes
+    k5 = k5_som_k2_case(card, ids, gen)
+    return out, k5
+
+
+def ox_step_run(cfg, tag, batch, state, steps, expected):
+    """``steps`` train steps with the launch counts reset before and read
+    after, each count checked against ``expected`` a step; every metric
+    finite. Returns the launches."""
+    step = make_detector_train_step(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    step(state, batch, 0, generator=gen)  # warm-up, not counted
+    sync()
+    kernels.reset_launch_counts()
+    history = [step(state, batch, 0, generator=gen) for _ in range(steps)]
+    sync()
+    launches = dict(kernels.LAUNCHES)
+    losses = [float(h["loss"]) for h in history]
+    print(f"[11] train {tag} bf16 batch {cfg.train.batch_size}, {steps} "
+          f"steps: losses {losses}, grad norms "
+          f"{[float(h['grad_norm']) for h in history]}; launches {launches}",
+          flush=True)
+    check(all(all(bool(torch.isfinite(v)) for v in h.values())
+              for h in history), f"{tag}: every train metric finite")
+    for name, n in expected.items():
+        check(launches[name] == n * steps, f"{tag}: kernel {name} launched "
+              f"{n} times a step ({launches[name]} in {steps} steps)")
+    return launches
+
+
+def ox_step_time(card, cfg, tag, batch, state):
+    """The step's time (pipelined), clouds/s, its split at the marks, its
+    peak memory and the profiler's operators."""
+    step = make_detector_train_step(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    b = cfg.train.batch_size
+    for _ in range(2):
+        step(state, batch, 0, generator=gen)
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    iters = 10
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        step(state, batch, 0, generator=gen)
+    sync()
+    step_ms = (time.perf_counter() - t0) / iters * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    split = event_split(
+        lambda mark: step(state, batch, 0, generator=gen, mark=mark),
+        ("prep", "forward", "losses", "backward", "optimizer"), iters)
+    busy, ops, _ = profile_busy(lambda: step(state, batch, 0,
+                                             generator=gen), 2)
+    print(f"[11] {card} | train step {tag} bf16 batch {b}: {step_ms:.3f} ms "
+          f"a step (mean of {iters}, pipelined), {2 * b * 1e3 / step_ms:.2f} "
+          f"clouds/s; split (ms, CUDA events between the parts): "
+          + json.dumps({k: round(v, 4) for k, v in split.items()})
+          + f"; peak memory {peak:.0f} MiB; torch.profiler over 2 steps: "
+          f"kernels {busy:.3f} ms a step ({busy / step_ms:.4f} of the "
+          "step); by operator [name, ms a step, calls a step]: "
+          + json.dumps([[k, round(t, 4), c] for t, c, k in ops[:12]]),
+          flush=True)
+    return 2 * b * 1e3 / step_ms
+
+
+def ox_fp32_step(card, rng):
+    """One fp32 ball step (batch 2, full width) on the card and on the CPU
+    from the same weights and parents. Each device's own data prep (the
+    draws from one CPU generator; the rotations' products round apart by an
+    ulp or so) is compared with the CPU's, and the step from it is printed,
+    not held: a point that the ulp moves across a ball's 2 m boundary
+    changes which 64 points are the ball's first. Held: the step from the
+    CPU's prepared clouds on both devices, the card under deterministic
+    algorithms, metrics within 1e-4 (grad_norm 1e-3) and every parameter's
+    gradient within ``GRAD_TOL``."""
+    cfg32 = oxford_config("ball", **{"detector.compute_dtype": "float32"})
+    batch2 = oxford_parents(rng, 2, cfg32.data.parent_pc_num, "cpu")
+    r, k = cfg32.detector.group_radius, cfg32.detector.group_k
+
+    def prep(device):
+        with torch.no_grad():
+            return train_steps._prepare_detector_inputs(
+                ParentBatch(*(t.to(device) for t in batch2)), cfg32, True,
+                generator=torch.Generator().manual_seed(SEED + 1))
+
+    def run(device, inputs):
+        st = train_state(cfg32, device)
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            m = make_detector_train_step(cfg32)(st, None, 0,
+                                                _inputs=inputs)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        return ({k: float(v) for k, v in m.items()},
+                {n: p.grad.detach().double().cpu() for n, p in
+                 st.model.named_parameters() if p.grad is not None})
+
+    def to(inputs, device):
+        src, dst, gt = inputs
+        mv = lambda t: t.to(device)  # noqa: E731
+        return (tuple(map(mv, src)), tuple(map(mv, dst)),
+                type(gt)(*map(mv, gt)))
+
+    cpu_in, card_in = prep("cpu"), prep("cuda")
+    diffs, flips = [], 0
+    for side in range(2):
+        for a, b in zip(card_in[side], cpu_in[side]):
+            diffs.append(float((a.cpu() - b).abs().max())
+                         / float(b.abs().max()))
+        flips += int((ball_query(card_in[side][0], card_in[side][2], r, k)
+                      .idx.cpu() != ball_query(cpu_in[side][0],
+                                               cpu_in[side][2], r, k).idx)
+                     .any(-1).sum())
+    cpu_res, cpu_grads = run("cpu", cpu_in)
+    own_res, own_grads = run("cuda", card_in)
+    rel = lambda a: {k: abs(a[k] - cpu_res[k]) / max(abs(cpu_res[k]),  # noqa: E731
+                                                    1e-30) for k in cpu_res}
+    own = grad_errors("own prep", {"cuda": own_grads, "cpu": cpu_grads})
+    print(f"[11] {card} | train oxford ball fp32 batch 2, each device's own "
+          f"data prep (printed, not held): the card's prepared clouds, "
+          f"normals and nodes within {max(diffs):.3e} of max|x| of the "
+          f"CPU's, {flips} of {2 * 2 * cfg32.data.node_num} balls hold "
+          f"other points; the step's relative metric differences "
+          f"{json.dumps(rel(own_res))}, gradients worst {own[0][0]:.3e} "
+          f"({own[0][1]}), lowest cosine {own[1][0]:.9f}", flush=True)
+    check(max(diffs) <= 1e-6, "the card's data prep within 1e-6 of max|x| "
+          "of the CPU's")
+    res, grads = run("cuda", to(cpu_in, "cuda"))
+    diff = rel(res)
+    worst, low, leaf = grad_errors("fp32 ball step",
+                                   {"cuda": grads, "cpu": cpu_grads})
+    print(f"[11] {card} | train oxford ball fp32 batch 2, one step from the "
+          f"CPU's prepared clouds, card against CPU: relative metric "
+          f"differences {json.dumps(diff)} (tolerance: 1e-4, grad_norm "
+          f"1e-3); gradients of {len(leaf)} parameters: worst "
+          f"{worst[0]:.3e} ({worst[1]}), lowest cosine {low[0]:.9f} "
+          f"({low[1]}) (tolerance {GRAD_TOL[1]:g}, cosine >= {GRAD_TOL[2]}); "
+          "by parameter [name, max|g| / largest, error, cosine]: "
+          + json.dumps([[n, round(a, 8), round(e, 8),
+                         None if c is None else round(c, 10)]
+                        for n, (a, e, c) in leaf.items()]), flush=True)
+    for key, v in diff.items():
+        check(v <= (1e-3 if key == "grad_norm" else 1e-4),
+              f"fp32 ball step {key} on the card within tolerance of the "
+              "CPU")
+    check(worst[0] <= GRAD_TOL[1] and low[0] >= GRAD_TOL[2], "fp32 ball "
+          "step gradients on the card within tolerance of the CPU")
+
+
+def ox_learns(card, rng):
+    """usip_tpu's learning check at full width: the ball detector from a
+    fresh init, one fixed batch; the mean eval loss over four fixed draws
+    falls over ``LEARN_STEPS`` train steps. Printed beside it at 0, 20 and
+    ``LEARN_STEPS`` steps: the same draws' loss in train mode (batch
+    statistics, on a copy of the model)."""
+    cfg = oxford_config("ball")
+    dev = torch.device("cuda")
+    state = init_detector_state(cfg, SEED, dev)
+    batch = oxford_parents(rng, cfg.train.batch_size,
+                           cfg.data.parent_pc_num, dev)
+    step = make_detector_train_step(cfg)
+    evaluate = train_steps.make_detector_eval_step(cfg)
+
+    def draw(j):
+        return torch.Generator(device=dev).manual_seed(100 + j)
+
+    def fixed_losses():
+        evals = [float(evaluate(state, batch, generator=draw(j))["loss"])
+                 for j in range(4)]
+        model, trains = copy.deepcopy(state.model), []
+        with torch.no_grad():
+            for j in range(4):
+                src, dst, gt = train_steps._prepare_detector_inputs(
+                    batch, cfg, True, generator=draw(j))
+                out = train_steps._siamese_apply(model, src, dst, True,
+                                                 cfg.train.bn_momentum)
+                trains.append(float(train_steps._detector_losses(
+                    cfg, *out, src[0], src[1], dst[0], dst[1], gt)[0]))
+        return float(np.mean(evals)), float(np.mean(trains))
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    curve, losses = [(0, fixed_losses())], []
+    for n in (20, LEARN_STEPS):
+        while len(losses) < n:
+            losses.append(float(step(state, batch, 0, generator=gen)["loss"]))
+        curve.append((n, fixed_losses()))
+    (_, (before, _)), (_, (after, _)) = curve[0], curve[-1]
+    print(f"[11] {card} | learning check, oxford ball bf16 batch "
+          f"{cfg.train.batch_size} from a "
+          f"fresh init: fixed-draw eval loss {before:.5f} -> {after:.5f} "
+          f"over {LEARN_STEPS} steps; [steps, eval-mode, train-mode "
+          f"fixed-draw loss] "
+          + json.dumps([[n, round(e, 5), round(t, 5)] for n, (e, t)
+                        in curve]), flush=True)
+    check(np.isfinite(losses).all() and after < before, "the ball detector's "
+          "fixed-draw eval loss falls with training")
+
+
+def phase11_steps(card):
+    """The Oxford ball and knn steps at full width, the fp32 ball step card
+    against CPU, the learning check, SOM with k=2 nodes a point."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(11)
+    launches, rates = {}, {}
+    for grouping in OX_GROUPED:
+        cfg = oxford_config(grouping)
+        batch = oxford_parents(rng, cfg.train.batch_size,
+                               cfg.data.parent_pc_num, dev)
+        state = train_state(cfg, dev)
+        tag = f"oxford {grouping}"
+        launches[f"oxford_{grouping}"] = ox_step_run(
+            cfg, tag, batch, state, OX_STEPS, OX_STEP_LAUNCHES)
+        rates[grouping] = ox_step_time(card, cfg, tag, batch, state)
+        del state, batch
+    ox_fp32_step(card, rng)
+    ox_learns(card, rng)
+
+    kcfg = get_config("kitti", **{"detector.k": SOM_K})
+    batch = parent_batch(rng, kcfg, kcfg.train.batch_size, dev)
+    state = train_state(kcfg, dev)
+    launches["som_k2"] = ox_step_run(kcfg, f"kitti som k={SOM_K}", batch,
+                                     state, SOM_K_STEPS, SOM_K_LAUNCHES)
+    rates["som_k2"] = ox_step_time(card, kcfg, f"kitti som k={SOM_K}", batch,
+                                   state)
+    del state, batch
+    compare_slice(f"KITTI SOM k={SOM_K}", get_config("kitti", **{
+        "detector.k": SOM_K, "detector.compute_dtype": "float32"}),
+        kitti_cloud, rng, tag="[11]")
+    return launches, rates
+
+
+def phase11_entry(card, tmp, rates):
+    """The Oxford entry points on a synthetic Oxford tree: train-detector
+    (ball) 2 epochs and --resume auto, one engine epoch, the model, random
+    and ISS exports, eval-repeatability, the grouped quality gate."""
+    t0 = time.perf_counter()
+    root = os.path.join(tmp, "oxford_tree")
+    counts = build_oxford_tree(root, **OX_TREE)
+    print(f"[11] synthetic Oxford tree {counts} of {OX_TREE['points']} "
+          f"points in {time.perf_counter() - t0:.1f} s", flush=True)
+    ckpt_dir = os.path.join(tmp, "ckpt_oxford")
+    out_dir = os.path.join(ckpt_dir, "oxford")
+    base = ["usip_tpu_torch.cli", "train-detector", "--dataset", "oxford",
+            "--dataroot", root, "--name", "oxford", "--checkpoints-dir",
+            ckpt_dir, "--device", "cuda", "--override",
+            "detector.grouping=ball", "--override", "train.log_every=1"]
+    _, t_first = run_module("train-detector oxford", base + ["--epochs", "2"])
+    with open(os.path.join(out_dir, "config.json")) as f:
+        saved = json.load(f)
+    check((saved["data"]["input_pc_num"], saved["data"]["parent_pc_num"],
+           saved["data"]["node_num"], saved["data"]["wire_dtype"],
+           saved["detector"]["grouping"], saved["detector"]["group_k"],
+           saved["detector"]["group_radius"], saved["detector"]["c1"],
+           saved["detector"]["c2"], saved["augment"]["height_scale"],
+           saved["loss"]["keypoint_on_pc_alpha"])
+          == (16384, 20480, 512, "float32", "ball", 64, 2.0, 128, 512, True,
+              1.0), "train-detector ran the Oxford preset's ball detector "
+          "at full width")
+    first = read_jsonl(os.path.join(out_dir, "oxford_metrics.jsonl"))
+    out, t_resume = run_module("train-detector oxford --resume auto",
+                               base + ["--epochs", "3", "--resume", "auto"])
+    check("at epoch 2" in out, "the resumed Oxford run starts at epoch 2")
+    recs = read_jsonl(os.path.join(out_dir, "oxford_metrics.jsonl"))
+    check({r["epoch"] for r in recs[len(first):]} == {2},
+          "the resumed run trains epoch 2 only")
+    check(all(np.isfinite(r["loss"]) for r in recs if "loss" in r),
+          "every Oxford loss finite")
+    check({r["epoch"] for r in recs if r["prefix"] == "test"} == {0, 1, 2},
+          "a test sweep over the Oxford ground-truth pairs each epoch")
+    ckpt = find_checkpoint(out_dir)
+    check(ckpt is not None, "an Oxford checkpoint")
+    print(f"[11] train-detector --dataset oxford --override "
+          f"detector.grouping=ball --device cuda: 2 epochs in {t_first:.1f} "
+          f"s, --resume auto to 3 in {t_resume:.1f} s; [epoch, train loss, "
+          f"sigma_mean] "
+          f"{[(r['epoch'], round(r['loss'], 4), round(r['sigma_mean'], 4)) for r in recs if r['prefix'] == 'train_epoch']}"
+          f", [epoch, test loss] "
+          f"{[(r['epoch'], round(r['loss'], 4)) for r in recs if r['prefix'] == 'test']}",
+          flush=True)
+
+    cfg = oxford_config("ball", **{"data.dataroot": root,
+                                   "train.log_every": 100})
+    train, test = cli._make_loaders(cfg, types.SimpleNamespace(
+        synthetic=False), cfg.detector.surface_normal_len)
+    engine = DetectorEngine(cfg, train, test,
+                            out_dir=os.path.join(tmp, "engine_oxford"),
+                            device="cuda")
+    engine.train_epoch(0)
+    sync()
+    steps = len(train)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    avg = engine.train_epoch(1)
+    sync()
+    wall = time.perf_counter() - t0
+    launches = {"oxford_engine": dict(kernels.LAUNCHES)}
+    check(all(np.isfinite(list(avg.values()))), "Oxford engine metrics "
+          "finite")
+    for name, n in OX_STEP_LAUNCHES.items():
+        check(launches["oxford_engine"][name] == n * steps, f"Oxford engine: "
+              f"{name} launched {n} times a step")
+    busy, _, _ = profile_busy(lambda: engine.train_epoch(2), 1)
+    print(f"[11] {card} | engine train oxford ball bf16 batch "
+          f"{cfg.train.batch_size}, one epoch of {steps} steps: "
+          f"{2 * cfg.train.batch_size * steps / wall:.2f} clouds/s "
+          f"({wall / steps * 1e3:.3f} ms a step); the bare step "
+          f"{rates['ball']:.2f} clouds/s; idle share "
+          f"{1.0 - busy / (wall * 1e3):.4f} of the epoch's "
+          f"{wall * 1e3:.3f} ms; launches {launches['oxford_engine']}",
+          flush=True)
+    del engine
+
+    scores = {}
+    for method in ("model", "random", "iss"):
+        kp_dir = os.path.join(tmp, f"kp_oxford_{method}")
+        argv = ["export-keypoints", "--dataset", "oxford", "--dataroot",
+                root, "--out", kp_dir, "--method", method, "--device",
+                "cuda", "--override", "detector.grouping=ball"]
+        if method == "model":
+            argv += ["--checkpoint", ckpt]
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            cli.main(argv)
+        sync()
+        t_export = time.perf_counter() - t0
+        stats = json.loads(buf.getvalue().strip().splitlines()[-1])
+        check(stats["frames"] == OX_TREE["test_scans"]
+              and stats["mean_keypoints"] == 128, f"export {method} {stats}")
+        if method == "model":
+            launches["oxford_export"] = dict(kernels.LAUNCHES)
+            for name in PATH_KERNELS["ball"]:
+                check(launches["oxford_export"][name] > 0, f"kernel {name} "
+                      "launched on the Oxford export path")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            cli.main(["eval-repeatability", "--anc-dir", kp_dir, "--pos-dir",
+                      kp_dir, "--oxford-root", root, "--coord-fix",
+                      "oxford"])
+        rep = json.loads(buf.getvalue().strip().splitlines()[-1])
+        check(rep["pairs"] == OX_TREE["test_scans"] - 1
+              and 0.0 <= rep["repeatability"] <= 1.0, f"repeatability {rep}")
+        scores[method] = rep["repeatability"]
+        print(f"[11] {card} | export-keypoints --dataset oxford --method "
+              f"{method}: {json.dumps(stats)} in {t_export:.1f} s"
+              + (f"; launches {launches['oxford_export']}"
+                 if method == "model" else "")
+              + f"; eval-repeatability --coord-fix oxford: {json.dumps(rep)}",
+              flush=True)
+
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        gate = quality.run(os.path.join(tmp, "quality_ball"), device="cuda",
+                           overrides=["detector.grouping=ball"])
+    print(f"[11] {card} | quality gate with --override detector.grouping="
+          f"ball (reported, not held) in {time.perf_counter() - t0:.1f} s: "
+          f"trained repeatability {gate['trained']['repeatability']}, random "
+          f"{gate['random']['repeatability']} over {gate['pairs']} pairs, "
+          f"ratio {gate['ratio']}", flush=True)
+    return launches
+
+
+def phase11(card, tmp):
+    """The grouped-trunk detectors in training, and SOM with k=2."""
+    k4, k5 = oxford_kernel_checks(card, np.random.default_rng(12))
+    launches, rates = phase11_steps(card)
+    launches.update(phase11_entry(card, tmp, rates))
+    return launches, k4, k5
+
+
 def main():
     walls = {}
     t0 = time.perf_counter()
@@ -2530,6 +3076,9 @@ def main():
         indoor_launches, indoor_times = phase10(card, tmp)
         launches.update(indoor_launches)
         lap("10 indoor pipeline")
+        ox_launches, ox_k4, ox_k5 = phase11(card, tmp)
+        launches.update(ox_launches)
+        lap("11 Oxford grouped training, SOM k=2")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"[t] wall time by phase (s): {json.dumps(walls)}", flush=True)
@@ -2579,6 +3128,13 @@ def main():
                  launches["indoor_descriptor"][name] / INDOOR_STEPS),
              "launches_indoor_engine_epoch": launches["indoor_engine"][name],
              "launches_fragment_export": launches["fragment_export"][name],
+             "launches_per_oxford_step": {
+                 g: launches[f"oxford_{g}"][name] / OX_STEPS
+                 for g in OX_GROUPED},
+             "launches_per_som_k2_step": (launches["som_k2"][name]
+                                          / SOM_K_STEPS),
+             "launches_oxford_engine_epoch": launches["oxford_engine"][name],
+             "launches_oxford_export": launches["oxford_export"][name],
              "indoor_shapes": {label: t for label, t in indoor_times.items()
                                if INDOOR_SHAPES[label][0] == name}}
             for name, (src, rep) in meta.items()]
@@ -2591,6 +3147,12 @@ def main():
                            "bound_by": KNN_BOUND[1]}
     # and its third, the descriptor's ball query (8, 256, 16384) k=64
     line[3]["descriptor_ball"] = desc_ball
+    # the grouped train steps' shapes: ball and knn grouping (16, 512,
+    # 16384) k=64, the node kNN (16, 512, 512) k=16, SOM k=2's assignment
+    # (16, 16384, 512) k=2
+    line[3]["oxford_train_shapes"] = ox_k4
+    # K5 at the SOM k=2 step's stacked ids (16, 32768), C=64 + 128
+    line[4]["som_k2_stacked"] = ox_k5
     print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

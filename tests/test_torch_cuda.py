@@ -13,7 +13,11 @@ tile; min/argmin at its four shapes and on ties, -0.0, negative and
 subnormal distances; smallest-k on the descriptor's random-priority ball
 scores, fp32 and bf16, on the indoor descriptor's (8, 512, 5000) k=448
 balls over room frames, at k = 256, 448 and 512 on long rows and at the
-lite detector's node kNN (16, 512, 512) k=32; the fusion chain and
+lite detector's node kNN (16, 512, 512) k=32, at the grouped train
+steps' (16, 512, 16384) k=64 on natural-order ball scores and knn
+distances of urban-like clouds and the SOM k=2 assignment's (16 x 16384
+rows of 512) k=2 on bf16 distances and scatter-max over its stacked ids
+(16, 32768); the fusion chain and
 scatter-max at the lite widths; the train step's nearest-neighbour and
 scatter-max gradients against the CPU.
 """
@@ -384,6 +388,84 @@ def test_smallest_k_kernel_node_knn_k32(dev):
     torch.cuda.synchronize()
     rvals, ridx = kernels.smallest_k_plain(d, 32)
     assert torch.equal(idx.cpu(), ridx) and torch.equal(vals.cpu(), rvals)
+
+
+def _urban_cloud(rng, b, n):
+    """Urban-like clouds: 60% ground over a 25 m disc (denser near the
+    centre), 40% on 40 poles of radius 0.5 m and height 4 m, rows in random
+    order: some 2 m balls around their points hold more than 64 points,
+    some fewer."""
+    ng = int(n * 0.6)
+    r, t = 25.0 * rng.uniform(size=(b, ng)), rng.uniform(0, 2 * np.pi,
+                                                         (b, ng))
+    ground = np.stack([r * np.cos(t), r * np.sin(t),
+                       rng.normal(0, 0.1, (b, ng))], -1)
+    centres = rng.uniform(-18, 18, (b, 40, 2))
+    cxy = np.take_along_axis(centres, rng.integers(0, 40, (b, n - ng))[
+        ..., None], axis=1)
+    pr, pt = 0.5 * np.sqrt(rng.uniform(size=(b, n - ng))), rng.uniform(
+        0, 2 * np.pi, (b, n - ng))
+    poles = np.stack([cxy[..., 0] + pr * np.cos(pt),
+                      cxy[..., 1] + pr * np.sin(pt),
+                      rng.uniform(0, 4, (b, n - ng))], -1)
+    pc = np.concatenate([ground, poles], 1)
+    return np.stack([c[rng.permutation(n)] for c in pc]).astype(np.float32)
+
+
+@pytest.mark.parametrize("kind", ["ball", "knn"])
+def test_smallest_k_kernel_grouped_train_shape(dev, kind):
+    """The grouped train step's selection, both siamese copies of 8 clouds
+    at once: (16, 512, 16384) k=64 on natural-order ball scores (r=2: the
+    point's index inside, +inf outside; balls past 64 and short of it) and
+    on knn distances, 512 nodes drawn from each cloud."""
+    from usip_tpu_torch.ops import pairwise_sqdist
+    from usip_tpu_torch.ops.grouping import ball_scores
+    rng = np.random.default_rng(16)
+    pc = torch.from_numpy(_urban_cloud(rng, 16, 16384)).to(dev)
+    node = pc[:, torch.from_numpy(rng.choice(16384, 512, replace=False)).to(
+        dev)].contiguous()
+    scores = (ball_scores(pc, node, 2.0) if kind == "ball"
+              else pairwise_sqdist(node, pc))
+    if kind == "ball":
+        inside = torch.isfinite(scores).sum(-1)
+        assert bool((inside > 64).any() and (inside < 64).any())
+    vals, idx = kernels.smallest_k(scores, 64)
+    torch.cuda.synchronize()
+    rvals, ridx = kernels.smallest_k_plain(scores, 64)
+    assert torch.equal(idx, ridx) and torch.equal(vals, rvals)
+
+
+def test_smallest_k_kernel_som_k2_assignment(dev):
+    """SOM with k=2 nodes a point: each of 16 x 16384 points' two nearest
+    of 512 nodes, on the bf16 trunk's rounded distances (many ties among
+    near nodes, resolved to the lowest index)."""
+    from usip_tpu_torch.ops import pairwise_sqdist
+    rng = np.random.default_rng(17)
+    pc = torch.from_numpy(_urban_cloud(rng, 16, 16384)).to(dev)
+    node = pc[:, torch.from_numpy(rng.choice(16384, 512, replace=False)).to(
+        dev)].contiguous()
+    d = pairwise_sqdist(pc, node, round_bf16=True)
+    vals, idx = kernels.smallest_k(d, 2)
+    torch.cuda.synchronize()
+    rvals, ridx = kernels.smallest_k_plain(d, 2)
+    assert torch.equal(idx, ridx) and torch.equal(vals, rvals)
+    assert d.unique().numel() < d.numel() // 4
+
+
+@pytest.mark.parametrize("c", [64, 128])
+def test_scatter_max_kernel_som_k2_stacked_ids(dev, c):
+    """SOM with k=2 nodes a point: the masked scatter-max over the stacked
+    ids (16, 2 x 16384) of each point's two nearest of 512 nodes (the
+    8-block cluster form), at both feature widths of the trunk."""
+    from usip_tpu_torch.ops import assign_points_to_nodes
+    rng = np.random.default_rng(18)
+    pc = torch.from_numpy(_urban_cloud(rng, 16, 16384)).to(dev)
+    node = pc[:, torch.from_numpy(rng.choice(16384, 512, replace=False)).to(
+        dev)].contiguous()
+    ids = assign_points_to_nodes(pc, node, k=2, round_bf16=True).ids
+    assert ids.shape == (16, 32768)
+    assert kernels.scatter_max_form(32768, 512).cluster == 8
+    _scatter_case(dev, _rand(rng, (16, 32768, c), dev, 3.0), ids, 512)
 
 
 def test_smallest_k_grad_on_card(dev):

@@ -8,7 +8,8 @@ tree, with JAX's node draws handed to the port:
   of ``tests/test_torch_parity.py`` (2e-3); both sides run the fusion stack
   as the fused chain with its bf16 operands (usip_tpu's Pallas kernel in
   interpret mode, the port's plain version of its kernel);
-* ``random`` is byte-identical to usip_tpu's;
+* ``random`` and the ISS, Harris-3D and SIFT-3D baselines are
+  byte-identical to usip_tpu's;
 * a ragged last batch is written whole.
 The quality gate runs end to end at a tiny size (no ratio asserted).
 """
@@ -160,6 +161,25 @@ def test_random_export_byte_identical_and_ragged_tail(setup, tmp_path, batch):
                 data = a.read()
                 assert data == b.read(), f
                 assert len(data) == 48 * 3 * 4
+
+
+@pytest.mark.parametrize("method", ["iss", "harris", "sift"])
+def test_baseline_export_byte_identical(setup, tmp_path, method):
+    """The classical baselines through run_export (their defaults, padded
+    from the cloud to the asked count): every frame byte-identical to
+    usip_tpu's export."""
+    _, cfg, jcfg, items, _ = setup
+    kw = dict(desired_num=48, dataset=items, batch_size=BATCH, method=method)
+    ref_dir, out_dir = str(tmp_path / "ref"), str(tmp_path / "port")
+    ref = jax_export_runner.run_export(jcfg, None, ref_dir, **kw)
+    ours = export_runner.run_export(cfg, None, out_dir, device="cpu", **kw)
+    assert ours["frames"] == ref["frames"] == len(items)
+    files = _bins(out_dir)
+    assert files == _bins(ref_dir) and len(files) == len(items)
+    for f in files:
+        with open(os.path.join(out_dir, f), "rb") as a, \
+                open(os.path.join(ref_dir, f), "rb") as b:
+            assert a.read() == b.read(), f
 
 
 def test_export_and_eval_repeatability_commands(setup, tmp_path, capsys):

@@ -5,8 +5,9 @@ config presets, ``data/{common,preprocess,synthetic,loaders,pipeline,
 eval_loaders,descriptor_loaders}`` (the indoor tree builders, the
 SceneNN pair loader and the Redwood, 3DMatch and rotated-ModelNet frames
 among them), the host coordinate flip, ``utils/logging``,
-``eval/{export,repeatability,eval_runner,registration,indoor,fgr}`` and the
-CLI's ``_sn_columns``.
+``eval/{export,repeatability,eval_runner,registration,indoor,fgr,baselines}``
+(the ISS, Harris-3D and SIFT-3D baselines among them) and the CLI's
+``_sn_columns``.
 These tests hold each copy equal to usip_tpu's bit for bit on the same
 inputs and seeds (usip_tpu's loaders on their numpy path, its native batch
 loader switched off), and show in a fresh interpreter that importing the
@@ -34,6 +35,7 @@ from usip_tpu.data import pipeline as jax_pipeline
 from usip_tpu.data import preprocess as jax_preprocess
 from usip_tpu.data import synthetic as jax_synthetic
 from usip_tpu.data.common import subsample_fixed as jax_subsample_fixed
+from usip_tpu.eval import baselines as jax_baselines
 from usip_tpu.eval import eval_runner as jax_eval_runner
 from usip_tpu.eval import export as jax_export
 from usip_tpu.eval import indoor as jax_indoor
@@ -51,6 +53,7 @@ from usip_tpu_torch.data import pipeline as torch_pipeline
 from usip_tpu_torch.data import preprocess as torch_preprocess
 from usip_tpu_torch.data import synthetic as torch_synthetic
 from usip_tpu_torch.data.common import subsample_fixed
+from usip_tpu_torch.eval import baselines as torch_baselines
 from usip_tpu_torch.eval import eval_runner as torch_eval_runner
 from usip_tpu_torch.eval import export as torch_export
 from usip_tpu_torch.eval import indoor as torch_indoor
@@ -905,3 +908,60 @@ def test_indoor_registration_equals_usip_tpu(tmp_path):
             json.dumps({k: v._asdict() for k, v in want.items()})
         assert torch_indoor.summarize(got) == jax_indoor.summarize(want)
         assert got["s0"].rs_num > 0
+
+
+# ------------------------------------------------- classical baselines ----
+
+def _world_scan(seed, n):
+    """n points of a synthetic street (ground, boxes, poles) within 12 m of
+    its start, float32 as the loaders give them."""
+    rng = np.random.default_rng(seed)
+    pts, _, _ = torch_synthetic._make_world(rng, 20.0)
+    near = pts[np.linalg.norm(pts[:, :2] - [5.0, 0.0], axis=1) < 12.0]
+    return near[rng.choice(near.shape[0], n, replace=False)]
+
+
+@pytest.mark.parametrize("method,kwargs", [
+    ("iss", {}), ("iss", {"salient_radius": 1.0, "non_max_radius": 0.5,
+                          "max_keypoints": 20}),
+    ("harris", {}), ("harris", {"radius": 0.6, "nms_radius": 0.4,
+                                "threshold": -1e-4, "max_keypoints": 16}),
+    ("sift", {"n_octaves": 2, "n_scales_per_octave": 3}),
+    ("sift", {"min_scale": 0.3, "n_octaves": 1, "max_keypoints": 12}),
+    ("random", {"num": 50})])
+def test_baselines_equal_usip_tpu(method, kwargs):
+    """ISS, Harris-3D, SIFT-3D and random keypoints through
+    ``baseline_keypoints``, bit for bit on the same scan and seed."""
+    pc = _world_scan(5, 600)
+    ours = torch_baselines.baseline_keypoints(
+        method, pc, np.random.default_rng(1), **kwargs)
+    ref = jax_baselines.baseline_keypoints(
+        method, pc, np.random.default_rng(1), **kwargs)
+    assert ours.dtype == ref.dtype and ours.shape[0] > 0
+    np.testing.assert_array_equal(ours, ref)
+
+
+@pytest.mark.parametrize("rng_seed", [None, 3])
+def test_sift_subsampling_equals_usip_tpu(monkeypatch, rng_seed):
+    """Past ``SIFT_MAX_POINTS`` (the same constant) SIFT runs on a random
+    subset of the cloud, drawn from the caller's generator or from seed 0:
+    the same subset in both packages (the detector itself replaced by the
+    identity, as it takes minutes at that size); below it, and with
+    ``sift_max_points`` lowered, the real detector on the same subset."""
+    assert torch_baselines.SIFT_MAX_POINTS == jax_baselines.SIFT_MAX_POINTS
+    rng = (lambda: None) if rng_seed is None else (
+        lambda: np.random.default_rng(rng_seed))
+    big = np.random.default_rng(7).normal(
+        0, 5, (jax_baselines.SIFT_MAX_POINTS + 300, 3)).astype(np.float32)
+    for mod in (torch_baselines, jax_baselines):
+        monkeypatch.setattr(mod, "sift3d_keypoints", lambda pc, **kw: pc)
+    ours = torch_baselines.baseline_keypoints("sift", big, rng())
+    assert ours.shape == (jax_baselines.SIFT_MAX_POINTS, 3)
+    np.testing.assert_array_equal(
+        ours, jax_baselines.baseline_keypoints("sift", big, rng()))
+    monkeypatch.undo()
+    pc = _world_scan(6, 400)
+    kw = {"sift_max_points": 250, "n_octaves": 1, "n_scales_per_octave": 3}
+    np.testing.assert_array_equal(
+        torch_baselines.baseline_keypoints("sift", pc, rng(), **kw),
+        jax_baselines.baseline_keypoints("sift", pc, rng(), **kw))

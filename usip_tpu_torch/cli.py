@@ -550,9 +550,10 @@ def main(argv=None):
     p.add_argument("--out", required=True)
     p.add_argument("--nms-radius", type=float, default=0.0)
     p.add_argument("--num-keypoints", type=int, default=128)
-    p.add_argument("--method", default="model", choices=["model", "random"],
-                   help="trained detector or random keypoints (the ISS, "
-                        "Harris and SIFT baselines are not ported)")
+    p.add_argument("--method", default="model",
+                   choices=["model", "random", "iss", "harris", "sift"],
+                   help="trained detector or a classical baseline "
+                        "(save_keypoints.py method switch)")
     p.add_argument("--noise-sigma", type=float, default=0.0)
     p.add_argument("--downsample-rate", type=int, default=1,
                    help="detect on input_pc_num/rate points "

@@ -6,7 +6,7 @@ data/{match3d_eval,modelnet_rotated}_loader.py)."""
 from __future__ import annotations
 
 import os
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 
@@ -64,15 +64,33 @@ class KittiTestFrames:
 
 
 class OxfordTestFrames:
-    """Fixed 828 test models, ENU->cam (evaluation/oxford_test_loader.py:43-88)."""
+    """The Oxford test models ``0.npy .. {n-1}.npy``, ENU->cam
+    (evaluation/oxford_test_loader.py:43-88).
+
+    ``count=None`` (the port's default) counts the models on disk, at most
+    the protocol's 828: the full tree gives usip_tpu's 828, a smaller one (a
+    synthetic tree) its own count, where usip_tpu always reads 828. A gap in
+    the numbering raises, as usip_tpu fails on the missing file."""
 
     def __init__(self, cfg: DataConfig, sn_len: int = 4, seed: int = 0,
-                 count: int = 828):
+                 count: Optional[int] = None):
         self.cfg = cfg
         self.sn_len = sn_len
-        self.count = count
         self._rng = np.random.default_rng(seed)
         self.folder = os.path.join(cfg.dataroot, "test_models_20k_np_nofilter")
+        if count is None:
+            names = {f for f in os.listdir(self.folder) if f.endswith(".npy")}
+            if not names:
+                raise FileNotFoundError(f"no Oxford test models in "
+                                        f"{self.folder}")
+            missing = sorted(set(map("{}.npy".format, range(len(names))))
+                             - names)
+            if missing:
+                raise FileNotFoundError(
+                    f"Oxford test models in {self.folder} are not numbered "
+                    f"0..{len(names) - 1}: {missing[0]} is missing")
+            count = min(len(names), 828)
+        self.count = count
 
     def __len__(self):
         return self.count

@@ -27,7 +27,7 @@ import torch
 from usip_tpu_torch.config import Config
 from usip_tpu_torch.data.common import split_pc_sn, subsample_fixed
 from usip_tpu_torch.data.pipeline import BatchLoader
-from usip_tpu_torch.eval.baselines import random_keypoints
+from usip_tpu_torch.eval.baselines import baseline_keypoints
 from usip_tpu_torch.eval.export import (ensure_keypoint_number,
                                         select_keypoints, write_keypoints_bin)
 from usip_tpu_torch.inference import resolve_device
@@ -236,18 +236,18 @@ def run_export(cfg: Config, checkpoint: Optional[str], out_dir: str,
     """Export every frame of the eval set; returns summary stats (frames,
     mean keypoint count, clouds/s after the first batch).
 
-    ``method``: 'model' (the trained detector) or 'random' (the classical
-    random baseline, save_keypoints.py:289-325); ``noise_sigma`` adds
-    gaussian noise to the input cloud (save_keypoints.py:34);
-    ``with_sigmas`` writes 4-column (xyz, sigma) bins, the form the
-    reference's visualize_keypoints viewer reads; pad-from-cloud rows carry
-    sigma=inf. ``node_draws(i)``, where given, returns batch ``i``'s node
-    draws ``(subset rows, FPS seed rows)`` instead of the generator's (the
-    tests pass JAX's). ``subset``: the rotated-ModelNet half to export.
+    ``method``: 'model' (the trained detector) or a classical baseline,
+    'random', 'iss', 'harris' or 'sift' at its defaults
+    (save_keypoints.py:289-325); ``noise_sigma`` adds gaussian noise to
+    the input cloud (save_keypoints.py:34); ``with_sigmas`` writes
+    4-column (xyz, sigma) bins, the form the reference's
+    visualize_keypoints viewer reads; pad-from-cloud rows carry sigma=inf.
+    ``node_draws(i)``, where given, returns batch ``i``'s node draws
+    ``(subset rows, FPS seed rows)`` instead of the generator's (the tests
+    pass JAX's). ``subset``: the rotated-ModelNet half to export.
     """
-    if method not in ("model", "random"):
-        raise NotImplementedError(f"export method {method!r} is not ported "
-                                  "(model and random are)")
+    if method not in ("model", "random", "iss", "harris", "sift"):
+        raise KeyError(f"unknown export method {method!r}")
     if with_sigmas and method != "model":
         raise ValueError("with_sigmas requires method='model' (classical "
                          "baselines carry no uncertainty estimate)")
@@ -286,9 +286,11 @@ def run_export(cfg: Config, checkpoint: Optional[str], out_dir: str,
                     selected = np.concatenate(
                         [sel_kp, sel_sig[:, None].astype(sel_kp.dtype)], axis=1)
             else:
-                selected = ensure_keypoint_number(
-                    random_keypoints(rng, pc_batch[b], desired_num),
-                    pc_batch[b], desired_num, rng)
+                raw_kp = baseline_keypoints(
+                    method, pc_batch[b], rng,
+                    **({"num": desired_num} if method == "random" else {}))
+                selected = ensure_keypoint_number(raw_kp, pc_batch[b],
+                                                  desired_num, rng)
             counts.append(selected.shape[0])
             seq, frame = int(raw["seq"][b]), int(raw["frame"][b])
             write_keypoints_bin(

@@ -17,8 +17,9 @@ In train mode (``.train()``) every BatchNorm uses batch statistics and
 updates its running statistics with the momentum ``forward`` is given, and
 the SOM trunk's scatter-max passes gradients by ``cfg.scatter_backend``'s
 tie rule; the kNN-fusion layer runs layered (the fused chain kernel folds
-eval-mode BatchNorm and serves only eval). Training is wired and checked for
-the SOM trunk.
+eval-mode BatchNorm and serves only eval). Every trunk trains: the SOM trunk
+with ``cfg.k`` nodes a point (each point stacked k times, k-major), and the
+knn and ball trunks.
 
 Channels-last: pc ``(B, N, 3)``, sn ``(B, N, S)``, nodes ``(B, M, 3)``.
 Outputs: anchors ``(B, M, 3)`` (the recomputed nodes of the SOM trunk, the
@@ -101,9 +102,6 @@ class Detector(nn.Module):
         super().__init__()
         if cfg.grouping not in ("som", "knn", "ball"):
             raise ValueError(f"unknown grouping {cfg.grouping!r}")
-        if cfg.grouping == "som" and cfg.k != 1:
-            raise NotImplementedError("only k=1 point->node assignment is "
-                                      "wired into the som trunk")
         if cfg.group_method not in ("exact", "approx"):
             raise ValueError(f"unknown group_method {cfg.group_method!r}")
         self.cfg = cfg
@@ -141,17 +139,24 @@ class Detector(nn.Module):
     def som_trunk(self, pc: Tensor, sn: Tensor, node: Tensor
                   ) -> Tuple[Tensor, Tensor]:
         """Assignment -> cluster means -> decentre -> PointNet -> scatter-max
-        -> scatter-back fusion -> PointNet -> scatter-max. Returns the
-        anchors ``(B, M, 3)`` and node features ``(B, M, C1)`` fp32."""
+        -> scatter-back fusion -> PointNet -> scatter-max. With ``cfg.k >
+        1`` each point joins its k nearest nodes: the cloud is stacked k
+        times, k-major (``jnp.tile``'s order, the assignment's), and every
+        reduction runs over the kN stacked points. Returns the anchors
+        ``(B, M, 3)`` and node features ``(B, M, C1)`` fp32."""
         cfg = self.cfg
         m = node.shape[1]
         assign = assign_points_to_nodes(
-            pc, node, round_bf16=cfg.compute_dtype == "bfloat16")
-        ids = assign.ids
+            pc, node, k=cfg.k, round_bf16=cfg.compute_dtype == "bfloat16")
+        ids = assign.ids                                       # (B, kN)
         occ = assign.occupancy[..., None]
-        cluster_mean, _ = segment_mean_count(pc, ids, m)
-        decentered = pc - scatter_back(cluster_mean, ids)
-        x_aug = (torch.cat([decentered, sn], dim=-1)
+        # k-major copies; a view, no copy, at k=1
+        stack = lambda x: x.unsqueeze(1).expand(  # noqa: E731
+            -1, cfg.k, -1, -1).flatten(1, 2)
+        pc_stack = stack(pc)                                   # (B, kN, 3)
+        cluster_mean, _ = segment_mean_count(pc_stack, ids, m)
+        decentered = (pc_stack - scatter_back(cluster_mean, ids)).detach()
+        x_aug = (torch.cat([decentered, stack(sn)], dim=-1)
                  if cfg.surface_normal_len else decentered)
         f1 = self.first_pointnet(x_aug).float()
         n1 = masked_scatter_max(f1, ids, m, cfg.scatter_backend) * occ

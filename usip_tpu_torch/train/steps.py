@@ -264,16 +264,21 @@ def make_detector_train_step(cfg: Config):
     place. The metrics are usip_tpu's plus ``grad_norm``, as tensors on the
     model's device (nothing waits for the card). ``mark``, where given, is
     called after each part (inputs, forward, losses, backward, optimizer),
-    for timing."""
+    for timing. ``_inputs`` is a private hook for checks, not for training
+    paths: the step's prepared ``(src, dst, gt)``
+    (``_prepare_detector_inputs``' result, on the model's device), taken
+    instead of preparing them from ``batch`` and the draws, so that one
+    step runs on two devices from the same augmented clouds."""
 
     def train_step(state: TrainState, batch, epoch: int, *,
                    draws: Optional[DetectorDraws] = None,
                    generator: Optional[torch.Generator] = None,
-                   mark: Optional[Callable[[], None]] = None):
+                   mark: Optional[Callable[[], None]] = None,
+                   _inputs=None):
         mark = mark or _no_mark
         model, opt = state.model, state.optimizer
-        src, dst, gt = _prepare_detector_inputs(batch, cfg, True, draws,
-                                                generator)
+        src, dst, gt = _inputs or _prepare_detector_inputs(
+            batch, cfg, True, draws, generator)
         mark()
         momentum = bn_momentum_schedule(
             cfg.train.bn_momentum, epoch, cfg.train.bn_momentum_decay_step,
