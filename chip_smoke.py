@@ -122,7 +122,33 @@ script exits nonzero without the final ``ok`` line:
    checkpoint (K1, K3, K4 must launch), random keypoints and the ISS
    baseline, ``eval-repeatability --oxford-root --coord-fix oxford`` on
    each, and the quality gate with the ball trunk (its ratio reported, not
-   held).
+   held);
+12. ranks (``usip_tpu_torch.parallel``): the kernels at the ranks' shapes
+   against their plain versions (FPS (4, 2048) -> 512, min/argmin (16,
+   8192) x 512, scatter-max (16, 8192), the chain at (4, 512, 16, 131);
+   smallest-k at the sharded gathers' (8, 512, 8192) k=64, timed beside
+   its bound and ``torch.topk``); then 2 gloo ranks sharing the card
+   (NCCL refuses two ranks on one device), spawned by the script: the
+   data-parallel KITTI detector and descriptor steps at full width,
+   global batch 8 (3 fp32 steps each against the one-rank step from the
+   same state and draws, under deterministic algorithms: metrics,
+   gradients under ``GRAD_TOL`` or twice the one-rank step's own
+   reordering noise, running statistics within 2e-5, replicas
+   bit-identical; then 5 bf16 steps with each rank's launches, step time,
+   clouds/s, peak memory), the data-parallel export byte-identical to one
+   rank at the per-rank batch, the point-sharded chamfer, single-side
+   chamfer, knn and ball gathers (indices equal to one rank's), detector
+   forward, 2 train steps and ``sharded_describe`` against one rank, and
+   tensor parallelism's forward and 2 train steps against one rank; NCCL
+   at world size 1 through torchrun's environment (over 2 cards where
+   the host has them, else ``nccl_2card: not run``); ``train-detector
+   --num-devices 2 --dist-backend gloo`` 2 epochs and ``--resume auto``
+   (rank 0 alone writes), ``export-keypoints --num-devices 2``
+   byte-identical to ``--num-devices 1`` at the per-rank batch,
+   ``train-descriptor --num-devices 2`` one epoch, on phase 7's tree cut
+   to 2 scans a train sequence; the detect -> describe pipeline over 4
+   microbatches on two streams against the sequential path, both
+   throughputs.
 
 The second-to-last line is a JSON object with one entry per kernel (time,
 plain and library times, bound, launches); the last is ``{"ok": true,
@@ -1496,6 +1522,26 @@ class KeypointsFrom:
     def __call__(self, pc, sn, node):
         out = self.det(pc.cpu(), sn.cpu(), node.cpu())
         return tuple(t.to(pc.device) for t in out)
+
+
+class PerCloud:
+    """A frozen detector run one cloud at a time: a cloud's keypoints are
+    then the same bits whatever batch it comes in (a rank's half or the
+    whole), so the data-parallel descriptor check compares the
+    descriptor's part alone (a keypoint moved by a reduction order can
+    move a point across a ball's boundary, as ``KeypointsFrom`` notes)."""
+
+    def __init__(self, det):
+        self.det = det
+
+    def eval(self):
+        self.det.eval()
+        return self
+
+    def __call__(self, pc, sn, node):
+        outs = [self.det(pc[i:i + 1], sn[i:i + 1], node[i:i + 1])
+                for i in range(pc.shape[0])]
+        return tuple(torch.cat(parts) for parts in zip(*outs))
 
 
 def pair_batch(rng, b, n, device, wire="float16"):
@@ -3038,6 +3084,774 @@ def phase11(card, tmp):
     return launches, k4, k5
 
 
+# --------------------------------------------------------------- phase 12 --
+# ranks: two gloo ranks share the one card (NCCL refuses two ranks on one
+# device); NCCL at world size 1; the 2-card NCCL run where there are 2 cards
+RANKS = 2
+DP_CHECK_STEPS = 3
+DP_STEPS = 5
+SP_STEPS = 2
+TP_STEPS = 2
+PP_MICRO = 4
+# the per-rank shapes phase 12 adds: K4 at the sharded knn and ball
+# gathers' local select (8, 512, 8192) k=64, scores read once, values and
+# indices written
+SHARD_K4 = (8, 512, 8192, 64)
+SHARD_K4_BOUND = bound(8 * 512 * 8192 * 4 + 8 * 512 * 64 * 8, 0, FP32_FLOPS)
+# the kernels each rank's path must launch
+# phase 12's tree: phase 7's, cut to 2 scans a train sequence
+RANK_TREE = {**TREE, "frames_per_seq": 2}
+# phase 12's counted runs (rank 0's counts) in the kernels line
+RANK_LAUNCH_TAGS = ("dp_detector", "dp_descriptor", "dp_export",
+                    "sharded_forward", "sharded_train", "sharded_gather",
+                    "tp_train", "pipeline")
+RANK_KERNELS = {
+    "dp_detector": ("fps", "min_argmin", "scatter_max", "smallest_k"),
+    "dp_descriptor": ("fps", "min_argmin", "scatter_max", "smallest_k"),
+    "dp_export": ("fps", "min_argmin", "scatter_max", "fusion_chain",
+                  "smallest_k"),
+    "sharded_forward": ("min_argmin", "scatter_max", "fusion_chain",
+                        "smallest_k"),
+    "sharded_train": ("min_argmin", "scatter_max", "smallest_k"),
+    "sharded_gather": ("smallest_k",),
+    "tp_train": ("fps", "min_argmin", "scatter_max", "smallest_k"),
+}
+
+
+def _rank_entry(rank, world, init, out_dir, fn, arg, backend):
+    """One rank of phase 12: join the group (a ``file://`` rendezvous), run
+    ``fn(rank, world, arg)``, save its result."""
+    import torch.distributed as dist
+
+    from usip_tpu_torch.parallel import initialize_distributed
+    os.environ["LOCAL_RANK"] = str(rank)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    initialize_distributed(f"file://{init}", world, rank, backend=backend,
+                           device="cuda", timeout=600)
+    try:
+        res = fn(rank, world, arg)
+        dist.barrier()
+        torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def run_ranks(fn, tmp, arg=None, world=RANKS, backend="gloo"):
+    """``fn(rank, world, arg)`` in ``world`` rank processes (spawned; a
+    rank that fails raises here); their results, rank by rank."""
+    import torch.multiprocessing as mp
+    d = tempfile.mkdtemp(dir=tmp)
+    mp.start_processes(_rank_entry, args=(world, os.path.join(d, "rdzv"), d,
+                                          fn, arg, backend),
+                       nprocs=world, start_method="spawn")
+    return [torch.load(os.path.join(d, f"rank{r}.pt"), weights_only=False)
+            for r in range(world)]
+
+
+def _hash(module):
+    import hashlib
+    h = hashlib.sha256()
+    for name, t in sorted(module.state_dict().items()):
+        h.update(name.encode())
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _counted(fn):
+    """``fn()`` with the launch counts set to 0 before and read after."""
+    kernels.reset_launch_counts()
+    out = fn()
+    sync()
+    return out, dict(kernels.LAUNCHES)
+
+
+def _step_checks(tag, dp_res, one_res, dp_model, one_model):
+    """A step against the one-rank step from the same state and draws:
+    metrics (relative), gradients (``grad_errors``: the worst error over
+    the floored scale, the lowest cosine), running statistics (the
+    largest difference over the 2e-5 bound, 2e-5 + 2e-5 |ref|)."""
+    rel = {k: abs(float(dp_res[k]) - float(one_res[k]))
+           / max(abs(float(one_res[k])), 1e-30) for k in one_res}
+    grads = {"cuda": {n: p.grad.double().cpu() for n, p in
+                      dp_model.named_parameters() if p.grad is not None},
+             "cpu": {n: p.grad.double().cpu() for n, p in
+                     one_model.named_parameters() if p.grad is not None}}
+    worst, low, _ = grad_errors(tag, grads)
+    bn = max(float(((a - b).abs() / (2e-5 + 2e-5 * b.abs())).max())
+             for (n, a), b in zip(dp_model.state_dict().items(),
+                                  one_model.state_dict().values())
+             if n.endswith(("running_mean", "running_var")))
+    return {"rel": rel, "grad_worst": worst, "grad_cos": low,
+            "bn_over_tol": bn}
+
+
+def _reordered(batch, b):
+    """The batch with its halves swapped (rank 1's rows first) and the
+    index that does it: the same global batch, summed in another order."""
+    perm = torch.cat([torch.arange(b // 2, b), torch.arange(b // 2)])
+    if isinstance(batch, PackedPairBatch):
+        inv = torch.argsort(perm).to(batch.neg_idx.device)
+        return PackedPairBatch(batch.x[perm.to(batch.x.device)],
+                               inv[batch.neg_idx[perm.to(
+                                   batch.neg_idx.device)]]), perm
+    return type(batch)(*(t[perm.to(t.device)] for t in batch)), perm
+
+
+def _dp_step_case(rank, world, mesh, make_step, state, local, full, draws_of,
+                  steps_n, extra=()):
+    """``steps_n`` data-parallel steps from ``state``; before each, rank 0
+    keeps two copies of the state and after it runs the one-rank step on
+    the whole batch with the same draws from one copy, and from the other
+    the one-rank step on the same batch with its halves swapped (the same
+    function summed in another order: the reduction-order noise of the
+    one-rank step itself), and compares the data-parallel step and the
+    reordered step with the one-rank step."""
+    from usip_tpu_torch.nn.layers import set_bn_process_group
+    step, one = make_step(mesh), make_step(None)
+    b = int(full[0].shape[0])
+    out = []
+    for i in range(steps_n):
+        # the step sets its process group on every BatchNorm again; a
+        # process group is not copied
+        set_bn_process_group(state.model, None)
+        before = copy.deepcopy(state) if rank == 0 else None
+        again = copy.deepcopy(state) if rank == 0 else None
+        draws = draws_of(i)
+        m = step(state, *extra, local, 0, draws=draws)
+        if rank == 0:
+            m1 = one(before, *extra, full, 0, draws=draws)
+            swapped, perm = _reordered(full, b)
+            m2 = one(again, *extra, swapped, 0,
+                     draws=train_steps.draws_rows(
+                         draws, perm.to(full[0].device), b))
+            out.append({"dp": _step_checks(f"dp step {i}", m, m1,
+                                           state.model, before.model),
+                        "order": _step_checks(f"reordered step {i}", m2, m1,
+                                              again.model, before.model)})
+    return out, _hash(state.model)
+
+
+def _dp_timed(mesh, make_step, state, local, gen, extra=()):
+    """``DP_STEPS`` bf16 steps with the counts read a rank, then the step
+    time over 5 pipelined steps and the peak memory of this rank."""
+    step = make_step(mesh)
+    _, launches = _counted(lambda: [step(state, *extra, local, 0,
+                                         generator=gen)
+                                    for _ in range(DP_STEPS)])
+    torch.cuda.reset_peak_memory_stats()
+    import torch.distributed as dist
+    dist.barrier()
+    t0 = time.perf_counter()
+    ms = [step(state, *extra, local, 0, generator=gen) for _ in range(5)]
+    sync()
+    dist.barrier()
+    wall = (time.perf_counter() - t0) / 5 * 1e3
+    return {"launches": launches, "step_ms": wall,
+            "loss": [float(m["loss"]) for m in ms],
+            "peak_mib": torch.cuda.max_memory_allocated() / 2**20}
+
+
+def ranks_work(rank, world, arg):
+    """Phase 12's in-process work of one rank: the data-parallel detector
+    and descriptor steps (fp32 checks against one rank, bf16 timing), the
+    data-parallel export, the point-sharded ops, detector and trainer,
+    ``sharded_describe``, and tensor parallelism."""
+    from usip_tpu_torch.eval.export_runner import run_export
+    from usip_tpu_torch.parallel import make_mesh, shard_batch
+    dev = torch.device("cuda")
+    mesh = make_mesh(world)
+    out = {}
+
+    # -- the data-parallel detector step: global batch 8, full width
+    cfg32 = get_config("kitti", **{"detector.compute_dtype": "float32",
+                                   "train.num_devices": world})
+    rng = np.random.default_rng(120)
+    b = cfg32.train.batch_size
+    full = parent_batch(rng, cfg32, b, dev)
+    local = shard_batch(mesh, full)
+    state = train_state(cfg32, dev)
+    p = cfg32.data.parent_pc_num
+
+    def det_draws(i):
+        return train_steps.detector_draws(
+            cfg32, b, 4, torch.Generator(device=dev).manual_seed(100 + i),
+            True, p)
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        out["dp_detector_checks"], h = _dp_step_case(
+            rank, world, mesh,
+            lambda m: make_detector_train_step(cfg32, m), state, local, full,
+            det_draws, DP_CHECK_STEPS)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    out["dp_detector_hash"] = h
+    cfg = get_config("kitti", **{"train.num_devices": world})
+    state = train_state(cfg, dev)
+    out["dp_detector"] = _dp_timed(
+        mesh, lambda m: make_detector_train_step(cfg, m), state, local,
+        torch.Generator(device=dev).manual_seed(SEED))
+
+    # -- the data-parallel descriptor step: 8 pairs, full width
+    dcfg32 = get_config("kitti", role="descriptor", **DESC_FP32,
+                        **{"train.num_devices": world})
+    full = pair_batch(np.random.default_rng(121), 8, 16384, dev,
+                      dcfg32.data.wire_dtype)
+    local = PackedPairBatch(shard_batch(mesh, full.x), full.neg_idx)
+    det = seeded_detector(dcfg32, dev, head_init=True).requires_grad_(False)
+    dstate = TrainState.create(seeded_descriptor(dcfg32, dev),
+                               dcfg32.train.lr)
+
+    def desc_draws(i):
+        return train_steps.descriptor_draws(
+            dcfg32, 8, 16384, torch.Generator(device=dev).manual_seed(200 + i))
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        out["dp_descriptor_checks"], h = _dp_step_case(
+            rank, world, mesh,
+            lambda m: make_descriptor_train_step(dcfg32, mesh=m), dstate,
+            local, full, desc_draws, DP_CHECK_STEPS, extra=(PerCloud(det),))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    out["dp_descriptor_hash"] = h
+    dcfg = get_config("kitti", role="descriptor",
+                      **{"train.num_devices": world})
+    det = seeded_detector(dcfg, dev, head_init=True).requires_grad_(False)
+    dstate = TrainState.create(seeded_descriptor(dcfg, dev), dcfg.train.lr)
+    out["dp_descriptor"] = _dp_timed(
+        mesh, lambda m: make_descriptor_train_step(dcfg, mesh=m), dstate,
+        local, torch.Generator(device=dev).manual_seed(SEED), extra=(det,))
+
+    # -- the data-parallel export (global batch 8) of phase 7's checkpoint
+    ecfg = get_config("kitti", **{"data.dataroot": arg["root"],
+                                  "train.num_devices": world})
+    out["dp_export"] = _counted(lambda: run_export(
+        ecfg, arg["ckpt"], arg["export_dir"], device="cuda"))
+
+    # the comparisons below run under deterministic algorithms: the SOM
+    # trunk's cluster sums (scatter_add) otherwise add in a run-dependent
+    # order on the card, and an anchor moved by that can swap a node's
+    # 16th and 17th nearest neighbours between two calls of one forward
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        out["sharded"], out["tp"] = ranks_numerics(rank, world)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return out
+
+
+def ranks_numerics(rank, world):
+    """The point-sharded ops, detector forward, train steps and describe,
+    and tensor parallelism's forward and train steps, on this rank, with
+    rank 0's one-rank references."""
+    from usip_tpu_torch.parallel import sharded_ops as so
+    from usip_tpu_torch.parallel import tensor_parallel as tpm
+    from usip_tpu_torch.parallel.sharded_descriptor import sharded_describe
+    from usip_tpu_torch.parallel.sharded_detector import (
+        sharded_detector_forward)
+    from usip_tpu_torch.parallel.sharded_train import (
+        make_sharded_detector_train_step)
+    from usip_tpu_torch import losses as L
+    dev = torch.device("cuda")
+    # -- point-sharded: the cloud's 16384 points over the ranks
+    pmesh = so.make_point_mesh(world)
+    sh = lambda x: so.shard_points(pmesh, x).contiguous()  # noqa: E731
+    rng = np.random.default_rng(122)
+    pc, sn = (torch.from_numpy(a).to(dev) for a in kitti_cloud(rng, 8, 16384))
+    kp = pc[:, :512] + 0.1
+    sig = torch.rand(8, 512, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(9)) + 0.5
+    res = {}
+    kp2 = kp + 0.05 * torch.randn(kp.shape, device=dev, generator=(
+        torch.Generator(device=dev).manual_seed(8)))
+    ch = so.sharded_chamfer_probabilistic(pmesh, sh(kp2), sh(kp), sh(sig),
+                                          sh(sig.flip(1)))
+    res["chamfer"] = [float(ch.loss), float(ch.chamfer_pure)]
+    res["single"] = so.sharded_single_side_chamfer(pmesh, kp, sh(pc))
+    (d, f, idx), res["knn_launches"] = _counted(
+        lambda: so.sharded_knn_gather(pmesh, kp, sh(pc), sh(sn), 64,
+                                      return_indices=True))
+    res["knn_idx"] = idx
+    pri = torch.rand(8, 16384, generator=torch.Generator(
+        device=dev).manual_seed(5), device=dev)
+    res["ball"] = so.sharded_ball_gather(pmesh, kp, sh(pc), sh(sn), 2.0, 64,
+                                         sh(pri), return_indices=True)
+    if rank == 0:
+        res["one_chamfer"] = [float(t) for t in L.chamfer_probabilistic(
+            kp2, kp, sig, sig.flip(1))[:2]]
+        res["one_single"] = L.single_side_chamfer(kp, pc)
+        res["one_knn_idx"] = knn_group_idx(kp, pc)
+        res["one_ball"] = ball_query(pc, kp, 2.0, 64, pri).idx
+    scfg = get_config("kitti", **{"detector.compute_dtype": "float32"})
+    det = seeded_detector(scfg, dev)
+    node = sample_nodes(pc, 512, 8, generator=torch.Generator(
+        device=dev).manual_seed(6))
+    res["forward"], res["forward_launches"] = _counted(
+        lambda: sharded_detector_forward(pmesh, scfg, det, sh(pc), sh(sn),
+                                         node))
+    if rank == 0:
+        res["one_forward"] = detector_infer_fused(det, pc, sn, node)
+    st = TrainState.create(seeded_detector(scfg, dev), 1e-3)
+    bb = 4
+    R = torch.eye(3, device=dev).expand(bb, 3, 3).contiguous()
+    args = (pc[:bb], sn[:bb], node[:bb], pc[bb:], sn[bb:], node[bb:], R,
+            torch.ones(bb, device=dev), torch.zeros(bb, 3, device=dev))
+    sp_args = [sh(a) if i in (0, 1, 3, 4) else a for i, a in enumerate(args)]
+    step = make_sharded_detector_train_step(scfg, pmesh)
+    ms, res["train_launches"] = _counted(
+        lambda: [step(st, *sp_args, 0) for _ in range(SP_STEPS)])
+    res["train_losses"] = [float(m["loss"]) for m in ms]
+    if rank == 0:
+        one = seeded_detector(scfg, dev)
+        res["one_train_loss"] = one_rank_sharded_loss(one, args, scfg)
+    dcfg = get_config("kitti", role="descriptor", **DESC_FP32)
+    desc = seeded_descriptor(dcfg, dev).eval()
+    kp256 = kp[:, :256].contiguous()
+    res["describe"] = sharded_describe(pmesh, dcfg, desc, sh(pc), sh(sn),
+                                       kp256, sh(pri))
+    if rank == 0:
+        with torch.no_grad():
+            res["one_describe"] = desc(pc, sn, kp256, pri)
+    sharded = res
+
+    # -- tensor parallel: the fusion block and head over the ranks, c2 512
+    cmesh = tpm.make_channel_mesh(world)
+    det = seeded_detector(scfg, dev)
+    res = {"forward": tpm.tensor_parallel_detector_forward(
+        cmesh, scfg, det, pc, sn, node)}
+    if rank == 0:
+        with torch.no_grad():
+            res["one_forward"] = det.eval()(pc, sn, node)
+    tcfg = get_config("kitti", **{"detector.compute_dtype": "float32"})
+    tstate = tpm.shard_state_tp(cmesh, train_state(tcfg, dev))
+    full = parent_batch(np.random.default_rng(123), tcfg, 8, dev)
+    tstep = make_detector_train_step(tcfg)
+
+    def tp_draws(i):
+        return train_steps.detector_draws(
+            tcfg, 8, 4, torch.Generator(device=dev).manual_seed(300 + i),
+            True, tcfg.data.parent_pc_num)
+
+    ms, res["train_launches"] = _counted(lambda: [
+        tstep(tstate, full, 0, draws=tp_draws(i)) for i in range(TP_STEPS)])
+    res["train"] = [{k: float(v) for k, v in m.items()} for m in ms]
+    if rank == 0:
+        one = train_state(tcfg, dev)
+        res["one_train"] = {k: float(v) for k, v in make_detector_train_step(
+            tcfg)(one, full, 0, draws=tp_draws(0)).items()}
+    res["held"] = sum(q.numel() for n, q in tstate.model.named_parameters()
+                      if n.startswith("tp."))
+    # the whole (replicated) parameters, which every rank must hold alike
+    import hashlib
+    h = hashlib.sha256()
+    for n, q in sorted(tstate.model.named_parameters()):
+        if not tstate.model._is_cut(n):
+            h.update(q.detach().cpu().numpy().tobytes())
+    res["hash"] = h.hexdigest()
+    return sharded, res
+
+
+def knn_group_idx(query, database):
+    """The one-rank kNN indices (64) of ``query`` in ``database``."""
+    from usip_tpu_torch.ops import knn
+    return knn(query, database, 64)[1]
+
+
+def one_rank_sharded_loss(det, args, cfg):
+    """The sharded train step's loss at one rank (same forward, losses)."""
+    from usip_tpu_torch import losses as L
+    from usip_tpu_torch.ops.geometry import apply_se3
+    src_pc, src_sn, src_node, dst_pc, dst_sn, dst_node, R, sc, sh = args
+    det.train()
+    _, kp, sig = det(torch.cat([src_pc, dst_pc]), torch.cat([src_sn, dst_sn]),
+                     torch.cat([src_node, dst_node]), bn_momentum=0.1)
+    b = src_pc.shape[0]
+    ch = L.chamfer_probabilistic(apply_se3(kp[:b], R, sc, sh), kp[b:],
+                                 sig[:b], sig[b:])
+    on = (L.single_side_chamfer(kp[:b], src_pc).mean()
+          + L.single_side_chamfer(kp[b:], dst_pc).mean()) \
+        * cfg.loss.keypoint_on_pc_alpha
+    return float((ch.loss + on).detach())
+
+
+def rank_kernel_checks(card, rng):
+    """The kernels at the ranks' own shapes, against their plain versions:
+    FPS at a rank's node sampling (4, 2048) -> 512, min/argmin at the
+    sharded assignment (16, 8192) x 512, smallest-k at the sharded gathers'
+    local select (8, 512, 8192) k=64 (also timed beside its bound and
+    ``torch.topk``), scatter-max at (16, 8192) C=64 and 128, the fused
+    chain at a rank's export batch (4, 512, 16, 131)."""
+    dev = torch.device("cuda")
+    pc = torch.from_numpy(kitti_cloud(rng, 16, 8192)[0]).to(dev)
+    first = torch.randint(0, 2048, (4,), device=dev, dtype=torch.int32)
+    pts = pc[:4, :2048].contiguous()
+    check(torch.equal(kernels.fps(pts, first, 512),
+                      kernels.fps_plain(pts, first, 512)),
+          "FPS at (4, 2048) -> 512 equal to its plain version")
+    nodes = pc[:, :512].contiguous()
+    got, ref = kernels.min_argmin(pc, nodes), kernels.min_argmin_plain(
+        pc, nodes)
+    check(torch.equal(got[1], ref[1]) and torch.equal(got[0], ref[0]),
+          "min/argmin at (16, 8192) x 512 equal to its plain version")
+    b, m, n, k = SHARD_K4
+    scores = pairwise_sqdist(pc[:b, :m], pc[:b]).contiguous()
+    v, i = kernels.smallest_k(scores, k)
+    pv, pi = kernels.smallest_k_plain(scores, k)
+    check(torch.equal(v, pv) and torch.equal(i, pi),
+          f"smallest-k at {SHARD_K4[:3]} k={k} equal to its plain version")
+    ids = kernels.min_argmin(pc, nodes)[1].long()
+    for c in (64, 128):
+        f = torch.randn(16, 8192, c, device=dev)
+        check(torch.equal(kernels.scatter_max(f, ids, 512),
+                          kernels.scatter_max_plain(f, ids, 512)),
+              f"scatter-max at (16, 8192) C={c} equal to its plain version")
+    det = seeded_detector(get_config("kitti"), dev)
+    ws, bs = kernels.fusion_chain_params(det.knnlayer_1)
+    chain = kernels.prepare_chain(ws, bs)
+    feat = torch.randn(4, 512, 128, device=dev).abs()
+    grouped = knn_group(nodes[:4], nodes[:4], feat, 16).contiguous()
+    ref = kernels.fusion_chain_plain(grouped, ws, bs)
+    chain_err = float((kernels.fusion_chain(grouped, chain)
+                       - ref).abs().max()) / float(ref.abs().max())
+    # phase 2's bound: max|diff| within 1e-2 of max|plain|
+    check(chain_err <= 1e-2, f"fusion chain at (4, 512, 16, 131) within "
+          f"1e-2 of max|plain| ({chain_err:.3e})")
+    k_ms = graph_ms(lambda: kernels.smallest_k(scores, k), 20)
+    plain_ms = time_ms(lambda: kernels.smallest_k_plain(scores, k), 3)
+    lib_ms = graph_ms(lambda: torch.topk(scores, k, largest=False), 20)
+    print(f"[12] {card} | kernels at the ranks' shapes equal to their plain "
+          f"versions (fused chain max|diff| {chain_err:.3e} of max|plain|); "
+          f"smallest-k "
+          f"{SHARD_K4[:3]} k={k}: {k_ms:.4f} ms (CUDA graph), plain "
+          f"{plain_ms:.4f}, torch.topk {lib_ms:.4f}, bound "
+          f"{SHARD_K4_BOUND[0]:.4f} ms ({SHARD_K4_BOUND[1]})", flush=True)
+    return {"ms": k_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": SHARD_K4_BOUND[0], "bound_by": SHARD_K4_BOUND[1]}
+
+
+def nccl_world_one(card):
+    """NCCL at world size 1 through torchrun's environment: the init, the
+    collectives, and a data-parallel detector step on the one-rank mesh."""
+    import torch.distributed as dist
+
+    from usip_tpu_torch.parallel import initialize_distributed, make_mesh
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+           "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(cli._free_port())}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        initialize_distributed(device="cuda")
+        check(dist.get_backend() == "nccl", "NCCL is the default on CUDA")
+        x = torch.arange(4.0, device="cuda")
+        dist.all_reduce(x)
+        parts = [torch.empty_like(x)]
+        dist.all_gather(parts, x)
+        dist.broadcast(x, 0)
+        mesh = make_mesh(1)
+        cfg = get_config("kitti")
+        state = train_state(cfg, mesh.device)
+        batch = parent_batch(np.random.default_rng(124), cfg, 8, mesh.device)
+        m = make_detector_train_step(cfg, mesh)(
+            state, batch, 0, generator=torch.Generator(
+                device=mesh.device).manual_seed(SEED))
+        check(bool(torch.isfinite(m["loss"])), "NCCL world-1 step finite")
+        print(f"[12] {card} | NCCL at world size 1 (torchrun environment): "
+              f"init, all_reduce, all_gather, broadcast, one step on the "
+              f"one-rank mesh, loss {float(m['loss']):.5f}", flush=True)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _tree_bytes(root):
+    out = {}
+    for d, _, files in os.walk(root):
+        for f in files:
+            with open(os.path.join(d, f), "rb") as fh:
+                out[os.path.relpath(os.path.join(d, f), root)] = fh.read()
+    return out
+
+
+def phase12_entry(card, tmp, root, ckpt):
+    """The entry points over 2 gloo ranks on the card: train-detector (2
+    epochs, then --resume auto), export-keypoints byte-identical to one
+    rank at the per-rank batch, train-descriptor one epoch."""
+    ckpt_dir = os.path.join(tmp, "ckpt_ranks")
+    out_dir = os.path.join(ckpt_dir, "ranks")
+    ranks = ["--num-devices", str(RANKS), "--dist-backend", "gloo"]
+    base = ["usip_tpu_torch.cli", "train-detector", "--dataset", "kitti",
+            "--dataroot", root, "--name", "ranks", "--checkpoints-dir",
+            ckpt_dir, "--device", "cuda", "--override", "train.log_every=5"]
+    _, t_first = run_module("train-detector --num-devices 2",
+                            base + ranks + ["--epochs", "2"])
+    first = read_jsonl(os.path.join(out_dir, "ranks_metrics.jsonl"))
+    out, t_resume = run_module("train-detector --num-devices 2 --resume",
+                               base + ranks + ["--epochs", "3", "--resume",
+                                               "auto"])
+    check("at epoch 2" in out, "the resumed 2-rank run starts at epoch 2")
+    recs = read_jsonl(os.path.join(out_dir, "ranks_metrics.jsonl"))
+    steps_logged = [r["step"] for r in recs if r["prefix"] == "train"]
+    check(steps_logged == sorted(set(steps_logged)), "rank 0 alone writes "
+          "the metrics: one record a logged step")
+    check([r["epoch"] for r in recs if r["prefix"] == "train_epoch"]
+          == [0, 1, 2], "three epochs logged once each")
+    check(all(np.isfinite([r["loss"] for r in recs if "loss" in r])),
+          "every 2-rank loss finite")
+    exp = ["usip_tpu_torch.cli", "export-keypoints", "--dataset", "kitti",
+           "--dataroot", root, "--checkpoint", ckpt, "--device", "cuda"]
+    _, t_exp2 = run_module("export-keypoints --num-devices 2",
+                           exp + ranks + ["--batch-size", "8", "--out",
+                                          os.path.join(tmp, "kp_ranks")])
+    _, t_exp1 = run_module("export-keypoints --num-devices 1",
+                           exp + ["--batch-size", "4", "--out",
+                                  os.path.join(tmp, "kp_one")])
+    a, b = (_tree_bytes(os.path.join(tmp, d)) for d in ("kp_ranks",
+                                                        "kp_one"))
+    check(bool(a) and a == b, "export-keypoints over 2 ranks (batch 8) "
+          "byte-identical to 1 rank at the per-rank batch 4")
+    desc = ["usip_tpu_torch.cli", "train-descriptor", "--dataset", "kitti",
+            "--dataroot", root, "--detector-checkpoint", ckpt, "--name",
+            "ranks", "--checkpoints-dir", ckpt_dir, "--device", "cuda",
+            "--epochs", "1"]
+    _, t_desc = run_module("train-descriptor --num-devices 2", desc + ranks)
+    drecs = read_jsonl(os.path.join(ckpt_dir, "ranks_descriptor",
+                                    "ranks_desc_metrics.jsonl"))
+    check(any(r["prefix"] == "desc_epoch" for r in drecs)
+          and all(np.isfinite([r["loss"] for r in drecs if "loss" in r])),
+          "train-descriptor over 2 ranks: an epoch, finite losses")
+    print(f"[12] {card} | entry points over 2 gloo ranks on the card: "
+          f"train-detector 2 epochs {t_first:.1f} s, --resume auto to 3 "
+          f"{t_resume:.1f} s ([epoch, loss] "
+          f"{[(r['epoch'], round(r['loss'], 4)) for r in recs if r['prefix'] == 'train_epoch']}"
+          f"); export-keypoints 2 ranks {t_exp2:.1f} s, 1 rank "
+          f"{t_exp1:.1f} s, {len(a)} frames byte-identical; train-descriptor"
+          f" one epoch {t_desc:.1f} s", flush=True)
+
+
+def phase12_pipeline(card):
+    """detect -> describe over PP_MICRO microbatches on two streams of the
+    card against the sequential path: equal outputs, both throughputs."""
+    from usip_tpu_torch.parallel import pipeline_parallel as pp
+    dev = torch.device("cuda")
+    cfg = get_config("kitti", role="descriptor")
+    det = seeded_detector(cfg, dev, head_init=True)
+    desc = seeded_descriptor(cfg, dev).eval()
+    rng = np.random.default_rng(125)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    mbs, pris = [], []
+    for _ in range(PP_MICRO):
+        pc, sn = (torch.from_numpy(a).to(dev) for a in kitti_cloud(rng, 2,
+                                                                   16384))
+        node = sample_nodes(pc, cfg.data.node_num, 8, generator=gen)
+        mbs.append((pc, sn, node))
+        pris.append(torch.rand(2, 16384, generator=gen, device=dev))
+    pipe = pp.DetectDescribePipeline(cfg, det, desc, devices=("cuda:0",
+                                                              "cuda:0"))
+    # compared under deterministic algorithms (the trunk's scatter sums add
+    # in a run-dependent order on the card otherwise), timed without
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        (out, launches) = _counted(lambda: pipe(mbs, pris))
+        seq = pp.sequential_detect_describe(cfg, det, desc, mbs, pris)
+        sync()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    for got, ref in zip(out, seq):
+        for a, b in zip(got, ref):
+            check(torch.equal(a, b), "pipeline output equal to the "
+                  "sequential path's")
+    t_pipe = time_ms(lambda: pipe(mbs, pris), 5)
+    t_seq = time_ms(lambda: pp.sequential_detect_describe(cfg, det, desc,
+                                                          mbs, pris), 5)
+    clouds = 2 * PP_MICRO
+    print(f"[12] {card} | pipeline detect -> describe, {PP_MICRO} "
+          f"microbatches of 2 clouds on two streams of one card: "
+          f"{t_pipe:.3f} ms ({clouds * 1e3 / t_pipe:.2f} clouds/s) against "
+          f"the sequential {t_seq:.3f} ms ({clouds * 1e3 / t_seq:.2f} "
+          f"clouds/s); outputs equal; launches {launches}", flush=True)
+    return launches
+
+
+def phase12(card, tmp, ckpt):
+    """Training and inference over ranks: the kernels at the ranks' shapes,
+    2 gloo ranks sharing the card (data-parallel steps, export, the
+    point-sharded and tensor-parallel modules), NCCL at world size 1 (and
+    over 2 cards where there are 2), the entry points, the pipeline; on a
+    synthetic KITTI tree of phase 7's scans cut to 2 a train sequence (2
+    steps an epoch at batch 8), with phase 7's checkpoint."""
+    root = os.path.join(tmp, "kitti_tree_ranks")
+    build_synthetic_kitti_tree(root, **RANK_TREE)
+    k4 = rank_kernel_checks(card, np.random.default_rng(126))
+    export_dir = os.path.join(tmp, "kp_dp_inproc")
+    t0 = time.perf_counter()
+    res = run_ranks(ranks_work, tmp, {"root": root, "ckpt": ckpt,
+                                      "export_dir": export_dir})
+    t_ranks = time.perf_counter() - t0
+    r0 = res[0]
+    launches = {}
+    for tag in ("dp_detector", "dp_descriptor"):
+        checks = r0[f"{tag}_checks"]
+        for i, c in enumerate(checks):
+            dp, order = c["dp"], c["order"]
+            print(f"[12] {tag} fp32 step {i}, 2 ranks against 1 (global batch"
+                  f" 8, same state and draws): metrics relative "
+                  f"{json.dumps({k: float(f'{v:.3e}') for k, v in dp['rel'].items()})}"
+                  f", gradients worst {dp['grad_worst'][0]:.3e} "
+                  f"({dp['grad_worst'][1]}), lowest cosine "
+                  f"{dp['grad_cos'][0]:.9f} ({dp['grad_cos'][1]}), running "
+                  f"statistics {dp['bn_over_tol']:.3f} of the 2e-5 bound; "
+                  f"the one-rank step on the batch's halves swapped against "
+                  f"it: worst {order['grad_worst'][0]:.3e} "
+                  f"({order['grad_worst'][1]}), cosine "
+                  f"{order['grad_cos'][0]:.9f}, statistics "
+                  f"{order['bn_over_tol']:.3f}", flush=True)
+            loss_keys = [k for k in dp["rel"] if k != "grad_norm"]
+            check(all(dp["rel"][k] <= 1e-4 for k in loss_keys)
+                  and dp["rel"].get("grad_norm", 0) <= 1e-3,
+                  f"{tag} step {i}: metrics within tolerance of one rank")
+            # GRAD_TOL, or where the one-rank step's own reduction-order
+            # noise (its reordered twin) exceeds it, within twice that noise
+            tol = max(GRAD_TOL[1], 2 * order["grad_worst"][0])
+            cos = min(GRAD_TOL[2], 1 - 2 * (1 - order["grad_cos"][0]))
+            check(dp["grad_worst"][0] <= tol and dp["grad_cos"][0] >= cos,
+                  f"{tag} step {i}: gradients within GRAD_TOL of one rank, "
+                  f"or within twice the one-rank step's reordering noise "
+                  f"({tol:.3e}, cosine {cos:.9f})")
+            check(dp["bn_over_tol"] <= max(1.0, 2 * order["bn_over_tol"]),
+                  f"{tag} step {i}: running statistics within 2e-5 of one "
+                  "rank")
+        check(res[0][f"{tag}_hash"] == res[1][f"{tag}_hash"],
+              f"{tag}: the replicas bit-identical after the fp32 steps")
+        timed = [r[tag] for r in res]
+        for r in timed:
+            check(all(np.isfinite(r["loss"])), f"{tag} bf16 losses finite")
+            for name in RANK_KERNELS[tag]:
+                check(r["launches"][name] > 0, f"kernel {name} launched in "
+                      f"each rank's {tag} steps")
+        step_ms = max(r["step_ms"] for r in timed)
+        print(f"[12] {card} | {tag} bf16, global batch 8 over 2 gloo ranks "
+              f"sharing the card: {step_ms:.3f} ms a step (pipelined, the "
+              f"slower rank), {16e3 / step_ms:.2f} clouds/s; peak memory a "
+              f"rank {[round(r['peak_mib']) for r in timed]} MiB; launches "
+              f"a rank a step {[{k: v / DP_STEPS for k, v in r['launches'].items()} for r in timed]}",
+              flush=True)
+        launches[tag] = timed[0]["launches"]
+    stats, exp_launches = r0["dp_export"]
+    for name in RANK_KERNELS["dp_export"]:
+        check(exp_launches[name] > 0, f"kernel {name} launched in the "
+              "rank's export")
+    launches["dp_export"] = exp_launches
+    from usip_tpu_torch.eval.export_runner import run_export
+    one_dir = os.path.join(tmp, "kp_one_inproc")
+    run_export(get_config("kitti", **{"data.dataroot": root}), ckpt, one_dir,
+               batch_size=4, device="cuda")
+    a, b = _tree_bytes(export_dir), _tree_bytes(one_dir)
+    check(bool(a) and a == b, "run_export over 2 ranks byte-identical to 1 "
+          "rank at the per-rank batch")
+    print(f"[12] run_export over 2 ranks: {json.dumps(stats)}, {len(a)} "
+          f"frames byte-identical to 1 rank at batch 4; launches rank 0 "
+          f"{exp_launches}", flush=True)
+
+    s0, s1 = (r["sharded"] for r in res)
+    tol = lambda a, b: float((a - b).abs().max())  # noqa: E731
+    check(all(abs(x - y) <= 1e-5 * abs(y) for x, y in
+              zip(s0["chamfer"], s0["one_chamfer"])),
+          f"sharded chamfer {s0['chamfer']} against 1 rank "
+          f"{s0['one_chamfer']}")
+    check(tol(s0["single"], s0["one_single"]) <= 1e-5,
+          "sharded single-side chamfer against 1 rank")
+    check(torch.equal(s0["knn_idx"], s0["one_knn_idx"].long()),
+          "sharded knn gather's merged indices equal to 1 rank's")
+    counts, gidx = s0["ball"][2], s0["ball"][3]
+    check(bool(((counts == 0)[..., None] | (gidx == s0["one_ball"].long())
+                ).all()), "sharded ball gather's indices equal to 1 rank's "
+          "(non-empty balls)")
+    # anchors to 1e-4; keypoints and sigmas within 1e-2 of max|ref|: the
+    # fused chain rounds its operands to bf16, where a reduction-order
+    # difference of the trunk moves a value across a rounding boundary
+    fwd = [tol(a, b) / (1.0 if i == 0 else float(b.abs().max()))
+           for i, (a, b) in enumerate(zip(s0["forward"], s0["one_forward"]))]
+    check(fwd[0] <= 1e-4 and max(fwd[1:]) <= 1e-2, f"sharded detector "
+          f"forward against 1 rank's serving forward {fwd}")
+    check(all(np.isfinite(s0["train_losses"])) and abs(
+        s0["train_losses"][0] - s0["one_train_loss"]) <= 1e-4 * abs(
+        s0["one_train_loss"]), f"sharded train step loss "
+          f"{s0['train_losses']} against 1 rank {s0['one_train_loss']}")
+    d, f = s0["describe"]
+    d1, f1 = s0["one_describe"]
+    # an empty ball's features are 0 here and point 0's at one rank
+    live = (f != 0).flatten(2).any(-1)
+    desc_err = float((d - d1).abs().amax(-1)[live].max())
+    check(desc_err <= 1e-4, f"sharded_describe against 1 rank (non-empty "
+          f"balls) {desc_err:.3e}")
+    for tag, key in (("sharded_forward", "forward_launches"),
+                     ("sharded_train", "train_launches"),
+                     ("sharded_gather", "knn_launches")):
+        for r in (s0, s1):
+            for name in RANK_KERNELS[tag]:
+                check(r[key][name] > 0, f"kernel {name} launched in each "
+                      f"rank's {tag}")
+        launches[tag] = s0[key]
+    print(f"[12] {card} | point-sharded over 2 ranks (8192 points a rank): "
+          f"chamfer {s0['chamfer']} (1 rank {s0['one_chamfer']}), knn and "
+          f"ball gather indices equal to 1 rank's, detector forward max|diff|"
+          f" {fwd}, train losses {s0['train_losses']} (1 rank "
+          f"{s0['one_train_loss']:.6f}), describe {desc_err:.3e}; launches "
+          f"a rank: forward {s0['forward_launches']}, {SP_STEPS} train steps "
+          f"{s0['train_launches']}", flush=True)
+
+    t0_, t1_ = (r["tp"] for r in res)
+    fwd = [tol(a, b) for a, b in zip(t0_["forward"], t0_["one_forward"])]
+    check(all(e <= 1e-4 for e in fwd), f"TP forward against 1 rank {fwd}")
+    rel = {k: abs(t0_["train"][0][k] - v) / max(abs(v), 1e-30)
+           for k, v in t0_["one_train"].items()}
+    check(all(v <= (1e-3 if k == "grad_norm" else 1e-4)
+              for k, v in rel.items()), f"TP train step against 1 rank {rel}")
+    check(t0_["train"] == t1_["train"], "TP ranks' metrics identical")
+    check(t0_["hash"] == t1_["hash"], "TP ranks' whole parameters identical")
+    for name in RANK_KERNELS["tp_train"]:
+        check(t0_["train_launches"][name] > 0, f"kernel {name} launched in "
+              "the TP steps")
+    launches["tp_train"] = t0_["train_launches"]
+    print(f"[12] {card} | tensor parallel over 2 ranks (c2 512, fusion block "
+          f"and head cut): forward max|diff| {fwd}; {TP_STEPS} train steps, "
+          f"first step relative to 1 rank {json.dumps({k: float(f'{v:.3e}') for k, v in rel.items()})}"
+          f"; {t0_['held']} cut parameters a rank; launches "
+          f"{t0_['train_launches']}", flush=True)
+    print(f"[12] the 2-rank in-process work in {t_ranks:.1f} s", flush=True)
+
+    nccl_world_one(card)
+    if torch.cuda.device_count() >= 2:
+        r2 = run_ranks(nccl_two_card, tmp, None, backend="nccl")
+        print(f"[12] nccl_2card: {r2}", flush=True)
+    else:
+        print("[12] nccl_2card: not run (1 device)", flush=True)
+    phase12_entry(card, tmp, root, ckpt)
+    launches["pipeline"] = phase12_pipeline(card)
+    return launches, k4
+
+
+def nccl_two_card(rank, world, arg):
+    """The data-parallel detector step over 2 cards under NCCL (where the
+    host has them): its losses."""
+    from usip_tpu_torch.parallel import make_mesh, shard_batch
+    mesh = make_mesh(world)
+    cfg = get_config("kitti", **{"train.num_devices": world})
+    full = parent_batch(np.random.default_rng(127), cfg, 8, mesh.device)
+    state = train_state(cfg, mesh.device)
+    step = make_detector_train_step(cfg, mesh)
+    gen = torch.Generator(device=mesh.device).manual_seed(SEED)
+    return [float(step(state, shard_batch(mesh, full), 0,
+                       generator=gen)["loss"]) for _ in range(3)]
+
+
 def main():
     walls = {}
     t0 = time.perf_counter()
@@ -3079,6 +3893,9 @@ def main():
         ox_launches, ox_k4, ox_k5 = phase11(card, tmp)
         launches.update(ox_launches)
         lap("11 Oxford grouped training, SOM k=2")
+        rank_launches, shard_k4 = phase12(card, tmp, ckpt)
+        launches.update(rank_launches)
+        lap("12 ranks")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"[t] wall time by phase (s): {json.dumps(walls)}", flush=True)
@@ -3136,7 +3953,9 @@ def main():
              "launches_oxford_engine_epoch": launches["oxford_engine"][name],
              "launches_oxford_export": launches["oxford_export"][name],
              "indoor_shapes": {label: t for label, t in indoor_times.items()
-                               if INDOOR_SHAPES[label][0] == name}}
+                               if INDOOR_SHAPES[label][0] == name},
+             "launches_rank0": {tag: launches[tag][name]
+                                for tag in RANK_LAUNCH_TAGS}}
             for name, (src, rep) in meta.items()]
     # K2 at each of its four shapes (the entry's own time is the serve one)
     line[1]["shapes"] = k2
@@ -3153,6 +3972,8 @@ def main():
     line[3]["oxford_train_shapes"] = ox_k4
     # K5 at the SOM k=2 step's stacked ids (16, 32768), C=64 + 128
     line[4]["som_k2_stacked"] = ox_k5
+    # K4 at the sharded gathers' local select (8, 512, 8192) k=64
+    line[3]["sharded_gather"] = shard_k4
     print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -675,3 +675,63 @@ def test_wrappers_reject_bad_cuda_inputs(dev):
     with pytest.raises(ValueError, match="contiguous"):
         kernels.scatter_max(f.transpose(0, 1).contiguous().transpose(0, 1),
                             ids, 4)
+
+
+# ------------------------------------------------ the ranks' own shapes ----
+
+def test_kernels_at_a_data_parallel_rank_shapes(dev):
+    """A data-parallel rank's halves of the batch-8 step: FPS (4, 2048) ->
+    512, the assignment (8, 16384) x 512 in bf16, the node kNN (8, 512,
+    512) k=16, scatter-max (8, 16384) C=64, each equal to its plain
+    version."""
+    rng = np.random.default_rng(41)
+    pts = _rand(rng, (4, 2048, 3), dev, 20.0)
+    first = torch.from_numpy(rng.integers(0, 2048, 4).astype(np.int32)).to(dev)
+    assert torch.equal(kernels.fps(pts, first, 512),
+                       kernels.fps_plain(pts, first, 512))
+    pc = _rand(rng, (8, 16384, 3), dev, 20.0)
+    nodes = pc[:, :512].contiguous()
+    got, ref = (kernels.min_argmin(pc, nodes, True),
+                kernels.min_argmin_plain(pc, nodes, True))
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    from usip_tpu_torch.ops.geometry import pairwise_sqdist
+    sq = pairwise_sqdist(nodes, nodes).contiguous()
+    for a, b in zip(kernels.smallest_k(sq, 16), kernels.smallest_k_plain(
+            sq, 16)):
+        assert torch.equal(a, b)
+    f = _rand(rng, (8, 16384, 64), dev)
+    ids = got[1].long()
+    assert torch.equal(kernels.scatter_max(f, ids, 512),
+                       kernels.scatter_max_plain(f, ids, 512))
+
+
+def test_smallest_k_kernel_at_the_sharded_gathers(dev):
+    """The point-sharded knn and ball gathers' local select (8, 512, 8192)
+    k=64: on distances, on rows with repeated points (ties) and on ball
+    scores with +inf outside the ball."""
+    rng = np.random.default_rng(42)
+    pc = _rand(rng, (8, 8192, 3), dev, 20.0)
+    pc[:, 4096:6144] = pc[:, :2048]
+    q = pc[:, :512] + 0.01
+    from usip_tpu_torch.ops.geometry import pairwise_sqdist
+    from usip_tpu_torch.ops.grouping import ball_scores
+    sq = pairwise_sqdist(q, pc).contiguous()
+    pri = torch.rand(8, 8192, device=dev)
+    for scores in (sq, ball_scores(pc, q, 4.0, pri).contiguous()):
+        for a, b in zip(kernels.smallest_k(scores, 64),
+                        kernels.smallest_k_plain(scores, 64)):
+            assert torch.equal(a, b)
+
+
+def test_scatter_max_kernel_with_nodes_empty_on_a_rank(dev):
+    """A point shard's assignment leaves nodes empty: the kernel's 0 there
+    (the sharded trunk masks them to -inf before the max over ranks)
+    and the max elsewhere, equal to the plain version, at (16, 8192) onto
+    512 nodes, C=64 and 128, features of both signs."""
+    rng = np.random.default_rng(43)
+    ids = torch.from_numpy(rng.integers(0, 256, (16, 8192))).to(dev)
+    for c in (64, 128):
+        f = _rand(rng, (16, 8192, c), dev)
+        got = kernels.scatter_max(f, ids, 512)
+        assert torch.equal(got, kernels.scatter_max_plain(f, ids, 512))
+        assert bool((got[:, 256:] == 0).all())

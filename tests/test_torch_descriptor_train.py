@@ -370,8 +370,9 @@ def test_match_acc_selection_and_guards(tmp_path):
                      **{**TINY, "train.select_best_by": "recall"})
     with pytest.raises(ValueError, match="select_best_by"):
         _engine(bad, tmp_path, "bad2")
+    # two ranks asked for, one process: refused, never run as one rank
     multi = cfg.with_overrides(**{"train.num_devices": 2})
-    with pytest.raises(NotImplementedError, match="num_devices"):
+    with pytest.raises(ValueError, match="has 1 ranks"):
         _engine(multi, tmp_path, "bad3")
 
 

@@ -162,7 +162,11 @@ PORT_MODULES = (
     "eval.export", "eval.repeatability", "eval.eval_runner",
     "eval.export_runner", "eval.baselines", "eval.registration",
     "data.descriptor_loaders", "models.descriptor", "train.descriptor_loop",
-    "eval.indoor", "eval.fgr", "indoor")
+    "eval.indoor", "eval.fgr", "indoor", "parallel", "parallel.mesh",
+    "parallel.collectives", "parallel.sharded_ops",
+    "parallel.sharded_detector", "parallel.sharded_train",
+    "parallel.sharded_descriptor", "parallel.tensor_parallel",
+    "parallel.pipeline_parallel")
 
 
 def test_port_imports_nothing_of_usip_tpu():

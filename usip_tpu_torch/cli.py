@@ -28,7 +28,19 @@
 
 The flags and the request and reply protocol are ``usip_tpu.cli``'s, plus
 ``--device`` (default ``cuda``, which raises without CUDA rather than run on
-the CPU). A checkpoint is the port's own ``.pt`` (what ``train-detector``
+the CPU).
+
+Several ranks (``train-detector``, ``train-descriptor``, ``export-keypoints``,
+``export-descriptors``): ``--num-devices N`` on one host starts N ranks
+itself, one GPU each (``cuda:LOCAL_RANK``, modulo the visible cards), and
+``--batch-size`` is the global batch. Under torchrun the command joins
+torchrun's group instead (``--num-devices``, if given, must be its size).
+``--coordinator-address host:port --num-processes P --process-id I`` is
+usip_tpu's multi-host form: each of P hosts runs the command with its
+``--num-devices`` local ranks, and ``--batch-size`` is per host.
+``--dist-backend`` (default NCCL on CUDA, gloo on the CPU) takes ``gloo`` for
+ranks that share one GPU. A failed init raises: a run that asks for several
+ranks never carries on as one. A checkpoint is the port's own ``.pt`` (what ``train-detector``
 writes), a usip_tpu ``.msgpack``, or a reference-named detector
 ``state_dict`` (``.pth``): the SOM family (``first_pointnet.*``) under the
 presets as they are, the grouped family (``conv1..5``, e.g. the released
@@ -89,6 +101,11 @@ def _build_config(args, role="detector"):
         if getattr(args, flag, None) is not None}
     if getattr(args, "batch_size", None):
         updates["train.batch_size"] = args.batch_size
+    hosts = getattr(args, "hosts", 1)
+    if hosts > 1:
+        # multi-host: --batch-size (or the preset's) is per host
+        updates["train.batch_size"] = hosts * updates.get(
+            "train.batch_size", cfg.train.batch_size)
     if getattr(args, "epochs", None):
         updates["train.epochs"] = args.epochs
     updates = {k: v for k, v in updates.items() if k not in overrides}
@@ -220,10 +237,26 @@ def _make_loaders(cfg, args, sn_len):
             train_ds = ParentCloudDataset(train_ds)
             test_ds = ParentCloudDataset(test_ds)
     train = BatchLoader(train_ds, cfg.train.batch_size, shuffle=True,
-                        num_workers=cfg.data.num_workers)
+                        num_workers=cfg.data.num_workers, shard=_shard(cfg))
     test = BatchLoader(test_ds, cfg.train.batch_size, shuffle=False,
-                       num_workers=cfg.data.num_workers)
+                       num_workers=cfg.data.num_workers, shard=_shard(cfg))
     return train, test
+
+
+def _shard(cfg):
+    """``(rank, ranks)`` of a data-parallel run (each rank loads its rows
+    of the global batch), else None."""
+    if cfg.train.num_devices <= 1:
+        return None
+    from usip_tpu_torch.parallel.mesh import global_rank
+    return global_rank(), cfg.train.num_devices
+
+
+def _print_main(line: str) -> None:
+    """Print on rank 0 only (every rank holds the same result)."""
+    from usip_tpu_torch.parallel.mesh import is_main_process
+    if is_main_process():
+        print(line, flush=True)
 
 
 def cmd_train_detector(args):
@@ -251,7 +284,7 @@ def cmd_train_detector(args):
         if path == "auto":
             path = os.path.join(engine.out_dir, "last.pt")
         start = engine.resume(path)
-        print(f"resumed from {path} at epoch {start}", flush=True)
+        _print_main(f"resumed from {path} at epoch {start}")
     engine.fit()
 
 
@@ -288,12 +321,14 @@ def cmd_train_descriptor(args):
                              "(the reference trains descriptors on oxford, "
                              "kitti and scenenn only)")
         loader = BatchLoader(ds, cfg.train.batch_size, shuffle=True,
-                             num_workers=cfg.data.num_workers)
+                             num_workers=cfg.data.num_workers,
+                             shard=_shard(cfg))
         test_loader = None
         try:
             test_loader = BatchLoader(
                 type(ds)(cfg.data, "test", sn_len=sn), cfg.train.batch_size,
-                shuffle=False, num_workers=cfg.data.num_workers)
+                shuffle=False, num_workers=cfg.data.num_workers,
+                shard=_shard(cfg))
         except (FileNotFoundError, OSError):
             pass  # no test split on disk
         engine = DescriptorEngine(cfg, args.detector_checkpoint,
@@ -305,7 +340,7 @@ def cmd_train_descriptor(args):
         if path == "auto":
             path = os.path.join(engine.out_dir, "last.pt")
         start = engine.resume(path)
-        print(f"resumed from {path} at epoch {start}", flush=True)
+        _print_main(f"resumed from {path} at epoch {start}")
     engine.fit()
 
 
@@ -326,7 +361,7 @@ def cmd_export_keypoints(args):
                        noise_sigma=args.noise_sigma,
                        with_sigmas=args.with_sigmas, device=args.device,
                        subset=args.subset)
-    print(json.dumps(stats), flush=True)
+    _print_main(json.dumps(stats))
 
 
 def cmd_export_descriptors(args):
@@ -342,7 +377,7 @@ def cmd_export_descriptors(args):
         desc_out=os.path.join(args.out, "descriptors"),
         nms_radius=args.nms_radius, desired_num=args.num_keypoints,
         synthetic=args.synthetic, device=args.device)
-    print(json.dumps(stats), flush=True)
+    _print_main(json.dumps(stats))
 
 
 def _load_gt(args):
@@ -476,14 +511,24 @@ def _add_config_flags(p):
 
 
 def _add_run_flags(p):
-    """usip_tpu's common train/export flags (the multi-host ones are not
-    ported)."""
+    """usip_tpu's common train/export flags, its multi-host ones included,
+    and ``--dist-backend``."""
     _add_config_flags(p)
     p.add_argument("--dataroot", default="")
     p.add_argument("--batch-size", type=int, default=None)
     p.add_argument("--epochs", type=int, default=None)
-    p.add_argument("--num-devices", type=int, default=1,
-                   help="devices to train on; the port trains on one")
+    p.add_argument("--num-devices", type=int, default=None,
+                   help="ranks (one device each) on this host; >1 starts "
+                        "them (data parallel, --batch-size global)")
+    p.add_argument("--coordinator-address", default=None,
+                   help="multi-host: host:port of process 0's rendezvous")
+    p.add_argument("--num-processes", type=int, default=None,
+                   help="multi-host: number of hosts")
+    p.add_argument("--process-id", type=int, default=None,
+                   help="multi-host: this host's index")
+    p.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
+                   help="collectives backend (default: nccl on cuda, gloo "
+                        "on cpu; gloo for ranks sharing one GPU)")
     p.add_argument("--name", default="train")
     p.add_argument("--checkpoints-dir", default="checkpoints")
     p.add_argument("--synthetic", action="store_true",
@@ -520,7 +565,7 @@ def _add_gt_flags(p):
                    help="kitti calib tree <root>/<seq:02d>/calib.txt")
 
 
-def main(argv=None):
+def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="usip_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
 
@@ -636,8 +681,80 @@ def main(argv=None):
                    help="default output dir when requests omit 'out'")
     p.set_defaults(fn=cmd_serve)
 
-    args = parser.parse_args(argv)
+    return parser
+
+
+def main(argv=None):
+    argv = sys.argv[1:] if argv is None else list(argv)
+    args = build_parser().parse_args(argv)
+    if _launch_ranks(args, argv):
+        return
     args.fn(args)
+
+
+# ----------------------------------------------------- several ranks ----
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _launch_ranks(args, argv) -> bool:
+    """Start or join the ranks of a multi-rank run; True when the ranks ran
+    here (this process only started them), False when the command runs in
+    this process, as one rank or as the only process."""
+    if not hasattr(args, "num_devices"):
+        return False
+    from usip_tpu_torch.parallel import mesh as pmesh
+    local = args.num_devices or 1
+    backend = args.dist_backend or pmesh.default_backend(args.device)
+    if args.coordinator_address is not None:
+        if args.num_processes is None or args.process_id is None:
+            raise SystemExit("--coordinator-address needs --num-processes "
+                             "and --process-id")
+        hosts = args.num_processes
+        spec = (args.coordinator_address, hosts * local,
+                args.process_id * local, hosts)
+    elif all(os.environ.get(k) for k in pmesh._TORCHRUN_ENV):
+        world = int(os.environ["WORLD_SIZE"])
+        if args.num_devices not in (None, world):
+            raise SystemExit(f"--num-devices {args.num_devices}: torchrun "
+                             f"started {world} ranks")
+        pmesh.initialize_distributed(backend=backend, device=args.device)
+        args.num_devices = world
+        return False
+    elif local > 1:
+        spec = (f"127.0.0.1:{_free_port()}", local, 0, 1)
+    else:
+        return False
+    if local == 1:
+        _run_rank(0, argv, spec, backend)
+        return True
+    import torch.multiprocessing as mp
+    mp.start_processes(_run_rank, args=(argv, spec, backend), nprocs=local,
+                       start_method="spawn")
+    return True
+
+
+def _run_rank(local_rank: int, argv, spec, backend: str) -> None:
+    """One rank of a run started by ``_launch_ranks``: join the group, run
+    the command with ``train.num_devices`` the world size."""
+    import torch.distributed as dist
+
+    from usip_tpu_torch.parallel.mesh import initialize_distributed
+    address, world, first_rank, hosts = spec
+    os.environ["LOCAL_RANK"] = str(local_rank)
+    args = build_parser().parse_args(argv)
+    args.num_devices = world
+    args.hosts = hosts
+    initialize_distributed(address, world, first_rank + local_rank,
+                           backend=backend, device=args.device)
+    try:
+        args.fn(args)
+    finally:
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

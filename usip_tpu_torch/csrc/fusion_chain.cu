@@ -790,21 +790,32 @@ extern "C" int usip_fusion_chain(const void* x, const void* w, const void* b1,
   const int tiles = (bm + tm - 1) / tm;
   const int npairs = (tiles + kCluster - 1) / kCluster;
   // persistent: as many clusters as the card holds at once (asked once per
-  // shared-memory size; clusters need SM pairs within one GPC)
-  static size_t asked_smem = 0;
-  static int max_clusters = 0;
-  if (asked_smem != smem) {
+  // device and shared-memory size; clusters need SM pairs within one GPC).
+  // Keyed by the current device too: one process may launch on several
+  // cards (the pipeline's stages), whose answers must not be shared.
+  constexpr int kMaxDevices = 64;
+  static size_t asked_smem[kMaxDevices] = {};
+  static int max_clusters[kMaxDevices] = {};
+  int device = 0;
+  err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (device < 0 || device >= kMaxDevices) {
+    return static_cast<int>(cudaErrorInvalidDevice);
+  }
+  if (asked_smem[device] != smem) {
     cudaLaunchConfig_t cfg = {};
     cfg.gridDim = dim3(kCluster * npairs, 1, 1);
     cfg.blockDim = dim3(kThreads, 1, 1);
     cfg.dynamicSmemBytes = smem;
-    err = cudaOccupancyMaxActiveClusters(&max_clusters, fusion_chain_kernel,
-                                         &cfg);
+    int answer = 0;
+    err = cudaOccupancyMaxActiveClusters(&answer, fusion_chain_kernel, &cfg);
     if (err != cudaSuccess) return static_cast<int>(err);
-    if (max_clusters < 1) return static_cast<int>(cudaErrorInvalidValue);
-    asked_smem = smem;
+    if (answer < 1) return static_cast<int>(cudaErrorInvalidValue);
+    max_clusters[device] = answer;
+    asked_smem[device] = smem;
   }
-  const int clusters = npairs < max_clusters ? npairs : max_clusters;
+  const int clusters = npairs < max_clusters[device] ? npairs
+                                                     : max_clusters[device];
   fusion_chain_kernel<<<kCluster * clusters, kThreads, smem,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<const __nv_bfloat16*>(w),

@@ -40,7 +40,11 @@ class BatchLoader:
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
                  num_workers: int = 4, prefetch: int = 4, seed: int = 0,
                  post_collate: Optional[Callable] = None,
-                 drop_last: bool = True):
+                 drop_last: bool = True, shard=None):
+        if shard is not None and batch_size % shard[1]:
+            raise ValueError(f"batch_size {batch_size} does not split over "
+                             f"{shard[1]} ranks")
+        self.shard = shard
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -62,8 +66,13 @@ class BatchLoader:
             self._rng.shuffle(idx)
         if self.drop_last:
             idx = idx[:(len(idx) // self.batch_size) * self.batch_size]
-        return [idx[i:i + self.batch_size]
-                for i in range(0, len(idx), self.batch_size)]
+        batches = [idx[i:i + self.batch_size]
+                   for i in range(0, len(idx), self.batch_size)]
+        if self.shard is not None:
+            rank, ranks = self.shard
+            b = self.batch_size // ranks
+            batches = [row[rank * b:(rank + 1) * b] for row in batches]
+        return batches
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         batches = self._epoch_indices()
@@ -73,18 +82,15 @@ class BatchLoader:
 
         # np.random.Generator is documented not-thread-safe: datasets with a
         # shared ._rng must not run __getitem__ concurrently (duplicated or
-        # correlated subsample draws). The GIL already serializes most of the
-        # numpy work here, so the lock costs little.
+        # correlated subsample draws), and their items' draws depend on the
+        # order they are fetched in: one thread fetches them, in order, so
+        # that an item gets the same draws run to run
         shared_rng = (hasattr(self.dataset, "_rng") or
                       hasattr(getattr(self.dataset, "base", None), "_rng"))
-        rng_lock = threading.Lock() \
-            if (self.num_workers > 1 and shared_rng) else None
+        workers = 1 if shared_rng else self.num_workers
 
         def fetch(i: int):
-            if rng_lock is None:
-                return self.dataset[int(i)]
-            with rng_lock:
-                return self.dataset[int(i)]
+            return self.dataset[int(i)]
 
         def _put(item) -> bool:
             # bounded put: consumers may abandon the iterator mid-epoch
@@ -99,7 +105,7 @@ class BatchLoader:
             return False
 
         def producer():
-            with ThreadPoolExecutor(self.num_workers) as pool:
+            with ThreadPoolExecutor(workers) as pool:
                 for row in batches:
                     if stop.is_set():
                         break

@@ -11,12 +11,21 @@ input of ``eval-indoor``).
 
 The forward is ``models.fused_infer.detector_infer_fused`` on the restored
 model (the port's serving forward: FPS, min/argmin, scatter-max, smallest-k
-and the fused chain on the card). Methods ``model`` and ``random``; the ISS,
-Harris and SIFT baselines are not ported.
+and the fused chain on the card).
+
+Over several ranks (``train.num_devices > 1``, usip_tpu's ``_place_batch``
+under a mesh): every rank reads each batch of the global batch size, pads
+it to a multiple of the ranks, detects (and describes) its own rows and
+writes its own frames. Batch ``i``'s rows of rank ``r`` draw their nodes
+(and ball priorities) from the streams of batch ``i R + r``, so the trees
+are byte for byte those of one rank at the per-rank batch size, wherever
+the host selection draws nothing (no ``noise_sigma``, no cloud short of
+keypoints: each rank draws those from its own ``rng``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 from typing import Callable, Optional
@@ -96,6 +105,62 @@ def _pad_batch(a: np.ndarray, batch_size: int) -> np.ndarray:
     return np.concatenate([a, np.repeat(a[-1:], pad, axis=0)]) if pad > 0 else a
 
 
+class _Ranks:
+    """This process's part of a multi-rank export: its rows of each padded
+    global batch and the stream index of its part of batch ``i``; at one
+    rank, the whole batch and ``i``."""
+
+    def __init__(self, cfg: Config, batch_size: int, device):
+        from usip_tpu_torch.parallel.mesh import make_mesh
+        n = cfg.train.num_devices
+        self.mesh = make_mesh(n, device) if n > 1 else None
+        self.size = 1 if self.mesh is None else self.mesh.size
+        self.rank = 0 if self.mesh is None else self.mesh.rank
+        # the padded batch splits over the ranks (usip_tpu's _place_batch)
+        self.padded = batch_size + (-batch_size) % self.size
+        self.local = self.padded // self.size
+        self.rows = slice(self.rank * self.local,
+                          (self.rank + 1) * self.local)
+        self.device = None if self.mesh is None else self.mesh.device
+
+    def take(self, a: np.ndarray) -> np.ndarray:
+        """This rank's rows of a batch, padded first."""
+        return _pad_batch(a, self.padded)[self.rows]
+
+    def real(self, real_b: int) -> range:
+        """The batch positions of this rank's rows that are real frames."""
+        return range(self.rows.start, min(self.rows.stop, real_b))
+
+    def stream(self, i: int) -> int:
+        return i * self.size + self.rank
+
+    def gather(self, value) -> list:
+        """``value`` of every rank (host values)."""
+        if self.mesh is None:
+            return [value]
+        from usip_tpu_torch.parallel.mesh import all_gather_object
+        return all_gather_object(value, self.mesh)
+
+    def total(self, frames: int) -> int:
+        """Frames written over every rank."""
+        return sum(self.gather(frames))
+
+
+@contextlib.contextmanager
+def _deterministic():
+    """PyTorch's deterministic algorithms for the export's forwards: the
+    trunk's cluster sums (``scatter_add_``) add in a fixed order, so that a
+    frame's keypoints are the same bits run to run and at any rank count
+    (CUDA's atomic adds otherwise sum in the order the threads arrive)."""
+    was = torch.are_deterministic_algorithms_enabled()
+    warn = torch.is_deterministic_algorithms_warn_only_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was, warn_only=warn)
+
+
 class ModelInfer:
     """The detector's eval forward from a checkpoint (the port's ``.pt`` or
     a usip_tpu ``.msgpack``): ``(pc, sn, node_draws) -> (keypoints,
@@ -120,11 +185,12 @@ class ModelInfer:
             np.ascontiguousarray(a, np.float32)).to(self.device)
         d = [None if t is None else t.to(self.device)
              for t in (draws or (None, None))]
-        node = sample_nodes(to(pc), self.cfg.data.node_num, self.ratio,
-                            self.cfg.data.fps_parallel, subset_idx=d[0],
-                            first=d[1], generator=generator)
-        _, kp, sig = detector_infer_fused(self.model, to(pc), to(sn), node,
-                                          self.chain)
+        with _deterministic():
+            node = sample_nodes(to(pc), self.cfg.data.node_num, self.ratio,
+                                self.cfg.data.fps_parallel, subset_idx=d[0],
+                                first=d[1], generator=generator)
+            _, kp, sig = detector_infer_fused(self.model, to(pc), to(sn),
+                                              node, self.chain)
         return kp.cpu().numpy(), sig.cpu().numpy()
 
 
@@ -157,8 +223,9 @@ class DescriptorInfer:
             np.ascontiguousarray(a, np.float32)).to(self.device)
         if priority is not None:
             priority = priority.to(self.device)
-        desc, _ = self.model(to(pc), to(sn), to(keypoints), priority,
-                             generator=generator)
+        with _deterministic():
+            desc, _ = self.model(to(pc), to(sn), to(keypoints), priority,
+                                 generator=generator)
         return desc.cpu().numpy()
 
 
@@ -183,16 +250,23 @@ def run_export_with_descriptors(cfg: Config, detector_checkpoint: str,
     computed in mutually yaw-rotated frames (the LiDAR protocol that tells a
     yaw-trained descriptor from an untrained one).
     """
+    bs = batch_size or cfg.train.batch_size
+    ranks = _Ranks(cfg, bs, device)
+    device = ranks.device or device
     infer = ModelInfer(cfg, detector_checkpoint, device)
     describe = DescriptorInfer(cfg, descriptor_checkpoint, device)
     ds = dataset if dataset is not None else make_eval_dataset(cfg, synthetic)
-    bs = batch_size or cfg.train.batch_size
     loader = BatchLoader(ds, bs, shuffle=False, num_workers=4, drop_last=False)
     rng = np.random.default_rng(0)
     frames = 0
     for i, raw in enumerate(loader):
-        pc_np, sn_np = np.asarray(raw["pc"]), np.asarray(raw["sn"])
-        real_b = pc_np.shape[0]
+        real_b = raw["pc"].shape[0]
+        mine = ranks.real(real_b)
+        raw = {k: ranks.take(np.asarray(v)) for k, v in raw.items()}
+        pc_np, sn_np = raw["pc"], raw["sn"]
+        real_b = len(mine)
+        if real_b == 0:  # this rank holds only padding rows
+            continue
         rots = None
         if frame_yaw_seed is not None:
             rots = [_frame_yaw_matrix(frame_yaw_seed, int(raw["seq"][b]),
@@ -206,14 +280,15 @@ def run_export_with_descriptors(cfg: Config, detector_checkpoint: str,
                      sn_np[..., 3:]], axis=-1)
         gen = lambda j: stream_generator(  # noqa: E731
             infer.device, DESCRIPTOR_EXPORT_SEED, 0, j)
-        pc_in, sn_in = _pad_batch(pc_np, bs), _pad_batch(sn_np, bs)
-        kp, sig = infer(pc_in, sn_in, generator=gen(2 * i))
+        pc_in = _pad_batch(pc_np, ranks.local)
+        sn_in = _pad_batch(sn_np, ranks.local)
+        kp, sig = infer(pc_in, sn_in, generator=gen(2 * ranks.stream(i)))
         selected = np.stack([
             select_keypoints(kp[b], sig[b], pc_np[b], nms_radius=nms_radius,
                              desired_num=desired_num, rng=rng)
             for b in range(real_b)])
-        desc = describe(pc_in, sn_in, _pad_batch(selected, bs),
-                        generator=gen(2 * i + 1))[:real_b]
+        desc = describe(pc_in, sn_in, _pad_batch(selected, ranks.local),
+                        generator=gen(2 * ranks.stream(i) + 1))[:real_b]
         for b in range(real_b):
             seq, frame = int(raw["seq"][b]), int(raw["frame"][b])
             kp_write = selected[b] @ rots[b] if rots is not None \
@@ -223,7 +298,7 @@ def run_export_with_descriptors(cfg: Config, detector_checkpoint: str,
             write_keypoints_bin(
                 os.path.join(desc_out, f"{seq:02d}", f"{frame}.bin"), desc[b])
             frames += 1
-    return {"frames": frames}
+    return {"frames": ranks.total(frames)}
 
 
 def run_export(cfg: Config, checkpoint: Optional[str], out_dir: str,
@@ -251,10 +326,12 @@ def run_export(cfg: Config, checkpoint: Optional[str], out_dir: str,
     if with_sigmas and method != "model":
         raise ValueError("with_sigmas requires method='model' (classical "
                          "baselines carry no uncertainty estimate)")
+    bs = batch_size or cfg.train.batch_size
+    ranks = _Ranks(cfg, bs, device)
+    device = ranks.device or device
     infer = ModelInfer(cfg, checkpoint, device) if method == "model" else None
     ds = dataset if dataset is not None else make_eval_dataset(
         cfg, synthetic, subset=subset)
-    bs = batch_size or cfg.train.batch_size
     loader = BatchLoader(ds, bs, shuffle=False, num_workers=4, drop_last=False)
     rng = np.random.default_rng(0)
 
@@ -267,13 +344,19 @@ def run_export(cfg: Config, checkpoint: Optional[str], out_dir: str,
         if noise_sigma > 0:
             pc_batch = pc_batch + rng.normal(
                 scale=noise_sigma, size=pc_batch.shape).astype(pc_batch.dtype)
-        real_b = pc_batch.shape[0]
-        if infer is not None:
+        real_b = len(ranks.real(pc_batch.shape[0]))
+        raw = {k: ranks.take(np.asarray(v)) for k, v in raw.items()}
+        pc_batch = ranks.take(pc_batch)
+        if infer is not None and real_b > 0:
             gen = None if node_draws is not None else stream_generator(
-                infer.device, EXPORT_SEED, 0, i)
-            kp, sig = infer(_pad_batch(pc_batch, bs), _pad_batch(raw["sn"], bs),
-                            generator=gen,
-                            draws=node_draws(i) if node_draws else None)
+                infer.device, EXPORT_SEED, 0, ranks.stream(i))
+            draws = None
+            if node_draws is not None:
+                subset_idx, first = node_draws(i)
+                per = first.shape[0] // subset_idx.shape[0]
+                draws = (subset_idx[ranks.rows],
+                         first[ranks.rows.start * per:ranks.rows.stop * per])
+            kp, sig = infer(pc_batch, raw["sn"], generator=gen, draws=draws)
             kp, sig = kp[:real_b], sig[:real_b]
         for b in range(real_b):
             if infer is not None:
@@ -303,7 +386,9 @@ def run_export(cfg: Config, checkpoint: Optional[str], out_dir: str,
             t_start = time.perf_counter()
             frames_at_start = frames
     elapsed = time.perf_counter() - (t_start or time.perf_counter())
-    timed = max(frames - frames_at_start, 1)
+    timed = max(ranks.total(frames - frames_at_start), 1)
+    frames = ranks.total(frames)
+    counts = [c for part in ranks.gather(counts) for c in part]
     return {"frames": frames,
             "mean_keypoints": float(np.mean(counts)) if counts else 0.0,
             "clouds_per_sec": timed / elapsed if elapsed > 0 else 0.0}

@@ -8,7 +8,8 @@ loads with ``load_state_dict(strict=True)``.
 
 ``BatchNorm`` has usip_tpu's train mode: batch statistics, the running
 statistics updated with a momentum that the train step sets from
-``bn_momentum_schedule``.
+``bn_momentum_schedule``; with a ``process_group`` (usip_tpu's
+``axis_name``) the statistics are those of the rows of every rank.
 """
 
 from __future__ import annotations
@@ -59,12 +60,21 @@ class BatchNorm(nn.Module):
     (``nn/layers.py BatchNorm``): the batch mean and the biased variance
     ``E[x^2] - E[x]^2`` (clamped at 0) normalize; the unbiased variance feeds
     the running statistics, ``running = (1 - m) running + m batch`` with
-    ``m = self.momentum`` (``set_bn_momentum``)."""
+    ``m = self.momentum`` (``set_bn_momentum``).
 
-    def __init__(self, features: int, eps: float = 1e-5):
+    ``process_group`` (a ``parallel.Mesh``; ``set_bn_process_group``) makes
+    the train-mode statistics global over its ranks, as usip_tpu's
+    ``axis_name`` branch: one all-reduce of the count, the sum and the sum
+    of squares in fp32, whose backward all-reduces too (the statistics'
+    gradient gathers every rank's rows); the unbiased correction uses the
+    global count. None (the default) is the layer on its own rows."""
+
+    def __init__(self, features: int, eps: float = 1e-5,
+                 process_group=None):
         super().__init__()
         self.eps = eps
         self.momentum = 0.1
+        self.process_group = process_group
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
@@ -77,11 +87,27 @@ class BatchNorm(nn.Module):
         if self.training:
             dims = tuple(range(x.dim() - 1))
             count = x.numel() // x.shape[-1]
-            mean = x32.mean(dims)
-            var = (x32.square().mean(dims) - mean.square()).clamp_min(0.0)
+            group = self.process_group
+            if group is not None and group.size > 1:
+                from usip_tpu_torch.parallel.collectives import sync_sum
+                c = x.shape[-1]
+                stats = sync_sum(torch.cat([
+                    x32.sum(dims), x32.square().sum(dims),
+                    x32.new_full((1,), float(count))]), group)
+                # the global count stays on the device (no host sync)
+                count = stats[-1].detach()
+                mean = stats[:c] / count
+                var = (stats[c:2 * c] / count - mean.square()).clamp_min(0.0)
+            else:
+                mean = x32.mean(dims)
+                var = (x32.square().mean(dims)
+                       - mean.square()).clamp_min(0.0)
             with torch.no_grad():
                 m = self.momentum
-                unbiased = var * (count / max(count - 1, 1))
+                if torch.is_tensor(count):
+                    unbiased = var * (count / (count - 1).clamp_min(1.0))
+                else:
+                    unbiased = var * (count / max(count - 1, 1))
                 self.running_mean.copy_((1.0 - m) * self.running_mean
                                         + m * mean)
                 self.running_var.copy_((1.0 - m) * self.running_var
@@ -91,6 +117,14 @@ class BatchNorm(nn.Module):
             mean, var = self.running_mean, self.running_var
         y = (x32 - mean) * torch.rsqrt(var + self.eps)
         return (y * self.weight + self.bias).to(x.dtype)
+
+
+def set_bn_process_group(module: nn.Module, mesh) -> None:
+    """Make every ``BatchNorm`` under ``module`` normalise over the rows of
+    every rank of ``mesh`` in train mode (None: each rank its own rows)."""
+    for mod in module.modules():
+        if isinstance(mod, BatchNorm):
+            mod.process_group = mesh
 
 
 def set_bn_momentum(module: nn.Module, momentum: float) -> None:

@@ -152,7 +152,19 @@ def state_dict_from_msgpack(path: str) -> Tuple[Dict[str, torch.Tensor], int]:
 
 def save_checkpoint(path: str, state, metadata: Optional[Dict] = None) -> None:
     """Write ``state`` (a ``TrainState``) to ``path`` atomically, and the
-    metadata to ``path + '.json'``."""
+    metadata to ``path + '.json'``. Under ``torch.distributed`` every rank
+    calls it, rank 0 alone writes (the replicas are identical), and a
+    barrier follows, so that no rank reads the file before it is whole."""
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        if dist.get_rank() == 0:
+            _write_checkpoint(path, state, metadata)
+        dist.barrier()
+        return
+    _write_checkpoint(path, state, metadata)
+
+
+def _write_checkpoint(path: str, state, metadata: Optional[Dict]) -> None:
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     payload = {"step": int(state.step), "model": state.model.state_dict(),
                "optimizer": state.optimizer.state_dict()}

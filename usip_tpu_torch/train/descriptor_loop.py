@@ -9,8 +9,13 @@ repeated non-finite losses, and exact resume.
 Seeds as usip_tpu's: the detector's initialisers from ``train.seed``, the
 descriptor's from ``train.seed + 7``, the steps' draws from ``train.seed +
 13`` (``loop.stream_generator``, one generator a step), the fallback
-negatives from ``train.seed + 21``. The multi-device mesh
-(``train.num_devices > 1``) is not ported.
+negatives from ``train.seed + 21``.
+
+Data parallelism (``train.num_devices > 1``) as in ``loop.py``: each rank's
+loader yields its rows, and the negatives index the global batch: the
+miner runs on every rank over the global batch's metadata (gathered from
+the ranks, between steps, on the main thread), the fallback permutation is
+drawn for the global batch from the same seed on every rank.
 """
 
 from __future__ import annotations
@@ -26,9 +31,11 @@ from usip_tpu_torch.data.pipeline import BatchLoader
 from usip_tpu_torch.inference import resolve_device
 from usip_tpu_torch.models import Descriptor
 from usip_tpu_torch.train.checkpoint import restore_checkpoint, save_checkpoint
+from usip_tpu_torch.parallel.mesh import (all_gather_object,
+                                          broadcast_object, is_main_process)
 from usip_tpu_torch.train.loop import (ROLE_TEST, ROLE_TRAIN, _fetch_metrics,
-                                       init_detector_state, prefetch_batches,
-                                       stream_generator)
+                                       engine_mesh, init_detector_state,
+                                       prefetch_batches, stream_generator)
 from usip_tpu_torch.train.state import (TrainState, lr_at_epoch,
                                         set_learning_rate)
 from usip_tpu_torch.train.steps import (PackedPairBatch,
@@ -70,25 +77,24 @@ class _SyntheticPairDataset:
 
 
 class DescriptorEngine:
-    """Descriptor training on one device (the reference's
-    train_descriptor.py loops)."""
+    """Descriptor training on one device, or data-parallel over the ranks
+    of ``train.num_devices`` (the reference's train_descriptor.py
+    loops)."""
 
     def __init__(self, cfg: Config, detector_checkpoint: str,
                  train_loader=None, test_loader=None, mine_negatives=None,
                  use_cgf: Optional[bool] = None, synthetic: bool = False,
                  out_dir: Optional[str] = None, device="cuda"):
-        if cfg.train.num_devices > 1:
-            raise NotImplementedError(
-                "train.num_devices > 1 (the device mesh) is not ported; "
-                "the engine trains on one device")
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.mesh = engine_mesh(cfg, device)
+        self.device = (self.mesh.device if self.mesh is not None
+                       else resolve_device(device))
+        self._ranks = 1 if self.mesh is None else self.mesh.size
         # full fp32 products on the card (the descriptor distances included)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         self.out_dir = out_dir or os.path.join(cfg.train.checkpoint_dir,
                                                cfg.train.name + "_descriptor")
-        os.makedirs(self.out_dir, exist_ok=True)
         if use_cgf is None:
             use_cgf = cfg.descriptor.use_cgf_loss
         if use_cgf is None:
@@ -117,18 +123,25 @@ class DescriptorEngine:
         if train_loader is None:
             if not synthetic:
                 raise ValueError("provide train_loader or synthetic=True")
-            train_loader = BatchLoader(_SyntheticPairDataset(cfg),
-                                       cfg.train.batch_size, shuffle=True,
-                                       num_workers=2)
+            train_loader = BatchLoader(
+                _SyntheticPairDataset(cfg), cfg.train.batch_size,
+                shuffle=True, num_workers=2,
+                shard=(None if self.mesh is None
+                       else (self.mesh.rank, self.mesh.size)))
             mine_negatives = None
         self.train_loader = train_loader
         self.test_loader = test_loader
         self.mine_negatives = mine_negatives
-        self.step_fn = make_descriptor_train_step(cfg, self.use_cgf)
+        if self.mesh is not None:
+            from usip_tpu_torch.parallel.mesh import replicate
+            replicate(self.mesh, self.state.model)
+        self.step_fn = make_descriptor_train_step(cfg, self.use_cgf,
+                                                  mesh=self.mesh)
         # the same objective without the step: the reference's per-epoch
         # descriptor test sweep
         self.eval_fn = make_descriptor_train_step(cfg, self.use_cgf,
-                                                  eval_only=True)
+                                                  eval_only=True,
+                                                  mesh=self.mesh)
         self.logger = MetricsLogger(self.out_dir, cfg.train.name + "_desc")
         self.throughput = Throughput()
         self._seed = cfg.train.seed + 13
@@ -156,27 +169,48 @@ class DescriptorEngine:
                 self.best_test_loss = score
         return self.start_epoch
 
-    def _device_batch(self, raw: Dict[str, np.ndarray]) -> PackedPairBatch:
+    _CLOUDS = ("anc_pc", "anc_sn", "pos_pc", "pos_sn")
+
+    def _device_batch(self, raw: Dict[str, np.ndarray]):
         """The host pair batch packed into one buffer in the wire dtype
-        (``pack_pair_batch``) and put on the device, with its negatives."""
-        b = raw["anc_pc"].shape[0]
+        (``pack_pair_batch``) and put on the device, and the batch's other
+        fields (the miner's input); the negatives come after
+        (``_with_negatives``), on the main thread."""
+        packed = pack_pair_batch(raw["anc_pc"], raw["anc_sn"], raw["pos_pc"],
+                                 raw["pos_sn"], np.zeros(0, np.int32),
+                                 wire=self.cfg.data.wire_dtype)
+        x = torch.from_numpy(packed.x)
+        if self.device.type == "cuda":
+            x = x.pin_memory().to(self.device, non_blocking=True)
+        else:
+            x = x.to(self.device)
+        meta = {k: v for k, v in raw.items() if k not in self._CLOUDS}
+        return x, meta
+
+    def _with_negatives(self, item) -> PackedPairBatch:
+        """The batch with the negatives of the global batch: the miner's
+        over every rank's metadata (rank 0 mines, with its dataset's draws,
+        and sends the result to every rank), or a seeded shifted
+        permutation."""
+        x, meta = item
+        b = x.shape[0] * self._ranks
         if self.mine_negatives is not None:
-            neg_idx = self.mine_negatives(raw)
+            if self.mesh is None:
+                neg_idx = self.mine_negatives(meta)
+            else:
+                parts = all_gather_object(meta, self.mesh)
+                neg_idx = None
+                if is_main_process():
+                    neg_idx = self.mine_negatives({
+                        k: np.concatenate([np.asarray(p[k]) for p in parts])
+                        for k in meta})
+                neg_idx = broadcast_object(neg_idx, self.mesh)
         else:
             # in-batch negatives: a seeded shifted permutation
             neg_idx = ((np.arange(b) + 1 + self._np_rng.integers(0, b - 1))
                        % b if b > 1 else np.zeros(b, np.int64))
-        packed = pack_pair_batch(raw["anc_pc"], raw["anc_sn"], raw["pos_pc"],
-                                 raw["pos_sn"], neg_idx,
-                                 wire=self.cfg.data.wire_dtype)
-        x = torch.from_numpy(packed.x)
-        neg = torch.from_numpy(packed.neg_idx).long()
-        if self.device.type == "cuda":
-            x = x.pin_memory().to(self.device, non_blocking=True)
-            neg = neg.pin_memory().to(self.device, non_blocking=True)
-        else:
-            x, neg = x.to(self.device), neg.to(self.device)
-        return PackedPairBatch(x, neg)
+        neg = torch.as_tensor(np.asarray(neg_idx), dtype=torch.long)
+        return PackedPairBatch(x, neg.to(self.device))
 
     def _generator(self, role: int, counter: int) -> torch.Generator:
         return stream_generator(self.device, self._seed, role, counter)
@@ -189,14 +223,15 @@ class DescriptorEngine:
         averages = RunningAverages()
         self.throughput.reset()
         pending = []
-        for i, (batch, batch_size) in enumerate(
+        for i, (item, batch_size) in enumerate(
                 prefetch_batches(self.train_loader, self._device_batch)):
+            batch = self._with_negatives(item)
             gen = self._generator(ROLE_TRAIN,
                                   cfg.train.seed + 1_000_000 * epoch + i)
             metrics = self.step_fn(self.state, self.detector, batch, epoch,
                                    generator=gen)
             pending.append((metrics, batch_size))
-            self.throughput.add(2 * batch_size)
+            self.throughput.add(2 * batch_size * self._ranks)
             if i % cfg.train.log_every == 0:
                 host = _fetch_metrics([(metrics, 1)])[0][0]
                 if not np.isfinite(host["loss"]):
@@ -222,8 +257,9 @@ class DescriptorEngine:
             return {}
         averages = RunningAverages()
         pending = []
-        for i, (batch, batch_size) in enumerate(
+        for i, (item, batch_size) in enumerate(
                 prefetch_batches(self.test_loader, self._device_batch)):
+            batch = self._with_negatives(item)
             metrics = self.eval_fn(self.state, self.detector, batch, epoch,
                                    generator=self._generator(ROLE_TEST, i))
             pending.append((metrics, batch_size))

@@ -15,8 +15,18 @@ seeded by a fixed function of ``(train.seed, role, counter)``
 JAX key; so a resumed run draws what an unbroken run would. The draws never
 equal JAX's.
 
-Not ported: the multi-device mesh branch (``train.num_devices > 1``) and
-the PNG render of ``snapshot_visuals`` (its ``.npz`` payload is written).
+Data parallelism (``train.num_devices > 1``, usip_tpu's mesh branch): one
+process a rank, joined by ``parallel.initialize_distributed`` before the
+engine is made (``cli.py`` starts them). Each rank's loader yields its rows
+of the global batch (``BatchLoader(shard=)``), the steps are made for the
+data mesh (``train/steps.py``), every rank draws the same generators, rank
+0 alone writes checkpoints, metrics and snapshots, and ``Throughput`` counts
+the global batch. The metrics are the global batch's on every rank, so the
+decisions made from them (best saves, the non-finite abort) are the same on
+every rank.
+
+Not ported: the PNG render of ``snapshot_visuals`` (its ``.npz`` payload is
+written).
 """
 
 from __future__ import annotations
@@ -33,6 +43,8 @@ from usip_tpu_torch.config import Config
 from usip_tpu_torch.inference import resolve_device
 from usip_tpu_torch.models import Detector
 from usip_tpu_torch.ops import sample_nodes
+from usip_tpu_torch.parallel.mesh import (Mesh, is_main_process, make_mesh,
+                                          replicate)
 from usip_tpu_torch.train.checkpoint import restore_checkpoint, save_checkpoint
 from usip_tpu_torch.train.state import (TrainState, lr_at_epoch,
                                         set_learning_rate)
@@ -133,6 +145,20 @@ def _fetch_metrics(pending):
             for i, (_, w) in enumerate(pending)]
 
 
+def engine_mesh(cfg: Config, device) -> Optional[Mesh]:
+    """The data mesh of ``train.num_devices > 1`` (the process group must
+    have that many ranks, and the global batch must split over them), else
+    None."""
+    n = cfg.train.num_devices
+    if n <= 1:
+        return None
+    mesh = make_mesh(n, device)
+    if cfg.train.batch_size % n:
+        raise ValueError(f"train.batch_size {cfg.train.batch_size} does not "
+                         f"split over {n} ranks")
+    return mesh
+
+
 def init_detector_state(cfg: Config, seed: int = 0, device="cpu"
                         ) -> TrainState:
     """A freshly initialised detector (its initialisers drawing from
@@ -146,17 +172,16 @@ def init_detector_state(cfg: Config, seed: int = 0, device="cpu"
 
 class DetectorEngine:
     """End-to-end detector training (the reference's train_detector.py
-    loops) on one device."""
+    loops) on one device, or data-parallel over the ranks of
+    ``train.num_devices`` (each rank's loaders yielding its rows)."""
 
     def __init__(self, cfg: Config, train_loader, test_loader=None,
                  out_dir: Optional[str] = None,
                  profile_dir: Optional[str] = None, device="cuda"):
-        if cfg.train.num_devices > 1:
-            raise NotImplementedError(
-                "train.num_devices > 1 (the device mesh) is not ported; "
-                "the engine trains on one device")
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.mesh = engine_mesh(cfg, device)
+        self.device = (self.mesh.device if self.mesh is not None
+                       else resolve_device(device))
         # full fp32 products on the card: TF32 keeps about three decimal
         # digits, and the fp32 checks need all of them
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -167,13 +192,18 @@ class DetectorEngine:
         self.test_loader = test_loader
         self.out_dir = out_dir or os.path.join(cfg.train.checkpoint_dir,
                                                cfg.train.name)
-        os.makedirs(self.out_dir, exist_ok=True)
-        with open(os.path.join(self.out_dir, "config.json"), "w") as f:
-            f.write(cfg.to_json())
+        if is_main_process():
+            os.makedirs(self.out_dir, exist_ok=True)
+            with open(os.path.join(self.out_dir, "config.json"), "w") as f:
+                f.write(cfg.to_json())
 
         self.state = init_detector_state(cfg, cfg.train.seed, self.device)
-        self.train_step = make_detector_train_step(cfg)
-        self.eval_step = make_detector_eval_step(cfg)
+        if self.mesh is not None:
+            replicate(self.mesh, self.state.model)
+        self.train_step = make_detector_train_step(cfg, self.mesh)
+        self.eval_step = make_detector_eval_step(cfg, self.mesh)
+        # clouds a step: every rank's rows, both siamese copies
+        self._ranks = 1 if self.mesh is None else self.mesh.size
         self.logger = MetricsLogger(self.out_dir, cfg.train.name)
         self.throughput = Throughput()
         self.best_test_loss = float("inf")
@@ -277,7 +307,7 @@ class DetectorEngine:
                 metrics = self._step(batch, epoch, i)
             pending.append((metrics, batch_size))
             # a siamese step puts 2 clouds through the model per batch item
-            self.throughput.add(batch_size * 2)
+            self.throughput.add(batch_size * 2 * self._ranks)
             if i % cfg.train.log_every == 0:
                 self._log_interval(metrics, epoch, {"lr": lr}, "train_epoch")
         for host_metrics, weight in _fetch_metrics(pending):
@@ -309,7 +339,7 @@ class DetectorEngine:
             metrics = self.eval_step(self.state, batch,
                                      generator=self._generator(role, i))
             pending.append((metrics, batch_size))
-            tested += batch_size
+            tested += batch_size * self._ranks
             if max_samples is not None and tested > max_samples:
                 break
         for host_metrics, weight in _fetch_metrics(pending):
@@ -349,7 +379,10 @@ class DetectorEngine:
         """Keypoint-scene snapshot during training (the visdom
         display_current_results analog, keypoint_detector.py:259-334): the
         cloud, nodes, keypoints and sigmas of one test (or train) cloud as
-        ``.npz``, from the eval forward on the nodes it shows."""
+        ``.npz``, from the eval forward on the nodes it shows. Rank 0
+        only."""
+        if not is_main_process():
+            return None
         loader = self.test_loader or self.train_loader
         try:
             raw = next(iter(loader))
@@ -433,8 +466,8 @@ class DetectorEngine:
                     self._prefetch(self.train_loader)):
                 metrics = self._step(batch, epoch, i)
                 pending.append((metrics, batch_size))
-                total += batch_size
-                self.throughput.add(batch_size * 2)
+                total += batch_size * self._ranks
+                self.throughput.add(batch_size * 2 * self._ranks)
                 if i % tcfg.log_every == 0:
                     self._log_interval(metrics, epoch,
                                        {"lr": lr,

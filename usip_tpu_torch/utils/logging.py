@@ -5,8 +5,8 @@ own copy).
 Replaces the reference's visdom-based Visualizer (util/visualizer.py): console
 printer (print_current_errors), loss curves (plot_current_errors -> metrics.jsonl,
 plottable offline), and 3D keypoint scatter payloads (display_current_results ->
-.npz snapshots of cloud/nodes/keypoints/sigmas). The port trains in one
-process, so it always logs (usip_tpu logs from its first host only)."""
+.npz snapshots of cloud/nodes/keypoints/sigmas). Under ``torch.distributed``
+only rank 0 writes and prints (usip_tpu logs from its first host only)."""
 
 from __future__ import annotations
 
@@ -18,17 +18,29 @@ from typing import Dict
 import numpy as np
 
 
+def _is_main_process() -> bool:
+    import torch.distributed as dist
+    return not (dist.is_available() and dist.is_initialized()) \
+        or dist.get_rank() == 0
+
+
 class MetricsLogger:
     def __init__(self, out_dir: str, name: str = "train"):
         self.out_dir = out_dir
-        os.makedirs(out_dir, exist_ok=True)
         self.path = os.path.join(out_dir, f"{name}_metrics.jsonl")
-        self._fh = open(self.path, "a")
+        # every rank computes the same metrics; one writes them
+        self.enabled = _is_main_process()
+        self._fh = None
+        if self.enabled:
+            os.makedirs(out_dir, exist_ok=True)
+            self._fh = open(self.path, "a")
         self._t0 = time.time()
 
     def log(self, step: int, epoch: int, metrics: Dict[str, float],
             prefix: str = "train") -> None:
-        """One JSONL record and one console line."""
+        """One JSONL record and one console line (rank 0 only)."""
+        if not self.enabled:
+            return
         record = {"step": step, "epoch": epoch, "prefix": prefix,
                   "wall": round(time.time() - self._t0, 3)}
         record.update({k: float(v) for k, v in metrics.items()})
@@ -40,7 +52,9 @@ class MetricsLogger:
     def snapshot_clouds(self, tag: str, step: int, **arrays) -> str:
         """Dump named point arrays (pc/nodes/keypoints/sigmas) for offline 3D
         inspection, the visdom scatter payload's equivalent
-        (keypoint_detector.py:259-334)."""
+        (keypoint_detector.py:259-334). Rank 0 only; None elsewhere."""
+        if not self.enabled:
+            return None
         vis_dir = os.path.join(self.out_dir, "visuals")
         os.makedirs(vis_dir, exist_ok=True)
         path = os.path.join(vis_dir, f"{tag}_{step}.npz")
@@ -48,7 +62,8 @@ class MetricsLogger:
         return path
 
     def close(self):
-        self._fh.close()
+        if self._fh is not None:
+            self._fh.close()
 
 
 class RunningAverages:
@@ -71,7 +86,8 @@ class RunningAverages:
 
 
 class Throughput:
-    """Clouds/s on the one card, the north-star runtime metric."""
+    """Clouds/s, the north-star runtime metric; the engines count every
+    rank's clouds (the global batch), as usip_tpu's ``Throughput`` does."""
 
     def __init__(self):
         self.reset()

@@ -166,3 +166,16 @@ def seeded_descriptor_state_dict(cfg: DescriptorConfig, seed: int
     from usip_tpu_torch.models.descriptor import Descriptor
     return _seeded(((n, tuple(t.shape)) for n, t in
                     Descriptor(cfg).state_dict().items()), seed, None)
+
+
+def tp_params_from_jax(cfg, variables: Mapping, n_shards: int,
+                       rank: Optional[int] = None):
+    """usip_tpu detector variables cut for ``n_shards`` tensor-parallel
+    ranks (``parallel.tensor_parallel.shard_tp_params``'s ``(tp, rp)``:
+    every rank's stacks, or ``rank``'s blocks): the port's own full
+    ``state_dict`` of them, then its cut."""
+    from usip_tpu_torch.models import Detector
+    from usip_tpu_torch.parallel.tensor_parallel import shard_tp_params
+    model = Detector(cfg.detector)
+    model.load_state_dict(state_dict_from_jax(variables), strict=True)
+    return shard_tp_params(cfg, model, n_shards, rank)
