@@ -132,14 +132,17 @@ script exits nonzero without the final ``ok`` line:
    data-parallel KITTI detector and descriptor steps at full width,
    global batch 8 (3 fp32 steps each against the one-rank step from the
    same state and draws, under deterministic algorithms: metrics,
-   gradients under ``GRAD_TOL`` or twice the one-rank step's own
-   reordering noise, running statistics within 2e-5, replicas
-   bit-identical; then 5 bf16 steps with each rank's launches, step time,
+   gradients under ``GRAD_TOL``, running statistics within 2e-5,
+   replicas bit-identical; the descriptor's frozen detector run cloud by
+   cloud in both, and both steps held under ``GRAD_TOL`` against a
+   float64 arbiter, with conv5's ball-max slots that differ between them
+   printed; then 5 bf16 steps with each rank's launches, step time,
    clouds/s, peak memory), the data-parallel export byte-identical to one
    rank at the per-rank batch, the point-sharded chamfer, single-side
    chamfer, knn and ball gathers (indices equal to one rank's), detector
    forward, 2 train steps and ``sharded_describe`` against one rank, and
-   tensor parallelism's forward and 2 train steps against one rank; NCCL
+   tensor parallelism's forward and 2 train steps against one rank (then
+   both timed); NCCL
    at world size 1 through torchrun's environment (over 2 cards where
    the host has them, else ``nccl_2card: not run``); ``train-detector
    --num-devices 2 --dist-backend gloo`` 2 epochs and ``--resume auto``
@@ -3092,6 +3095,8 @@ DP_CHECK_STEPS = 3
 DP_STEPS = 5
 SP_STEPS = 2
 TP_STEPS = 2
+# the TP forwards and train steps timed after the checked ones
+TP_TIMED = 3
 PP_MICRO = 4
 # the per-rank shapes phase 12 adds: K4 at the sharded knn and ball
 # gathers' local select (8, 512, 8192) k=64, scores read once, values and
@@ -3173,11 +3178,8 @@ def _step_checks(tag, dp_res, one_res, dp_model, one_model):
     largest difference over the 2e-5 bound, 2e-5 + 2e-5 |ref|)."""
     rel = {k: abs(float(dp_res[k]) - float(one_res[k]))
            / max(abs(float(one_res[k])), 1e-30) for k in one_res}
-    grads = {"cuda": {n: p.grad.double().cpu() for n, p in
-                      dp_model.named_parameters() if p.grad is not None},
-             "cpu": {n: p.grad.double().cpu() for n, p in
-                     one_model.named_parameters() if p.grad is not None}}
-    worst, low, _ = grad_errors(tag, grads)
+    worst, low, _ = grad_errors(tag, {"cuda": _grads(dp_model),
+                                      "cpu": _grads(one_model)})
     bn = max(float(((a - b).abs() / (2e-5 + 2e-5 * b.abs())).max())
              for (n, a), b in zip(dp_model.state_dict().items(),
                                   one_model.state_dict().values())
@@ -3198,15 +3200,120 @@ def _reordered(batch, b):
     return type(batch)(*(t[perm.to(t.device)] for t in batch)), perm
 
 
+@contextlib.contextmanager
+def _float64_casts():
+    """The port's ``.float()`` and ``.to(float32)`` kept in float64, and
+    float64 the default dtype, for the block: a float64 run of fp32 code
+    (``tests/group_step_probe.py``'s arbiter)."""
+    orig_float, orig_to = torch.Tensor.float, torch.Tensor.to
+
+    def to(self, *a, **k):
+        a = tuple(torch.float64 if x is torch.float32 else x for x in a)
+        if k.get("dtype") is torch.float32:
+            k["dtype"] = torch.float64
+        return orig_to(self, *a, **k)
+
+    default = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)
+    torch.Tensor.float = lambda self: self.double()
+    torch.Tensor.to = to
+    try:
+        yield
+    finally:
+        torch.Tensor.float, torch.Tensor.to = orig_float, orig_to
+        torch.set_default_dtype(default)
+
+
+def descriptor_grads_f64(cfg, model, det, batch, draws):
+    """The arbiter of the scan-loss descriptor step's fp32 gradients: the
+    step's nodes, frozen keypoints and ball features as the fp32 step makes
+    them (selections, the same bits), then the descriptor network, the
+    triplet loss and the backward in float64 on the card. Returns the
+    float64 gradients by parameter name."""
+    from usip_tpu_torch import losses as L
+    check(not cfg.augment.height_scale, "the arbiter covers the KITTI "
+          "descriptor preset (no height scale)")
+    anc_pc, anc_sn, pos_pc, pos_sn, neg_idx = train_steps._as_pair(batch)
+    b = anc_pc.shape[0]
+    nodes = [train_steps._nodes(pc, cfg, d) for pc, d in
+             ((anc_pc, draws.nodes_anc), (pos_pc, draws.nodes_pos))]
+    with torch.no_grad():
+        _, kp, sig = det(torch.cat([anc_pc, pos_pc]),
+                         torch.cat([anc_sn, pos_sn]), torch.cat(nodes))
+    model = copy.deepcopy(model).double().train()
+    feats = [model.group(pc, sn, k, pri) for pc, sn, k, pri in (
+        (anc_pc, anc_sn, kp[:b], draws.ball_anc),
+        (pos_pc, pos_sn, kp[b:], draws.ball_pos))]
+    with _float64_casts():
+        anc, pos = (model.describe(f.double()) for f in feats)
+        loss, _ = L.desc_pair_scan_loss(
+            anc, pos, anc[neg_idx.to(anc.device).long()], sig[:b].double(),
+            gamma=cfg.loss.triple_loss_gamma, sigma_max=cfg.loss.sigma_max)
+        loss.mean().backward()
+    return {n: p.grad.double().cpu() for n, p in model.named_parameters()
+            if p.grad is not None}
+
+
+def _grads(model):
+    return {n: p.grad.double().cpu() for n, p in model.named_parameters()
+            if p.grad is not None}
+
+
+@contextlib.contextmanager
+def _ball_max_slots(model, mesh=None):
+    """Records, for each ``describe`` call in the block, conv5's output
+    ``(B, M, K, D)`` and the ball slot of each descriptor channel's max
+    over the ball (its argmax over K), gathered over ``mesh``'s ranks in
+    rank order: where two runs' slots differ, their descriptors took
+    another point's value, and conv5's gradient another point's input."""
+    import torch.distributed as dist
+    rec = []
+
+    def hook(mod, inp, out):
+        y = out.detach()
+        if mesh is not None:
+            parts = [torch.empty_like(y) for _ in range(mesh.size)]
+            dist.all_gather(parts, y.contiguous(), group=mesh.group)
+            y = torch.cat(parts)
+        rec.append(y)
+
+    handle = model.conv5.register_forward_hook(hook)
+    try:
+        yield rec
+    finally:
+        handle.remove()
+
+
+def _slot_flips(dp_rec, one_rec):
+    """The (ball, channel) maxima whose slot differs between two runs'
+    ``_ball_max_slots`` records, of how many, and the largest gap between
+    the two slots' values in the second run, over its max|value|."""
+    n, flips, gap = 0, 0, 0.0
+    for a, b in zip(dp_rec, one_rec):
+        sa, sb = a.argmax(dim=-2), b.argmax(dim=-2)
+        diff = sa != sb
+        n += diff.numel()
+        flips += int(diff.sum())
+        if bool(diff.any()):
+            va = b.gather(-2, sa.unsqueeze(-2)).squeeze(-2)
+            vb = b.gather(-2, sb.unsqueeze(-2)).squeeze(-2)
+            gap = max(gap, float((vb - va).abs()[diff].max()
+                                 / b.abs().max()))
+    return flips, n, gap
+
+
 def _dp_step_case(rank, world, mesh, make_step, state, local, full, draws_of,
-                  steps_n, extra=()):
+                  steps_n, extra=(), arbiter=None):
     """``steps_n`` data-parallel steps from ``state``; before each, rank 0
     keeps two copies of the state and after it runs the one-rank step on
     the whole batch with the same draws from one copy, and from the other
     the one-rank step on the same batch with its halves swapped (the same
     function summed in another order: the reduction-order noise of the
     one-rank step itself), and compares the data-parallel step and the
-    reordered step with the one-rank step."""
+    reordered step with the one-rank step. With ``arbiter(model, extra,
+    batch, draws)`` (float64 gradients from the state before the step),
+    both fp32 steps' gradients are also held against it, and the two
+    steps' ball-max slots are compared (``_ball_max_slots``)."""
     from usip_tpu_torch.nn.layers import set_bn_process_group
     step, one = make_step(mesh), make_step(None)
     b = int(full[0].shape[0])
@@ -3218,17 +3325,33 @@ def _dp_step_case(rank, world, mesh, make_step, state, local, full, draws_of,
         before = copy.deepcopy(state) if rank == 0 else None
         again = copy.deepcopy(state) if rank == 0 else None
         draws = draws_of(i)
-        m = step(state, *extra, local, 0, draws=draws)
+        g64 = (arbiter(before.model, extra, full, draws)
+               if rank == 0 and arbiter is not None else None)
+        slots = (_ball_max_slots(state.model, mesh) if arbiter is not None
+                 else contextlib.nullcontext())
+        with slots as dp_rec:
+            m = step(state, *extra, local, 0, draws=draws)
         if rank == 0:
-            m1 = one(before, *extra, full, 0, draws=draws)
+            slots = (_ball_max_slots(before.model) if arbiter is not None
+                     else contextlib.nullcontext())
+            with slots as one_rec:
+                m1 = one(before, *extra, full, 0, draws=draws)
             swapped, perm = _reordered(full, b)
             m2 = one(again, *extra, swapped, 0,
                      draws=train_steps.draws_rows(
                          draws, perm.to(full[0].device), b))
-            out.append({"dp": _step_checks(f"dp step {i}", m, m1,
-                                           state.model, before.model),
-                        "order": _step_checks(f"reordered step {i}", m2, m1,
-                                              again.model, before.model)})
+            res = {"dp": _step_checks(f"dp step {i}", m, m1, state.model,
+                                      before.model),
+                   "order": _step_checks(f"reordered step {i}", m2, m1,
+                                         again.model, before.model)}
+            if g64 is not None:
+                res["slot_flips"] = _slot_flips(dp_rec, one_rec)
+                res["f64"] = {
+                    tag: grad_errors(f"{tag} step {i} against float64", {
+                        "cuda": _grads(model), "cpu": g64})[:2]
+                    for tag, model in (("dp", state.model),
+                                       ("one", before.model))}
+            out.append(res)
     return out, _hash(state.model)
 
 
@@ -3312,7 +3435,9 @@ def ranks_work(rank, world, arg):
         out["dp_descriptor_checks"], h = _dp_step_case(
             rank, world, mesh,
             lambda m: make_descriptor_train_step(dcfg32, mesh=m), dstate,
-            local, full, desc_draws, DP_CHECK_STEPS, extra=(PerCloud(det),))
+            local, full, desc_draws, DP_CHECK_STEPS, extra=(PerCloud(det),),
+            arbiter=lambda model, extra, batch, draws: descriptor_grads_f64(
+                dcfg32, model, extra[0], batch, draws))
     finally:
         torch.use_deterministic_algorithms(False)
     out["dp_descriptor_hash"] = h
@@ -3330,7 +3455,7 @@ def ranks_work(rank, world, arg):
     out["dp_export"] = _counted(lambda: run_export(
         ecfg, arg["ckpt"], arg["export_dir"], device="cuda"))
 
-    # the comparisons below run under deterministic algorithms: the SOM
+    # the comparisons below run under deterministic algorithms: the sharded
     # trunk's cluster sums (scatter_add) otherwise add in a run-dependent
     # order on the card, and an anchor moved by that can swap a node's
     # 16th and 17th nearest neighbours between two calls of one forward
@@ -3417,17 +3542,33 @@ def ranks_numerics(rank, world):
     sharded = res
 
     # -- tensor parallel: the fusion block and head over the ranks, c2 512
+    import torch.distributed as dist
+
+    def wall_ms(fn, n):
+        """``fn()`` ``n`` times between barriers: ms a call (the slower
+        rank's time is the last to pass the barrier)."""
+        sync()
+        dist.barrier()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        sync()
+        dist.barrier()
+        return (time.perf_counter() - t0) / n * 1e3
+
     cmesh = tpm.make_channel_mesh(world)
     det = seeded_detector(scfg, dev)
     res = {"forward": tpm.tensor_parallel_detector_forward(
         cmesh, scfg, det, pc, sn, node)}
+    res["forward_ms"] = wall_ms(lambda: tpm.tensor_parallel_detector_forward(
+        cmesh, scfg, det, pc, sn, node), TP_TIMED)
     if rank == 0:
         with torch.no_grad():
             res["one_forward"] = det.eval()(pc, sn, node)
     tcfg = get_config("kitti", **{"detector.compute_dtype": "float32"})
     tstate = tpm.shard_state_tp(cmesh, train_state(tcfg, dev))
     full = parent_batch(np.random.default_rng(123), tcfg, 8, dev)
-    tstep = make_detector_train_step(tcfg)
+    tstep = tpm.make_tp_train_step(tcfg)
 
     def tp_draws(i):
         return train_steps.detector_draws(
@@ -3437,6 +3578,9 @@ def ranks_numerics(rank, world):
     ms, res["train_launches"] = _counted(lambda: [
         tstep(tstate, full, 0, draws=tp_draws(i)) for i in range(TP_STEPS)])
     res["train"] = [{k: float(v) for k, v in m.items()} for m in ms]
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    res["train_ms"] = wall_ms(lambda: tstep(tstate, full, 0, generator=gen),
+                              TP_TIMED)
     if rank == 0:
         one = train_state(tcfg, dev)
         res["one_train"] = {k: float(v) for k, v in make_detector_train_step(
@@ -3654,8 +3798,8 @@ def phase12_pipeline(card):
         pris.append(torch.rand(2, 16384, generator=gen, device=dev))
     pipe = pp.DetectDescribePipeline(cfg, det, desc, devices=("cuda:0",
                                                               "cuda:0"))
-    # compared under deterministic algorithms (the trunk's scatter sums add
-    # in a run-dependent order on the card otherwise), timed without
+    # compared under deterministic algorithms (any atomic scatter-add on
+    # the path then sums in a fixed order), timed without
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
         (out, launches) = _counted(lambda: pipe(mbs, pris))
@@ -3712,21 +3856,35 @@ def phase12(card, tmp, ckpt):
                   f"({order['grad_worst'][1]}), cosine "
                   f"{order['grad_cos'][0]:.9f}, statistics "
                   f"{order['bn_over_tol']:.3f}", flush=True)
+            if "f64" in c:
+                f64 = c["f64"]
+                print(f"[12] {tag} fp32 step {i} against its float64 "
+                      f"arbiter (descriptor network, loss and backward in "
+                      f"float64 from the same ball features): 2 ranks worst "
+                      f"{f64['dp'][0][0]:.3e} ({f64['dp'][0][1]}), cosine "
+                      f"{f64['dp'][1][0]:.9f}; 1 rank worst "
+                      f"{f64['one'][0][0]:.3e} ({f64['one'][0][1]}), cosine "
+                      f"{f64['one'][1][0]:.9f}", flush=True)
+                flips, n_max, gap = c["slot_flips"]
+                print(f"[12] {tag} fp32 step {i}: conv5's ball-max slots "
+                      f"that differ between 2 ranks and 1: {flips} of "
+                      f"{n_max} (the largest gap between the two slots' "
+                      f"values in the one-rank run {gap:.3e} of max|y|)",
+                      flush=True)
             loss_keys = [k for k in dp["rel"] if k != "grad_norm"]
             check(all(dp["rel"][k] <= 1e-4 for k in loss_keys)
                   and dp["rel"].get("grad_norm", 0) <= 1e-3,
                   f"{tag} step {i}: metrics within tolerance of one rank")
-            # GRAD_TOL, or where the one-rank step's own reduction-order
-            # noise (its reordered twin) exceeds it, within twice that noise
-            tol = max(GRAD_TOL[1], 2 * order["grad_worst"][0])
-            cos = min(GRAD_TOL[2], 1 - 2 * (1 - order["grad_cos"][0]))
-            check(dp["grad_worst"][0] <= tol and dp["grad_cos"][0] >= cos,
-                  f"{tag} step {i}: gradients within GRAD_TOL of one rank, "
-                  f"or within twice the one-rank step's reordering noise "
-                  f"({tol:.3e}, cosine {cos:.9f})")
-            check(dp["bn_over_tol"] <= max(1.0, 2 * order["bn_over_tol"]),
-                  f"{tag} step {i}: running statistics within 2e-5 of one "
-                  "rank")
+            check(dp["grad_worst"][0] <= GRAD_TOL[1]
+                  and dp["grad_cos"][0] >= GRAD_TOL[2],
+                  f"{tag} step {i}: gradients within GRAD_TOL of one rank")
+            check(dp["bn_over_tol"] <= 1.0, f"{tag} step {i}: running "
+                  "statistics within 2e-5 of one rank")
+            if "f64" in c:
+                check(all(e[0][0] <= GRAD_TOL[1] and e[1][0] >= GRAD_TOL[2]
+                          for e in c["f64"].values()),
+                      f"{tag} step {i}: both fp32 steps' gradients within "
+                      "GRAD_TOL of the float64 arbiter")
         check(res[0][f"{tag}_hash"] == res[1][f"{tag}_hash"],
               f"{tag}: the replicas bit-identical after the fp32 steps")
         timed = [r[tag] for r in res]
@@ -3820,6 +3978,12 @@ def phase12(card, tmp, ckpt):
         check(t0_["train_launches"][name] > 0, f"kernel {name} launched in "
               "the TP steps")
     launches["tp_train"] = t0_["train_launches"]
+    tp_fwd_ms = max(r["tp"]["forward_ms"] for r in res)
+    tp_step_ms = max(r["tp"]["train_ms"] for r in res)
+    print(f"[12] {card} | tensor parallel over 2 gloo ranks sharing the card"
+          f" (fp32, global batch 8, c2 512, fusion block and head cut): "
+          f"forward {tp_fwd_ms:.3f} ms, train step {tp_step_ms:.3f} ms (wall "
+          f"over {TP_TIMED} calls between barriers, the slower rank)", flush=True)
     print(f"[12] {card} | tensor parallel over 2 ranks (c2 512, fusion block "
           f"and head cut): forward max|diff| {fwd}; {TP_STEPS} train steps, "
           f"first step relative to 1 rank {json.dumps({k: float(f'{v:.3e}') for k, v in rel.items()})}"

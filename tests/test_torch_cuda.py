@@ -735,3 +735,22 @@ def test_scatter_max_kernel_with_nodes_empty_on_a_rank(dev):
         got = kernels.scatter_max(f, ids, 512)
         assert torch.equal(got, kernels.scatter_max_plain(f, ids, 512))
         assert bool((got[:, 256:] == 0).all())
+
+
+def test_segment_mean_count_is_deterministic_on_the_card(dev):
+    """The trunk's cluster means at the KITTI shape (8, 16384) onto 512
+    nodes: the same bits in two calls and for a cloud alone or in the
+    batch (the exports' byte identity over rank counts rests on it); the
+    CPU's within 1e-5 (the card's segment sum may add in a tree) and its
+    counts exactly."""
+    from usip_tpu_torch.ops import segment_mean_count
+    rng = np.random.default_rng(44)
+    x = _rand(rng, (8, 16384, 3), dev, 20.0)
+    ids = torch.from_numpy(rng.integers(0, 500, (8, 16384))).to(dev)
+    a, ca = segment_mean_count(x, ids, 512)
+    b, _ = segment_mean_count(x, ids, 512)
+    one, _ = segment_mean_count(x[3:4], ids[3:4], 512)
+    cpu, ccpu = segment_mean_count(x.cpu(), ids.cpu(), 512)
+    assert torch.equal(a, b) and torch.equal(a[3:4], one)
+    torch.testing.assert_close(a.cpu(), cpu, rtol=1e-5, atol=1e-5)
+    assert torch.equal(ca.cpu(), ccpu)

@@ -326,10 +326,10 @@ def test_descriptor_step_over_ranks(ranks, name):
 
 
 def test_draws_of_a_generator_are_the_steps_own():
-    """``detector_draws`` / ``descriptor_draws`` take the generator's
-    numbers as the steps do: a step handed them equals the step handed
-    the generator, bit for bit (the invariant that gives R ranks the
-    one-rank run's draws, row for row)."""
+    """A step handed ``detector_draws`` / ``descriptor_draws``' record of a
+    generator equals the step handed the generator, bit for bit: the steps
+    draw through those functions alone (the invariant that gives R ranks
+    the one-rank run's draws, row for row)."""
     jcfg, cfg, pc, sn, jmodel, variables, det = TT._setup()
     batch = steps.ParentBatch(torch.from_numpy(pc), torch.from_numpy(sn))
     sd = {k: v.clone() for k, v in det.state_dict().items()}

@@ -614,7 +614,7 @@ def _tp_ref(name, cut):
 
 
 def test_tp_train_step_matches(ranks):
-    """The ordinary train step over ``shard_state_tp`` at 2 ranks: the
+    """``make_tp_train_step`` over ``shard_state_tp`` at 2 ranks: the
     metrics rel 1e-5 of the one-rank step (same draws, usip_tpu's); every
     parameter's gradient within 1e-5 x max|g| of its cut of the one-rank
     gradient; each rank holds about half of the cut layers' parameters;

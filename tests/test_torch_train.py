@@ -734,7 +734,7 @@ def test_siamese_topk_and_dropout_match_jax():
     idx = [np.asarray(jax.lax.top_k(jax.random.uniform(k, (B, P)), N)[1])
            for k in (k_src, k_dst)]
     out = steps._as_siamese(steps.ParentBatch(_t(pc), _t(sn)), cfg,
-                            tuple(map(_t, idx)), None)
+                            tuple(map(_t, idx)))
     for o, r in zip(out, ref):
         np.testing.assert_array_equal(o.numpy(), np.asarray(r))
 
@@ -743,7 +743,7 @@ def test_siamese_topk_and_dropout_match_jax():
                                        [(ref[0], ref[1]), (ref[2], ref[3])],
                                        0.5)
     got = steps._random_point_dropout([(out[0], out[1]), (out[2], out[3])],
-                                      0.5, d, None)
+                                      d)
     for gp, rp in zip(got, ref):
         for o, r in zip(gp, rp):
             np.testing.assert_array_equal(o.numpy(), np.asarray(r))

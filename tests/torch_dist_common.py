@@ -317,7 +317,7 @@ def _local_counts(pc, node):
 def _tp_checks(p: dict, world: int, data_mesh=None, channel_mesh=None,
                rows=None) -> dict:
     """Tensor parallelism: the eval forward (fp32 and bf16, with cut
-    params passed in) and one train step of the ordinary step over a
+    params passed in) and one ``make_tp_train_step`` step over a
     ``shard_state_tp`` state."""
     from usip_tpu_torch.config import get_config
     from usip_tpu_torch.models import Detector
@@ -346,7 +346,7 @@ def _tp_checks(p: dict, world: int, data_mesh=None, channel_mesh=None,
     if data_mesh is not None:
         from usip_tpu_torch.parallel import shard_batch
         batch = shard_batch(data_mesh, batch)
-    m = steps.make_detector_train_step(cfg, data_mesh)(
+    m = tpm.make_tp_train_step(cfg, data_mesh)(
         state, batch, t["epoch"], draws=t["draws"])
     out["train"] = {"metrics": {k: float(v) for k, v in m.items()},
                     "grads": _grads(state.model),

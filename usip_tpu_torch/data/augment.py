@@ -94,6 +94,17 @@ class SE3Draws(NamedTuple):
     shift: Tensor
 
 
+def se3_draws(b: int, rot_type: Optional[str], rot_perturbation: bool,
+              scale_thre: float, shift_thre: float,
+              generator: torch.Generator) -> SE3Draws:
+    """``random_se3``'s draws for ``b`` clouds, in its order."""
+    angles = sample_angles(rot_type, rot_perturbation, b, generator)
+    return SE3Draws(angles,
+                    _uniform(generator, (b,), 1.0 - scale_thre,
+                             1.0 + scale_thre),
+                    _uniform(generator, (b, 3), -shift_thre, shift_thre))
+
+
 def random_se3(pc: Tensor, sn: Tensor, node: Tensor, *,
                rot_type: Optional[str], scale_thre: float = 0.2,
                shift_thre: float = 0.2, rot_perturbation: bool = False,
@@ -108,11 +119,8 @@ def random_se3(pc: Tensor, sn: Tensor, node: Tensor, *,
     b = pc.shape[0]
     if draws is None:
         _need(generator, "SE3")
-        angles = sample_angles(rot_type, rot_perturbation, b, generator)
-        draws = SE3Draws(angles,
-                         _uniform(generator, (b,), 1.0 - scale_thre,
-                                  1.0 + scale_thre),
-                         _uniform(generator, (b, 3), -shift_thre, shift_thre))
+        draws = se3_draws(b, rot_type, rot_perturbation, scale_thre,
+                          shift_thre, generator)
     R = rotation_matrix(draws.angles.to(pc))
     scale, shift = draws.scale.to(pc), draws.shift.to(pc)
     pc = rotate(pc, R) * scale[:, None, None] + shift[:, None, :]
@@ -134,6 +142,23 @@ class AugmentDraws(NamedTuple):
     jitter: Optional[Sequence[Tuple[Tensor, Tensor, Tensor]]] = None
 
 
+def augment_draws(shapes, cfg: AugmentConfig, scale_low: float,
+                  scale_high: float, shared_jitter: bool,
+                  generator: torch.Generator) -> AugmentDraws:
+    """``shared_augment``'s draws, in its order, for packs of the
+    ``shapes`` ``[(pc, sn, node) shapes, ...]`` (batch first)."""
+    b = shapes[0][0][0]
+    angles = sample_angles(cfg.rot_type, cfg.rot_perturbation, b, generator)
+    scale = _uniform(generator, (b,), scale_low, scale_high)
+    shift = _uniform(generator, (b, 3), -0.1, 0.1)
+    jitter = None
+    if cfg.jitter:
+        jitter = [tuple(torch.randn(sh, generator=generator,
+                                    device=generator.device) for sh in pack)
+                  for pack in shapes[:1 if shared_jitter else None]]
+    return AugmentDraws(angles, scale, shift, jitter)
+
+
 def shared_augment(packs, cfg: AugmentConfig, *, scale_low: float = 0.9,
                    scale_high: float = 1.1, shared_jitter: bool = False,
                    draws: Optional[AugmentDraws] = None,
@@ -144,20 +169,11 @@ def shared_augment(packs, cfg: AugmentConfig, *, scale_low: float = 0.9,
     node, per pack unless ``shared_jitter``; scale of pc and node (and sn
     with ``cfg.scale_sn``); shift only with
     ``cfg.translation_perturbation``."""
-    b = packs[0][0].shape[0]
     if draws is None:
         _need(generator, "augment")
-        angles = sample_angles(cfg.rot_type, cfg.rot_perturbation, b,
-                               generator)
-        scale = _uniform(generator, (b,), scale_low, scale_high)
-        shift = _uniform(generator, (b, 3), -0.1, 0.1)
-        jitter = None
-        if cfg.jitter:
-            dev = generator.device
-            jitter = [tuple(torch.randn(t.shape, generator=generator,
-                                        device=dev) for t in pack)
-                      for pack in packs[:1 if shared_jitter else None]]
-        draws = AugmentDraws(angles, scale, shift, jitter)
+        draws = augment_draws([tuple(t.shape for t in pack)
+                               for pack in packs], cfg, scale_low,
+                              scale_high, shared_jitter, generator)
     ref = packs[0][0]
     R = rotation_matrix(draws.angles.to(ref))
     scale, shift = draws.scale.to(ref), draws.shift.to(ref)
@@ -185,6 +201,13 @@ def shared_augment(packs, cfg: AugmentConfig, *, scale_low: float = 0.9,
     return out
 
 
+def height_scale_draws(b: int, low: float, high: float,
+                       generator: torch.Generator) -> Tensor:
+    """``random_height_scale``'s factors ``(B,)``, uniform in ``[low,
+    high)``."""
+    return _uniform(generator, (b,), low, high)
+
+
 def random_height_scale(pcs, low: float = 0.25, high: float = 1.2,
                         axis: int = 2, *, scale: Optional[Tensor] = None,
                         generator: Optional[torch.Generator] = None):
@@ -192,10 +215,9 @@ def random_height_scale(pcs, low: float = 0.25, high: float = 1.2,
     cloud of ``pcs`` (a list of ``(B, N, 3)``): coordinate ``axis`` times
     ``scale (B,)``, uniform in ``[low, high)`` where not given (``axis=1``
     in the camera frame the clouds are stored in)."""
-    b = pcs[0].shape[0]
     if scale is None:
         _need(generator, "height scale")
-        scale = _uniform(generator, (b,), low, high)
+        scale = height_scale_draws(pcs[0].shape[0], low, high, generator)
     scale = scale.to(pcs[0])
     ones = torch.ones_like(scale)
     cols = [ones, ones, ones]

@@ -25,7 +25,6 @@ keypoints: each rank draws those from its own ``rng``).
 
 from __future__ import annotations
 
-import contextlib
 import os
 import time
 from typing import Callable, Optional
@@ -146,21 +145,6 @@ class _Ranks:
         return sum(self.gather(frames))
 
 
-@contextlib.contextmanager
-def _deterministic():
-    """PyTorch's deterministic algorithms for the export's forwards: the
-    trunk's cluster sums (``scatter_add_``) add in a fixed order, so that a
-    frame's keypoints are the same bits run to run and at any rank count
-    (CUDA's atomic adds otherwise sum in the order the threads arrive)."""
-    was = torch.are_deterministic_algorithms_enabled()
-    warn = torch.is_deterministic_algorithms_warn_only_enabled()
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    try:
-        yield
-    finally:
-        torch.use_deterministic_algorithms(was, warn_only=warn)
-
-
 class ModelInfer:
     """The detector's eval forward from a checkpoint (the port's ``.pt`` or
     a usip_tpu ``.msgpack``): ``(pc, sn, node_draws) -> (keypoints,
@@ -185,12 +169,11 @@ class ModelInfer:
             np.ascontiguousarray(a, np.float32)).to(self.device)
         d = [None if t is None else t.to(self.device)
              for t in (draws or (None, None))]
-        with _deterministic():
-            node = sample_nodes(to(pc), self.cfg.data.node_num, self.ratio,
-                                self.cfg.data.fps_parallel, subset_idx=d[0],
-                                first=d[1], generator=generator)
-            _, kp, sig = detector_infer_fused(self.model, to(pc), to(sn),
-                                              node, self.chain)
+        node = sample_nodes(to(pc), self.cfg.data.node_num, self.ratio,
+                            self.cfg.data.fps_parallel, subset_idx=d[0],
+                            first=d[1], generator=generator)
+        _, kp, sig = detector_infer_fused(self.model, to(pc), to(sn), node,
+                                          self.chain)
         return kp.cpu().numpy(), sig.cpu().numpy()
 
 
@@ -223,9 +206,8 @@ class DescriptorInfer:
             np.ascontiguousarray(a, np.float32)).to(self.device)
         if priority is not None:
             priority = priority.to(self.device)
-        with _deterministic():
-            desc, _ = self.model(to(pc), to(sn), to(keypoints), priority,
-                                 generator=generator)
+        desc, _ = self.model(to(pc), to(sn), to(keypoints), priority,
+                             generator=generator)
         return desc.cpu().numpy()
 
 

@@ -129,6 +129,14 @@ class CGFDraws(NamedTuple):
     select: Tensor
 
 
+def cgf_draws(b: int, m: int, *, generator: torch.Generator) -> CGFDraws:
+    """``desc_cgf_loss``'s uniforms for ``b`` clouds of ``m`` keypoints, in
+    its order, on the generator's device."""
+    u = lambda shape: torch.rand(shape, generator=generator,  # noqa: E731
+                                 device=generator.device)
+    return CGFDraws(u((b, m, m)), u((b, m, m)), u((b, m)))
+
+
 def desc_cgf_loss(anc_keypoints: Tensor, anc_desc: Tensor,
                   pos_keypoints: Tensor, pos_desc: Tensor,
                   anc_sigmas: Tensor, *, cgf_radius: float, gamma: float,
@@ -145,9 +153,7 @@ def desc_cgf_loss(anc_keypoints: Tensor, anc_desc: Tensor,
     if draws is None:
         if generator is None:
             raise ValueError("pass the CGF draws or a torch.Generator")
-        u = lambda shape: torch.rand(shape, generator=generator,  # noqa: E731
-                                     device=generator.device)
-        draws = CGFDraws(u((b, m, m)), u((b, m, m)), u((b, m)))
+        draws = cgf_draws(b, m, generator=generator)
     rand_pos, rand_out, select_u = (t.to(anc_desc.device) for t in draws)
     desc_diff = pairwise_dist(anc_desc, pos_desc)              # (B, M, M)
     kp_diff = pairwise_dist(anc_keypoints, pos_keypoints)      # (B, M, M)

@@ -112,6 +112,13 @@ def ball_select(scores: Tensor, k: int) -> BallQueryResult:
     return BallQueryResult(idx=idx, valid=found, counts=counts)
 
 
+def ball_priority_draws(b: int, n: int, *, generator: torch.Generator
+                        ) -> Tensor:
+    """``ball_query``'s random priorities ``(B, N)``, uniform in ``[0, 1)``,
+    on the generator's device."""
+    return torch.rand((b, n), generator=generator, device=generator.device)
+
+
 def ball_query(points: Tensor, centers: Tensor, radius: float, k: int,
                priority: Optional[Tensor] = None, *,
                generator: Optional[torch.Generator] = None,
@@ -137,8 +144,7 @@ def ball_query(points: Tensor, centers: Tensor, radius: float, k: int,
     if method not in ("auto", "exact", "approx"):
         raise ValueError(f"unknown ball_query method {method!r}")
     if priority is None and generator is not None:
-        priority = torch.rand(points.shape[:2], generator=generator,
-                              device=generator.device)
+        priority = ball_priority_draws(*points.shape[:2], generator=generator)
     if priority is not None and tuple(priority.shape) != tuple(
             points.shape[:2]):
         raise ValueError(f"priority of shape {tuple(priority.shape)}, "

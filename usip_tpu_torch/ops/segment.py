@@ -2,8 +2,8 @@
 
 The masked scatter-max is the scatter-max kernel (``ops.kernels.scatter_max``,
 the counterpart of ``scripts/bench_scatter_pallas.py scatter_max_pallas``) for
-CUDA tensors; the sums and gathers are plain PyTorch
-(``scatter_add``/gather).
+CUDA tensors; the sums and gathers are plain PyTorch (a sorted segment sum,
+``scatter_add``, gather).
 """
 
 from __future__ import annotations
@@ -78,12 +78,17 @@ def masked_scatter_max(f: Tensor, ids: Tensor, num_segments: int,
 def segment_mean_count(x: Tensor, ids: Tensor, num_segments: int,
                        eps: float = 1e-5) -> Tuple[Tensor, Tensor]:
     """Per-node mean of ``x (B, N, D)`` and the count of points:
-    ``sums / (counts + eps)``, ``counts`` -> ``(B, M, D)``, ``(B, M)``."""
+    ``sums / (counts + eps)``, ``counts`` -> ``(B, M, D)``, ``(B, M)``.
+    Each node's sum runs over its points in index order (a stable sort by
+    node, then a segment sum): the same bits on every run and for a cloud
+    in any batch, where CUDA's atomic scatter-add sums in the order its
+    threads arrive. The counts are exact in any order."""
     b, _, d = x.shape
-    sums = torch.zeros((b, num_segments, d), dtype=x.dtype, device=x.device)
-    sums.scatter_add_(1, _expand(ids, d), x)
     counts = torch.zeros((b, num_segments), dtype=x.dtype, device=x.device)
     counts.scatter_add_(1, ids, torch.ones_like(ids, dtype=x.dtype))
+    order = ids.argsort(dim=1, stable=True)
+    sums = torch.segment_reduce(torch.gather(x, 1, _expand(order, d)), "sum",
+                                lengths=counts.long(), axis=1, unsafe=True)
     return sums / (counts[..., None] + eps), counts
 
 

@@ -16,7 +16,8 @@ the ranks of a ``channels`` mesh, Megatron-style:
 (``rank=``). The SOM trunk runs replicated. ``tensor_parallel_detector_
 forward`` is the eval forward. ``shard_state_tp`` makes the trainable form
 (``TPDetector``: this rank's blocks as parameters, their Adam state cut
-alike), which the ordinary train step trains (usip_tpu jits its step with
+alike), which ``make_tp_train_step`` trains: the detector's train step with
+the TP model's gradient reduction and norm (usip_tpu jits its step with
 ``tp_state_sharding``'s layouts); on a ``data x channels`` grid
 (``make_dp_tp_mesh``) with the data mesh as the step's.
 
@@ -36,7 +37,8 @@ from torch import nn
 from usip_tpu_torch.config import Config
 from usip_tpu_torch.models.detector import Detector, compute_dtype, knn_group
 from usip_tpu_torch.nn.layers import BatchNorm, activation_fn
-from usip_tpu_torch.parallel.collectives import psum, pvary
+from usip_tpu_torch.parallel.collectives import (all_reduce_grads, psum,
+                                                 pvary)
 from usip_tpu_torch.parallel.mesh import Mesh, make_grid, make_mesh
 from usip_tpu_torch.train.state import TrainState, make_adam
 
@@ -247,9 +249,9 @@ class TPDetector(nn.Module):
     """The SOM detector with the fusion block and head cut over ``mesh``:
     the trunk whole (replicated), this rank's column and row blocks. Its
     forward (train or eval mode) is ``Detector``'s: ``(anchors, keypoints,
-    sigmas)``, replicated over the channels; a drop-in model for the train
-    step. The replicated inputs of the column layers pass ``pvary``, so
-    the trunk's gradients are whole on every rank."""
+    sigmas)``, replicated over the channels; ``make_tp_train_step`` trains
+    it. The replicated inputs of the column layers pass ``pvary``, so the
+    trunk's gradients are whole on every rank."""
 
     def __init__(self, model: Detector, mesh: Mesh):
         super().__init__()
@@ -291,10 +293,10 @@ class TPDetector(nn.Module):
     def reduce_grads(self, data_mesh: Optional[Mesh] = None) -> None:
         """The train step's gradient reduction: the whole parameters'
         gradients averaged over the channel ranks (each holds the whole
-        gradient already; the replicated trunk's scatter sums add in an
-        order that varies on the card, and the average keeps the replicas
-        bit-identical), then every gradient summed over ``data_mesh``."""
-        from usip_tpu_torch.parallel.collectives import all_reduce_grads
+        gradient already; the replicated trunk's backward scatter-adds
+        sum in an order that varies on the card, and the average keeps the
+        replicas bit-identical), then every gradient summed over
+        ``data_mesh``."""
         whole = [p for n, p in self.named_parameters()
                  if p.grad is not None and not self._is_cut(n)]
         all_reduce_grads(whole, self.mesh)
@@ -347,6 +349,17 @@ class TPDetector(nn.Module):
         sigmas = (torch.nn.functional.softplus(y4[..., 3])
                   + cfg.sigma_lower_bound)
         return anchors, keypoints, sigmas
+
+
+def make_tp_train_step(cfg: Config, data_mesh: Optional[Mesh] = None):
+    """The detector's train step (``train.steps.make_detector_train_step``)
+    for a ``shard_state_tp`` state: ``TPDetector.reduce_grads`` over the
+    channel ranks and ``data_mesh``, ``TPDetector.grad_norm`` over every
+    rank's blocks."""
+    from usip_tpu_torch.train.steps import make_detector_train_step
+    return make_detector_train_step(
+        cfg, data_mesh, reduce_grads=TPDetector.reduce_grads,
+        grad_norm=TPDetector.grad_norm)
 
 
 def tp_state_sharding(mesh: Mesh, state: TrainState) -> Dict[str, Optional[int]]:
@@ -410,6 +423,7 @@ def _cut_adam(state: TrainState, tp_model: TPDetector, opt, mesh: Mesh
 
 
 __all__ = ["TP_LAYER_NAMES", "TPDetector",
-           "make_channel_mesh", "make_dp_tp_mesh", "shard_state_tp",
+           "make_channel_mesh", "make_dp_tp_mesh", "make_tp_train_step",
+           "shard_state_tp",
            "shard_tp_params", "tensor_parallel_detector_forward",
            "tp_state_sharding"]
