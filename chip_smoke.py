@@ -151,7 +151,22 @@ script exits nonzero without the final ``ok`` line:
    ``train-descriptor --num-devices 2`` one epoch, on phase 7's tree cut
    to 2 scans a train sequence; the detect -> describe pipeline over 4
    microbatches on two streams against the sequential path, both
-   throughputs.
+   throughputs;
+13. deployment (``usip_tpu_torch.model_artifact``, the kernels as
+   ``usip::`` custom ops in ``torch.export`` programs): artifacts exported
+   for the card from seeded weights at full width (the KITTI SOM detector,
+   the Oxford ball detector, the KITTI pipeline in the descriptor role),
+   their export seconds and file sizes; each called in fp32 at batch 2 with
+   the in-process port's draws, launch counts reset before the call (SOM
+   and the pipeline launch all five kernels, ball K1, K3 and K4), its
+   outputs and every ``usip::`` op's outputs held equal to the in-process
+   port's (indices identical; a float that differs is counted and held
+   within 1e-5 of max|x|); ``python -m usip_tpu_torch.cli run-model
+   --device cuda`` on 3 clouds at batch 2 (a ragged tail), its ``.bin``
+   files byte-equal to ``run_detector_artifact`` in process with the same
+   seed, and the pipeline artifact's paired rows; the bf16 SOM and pipeline
+   artifacts (batch 8) timed with the bench protocol beside the in-process
+   detect.
 
 The second-to-last line is a JSON object with one entry per kernel (time,
 plain and library times, bound, launches); the last is ``{"ok": true,
@@ -174,6 +189,7 @@ import types
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
@@ -4002,6 +4018,264 @@ def phase12(card, tmp, ckpt):
     return launches, k4
 
 
+# phase 13: the artifacts' fp32 batch (card against the in-process port),
+# the clouds given to run-model (3 at batch 2: a ragged tail) and their
+# points, and the kernels each artifact must launch
+DEPLOY_B = 2
+DEPLOY_CLOUDS = 3
+DEPLOY_KERNELS = {
+    "som": ("fps", "min_argmin", "smallest_k", "fusion_chain",
+            "scatter_max"),
+    "ball": ("fps", "smallest_k", "fusion_chain"),
+    "pipeline": ("fps", "min_argmin", "smallest_k", "fusion_chain",
+                 "scatter_max"),
+}
+
+
+class OpRecorder(TorchDispatchMode):
+    """The outputs of every ``usip::`` op called inside the block, in
+    order, as ``(op name, outputs)``: the artifact's and the in-process
+    port's node and ball selections, read without changing either."""
+
+    def __init__(self):
+        super().__init__()
+        self.calls = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if func.namespace == "usip":
+            outs = out if isinstance(out, tuple) else (out,)
+            self.calls.append((func.__name__.split(".")[0],
+                               [t.clone() for t in outs]))
+        return out
+
+
+def _deploy_programs(cfg, kind, dev):
+    """The in-process port's forward of one artifact kind, from the same
+    seeded weights: ``detector_infer_fused`` (and ``Descriptor``) on the
+    draws the artifact takes as inputs."""
+    det = seeded_detector(cfg, dev)
+    chain = kernels.prepare_chain(*kernels.fusion_chain_params(
+        det.knnlayer_1))
+    desc = seeded_descriptor(cfg, dev).eval() if kind == "pipeline" else None
+    ratio = (cfg.data.eval_fps_subsample_ratio
+             or cfg.data.fps_subsample_ratio)
+
+    def run(pc, sn, subset, first, priority=None):
+        node = sample_nodes(pc, cfg.data.node_num, ratio,
+                            cfg.data.fps_parallel, subset_idx=subset,
+                            first=first)
+        _, kp, sig = detector_infer_fused(det, pc, sn, node, chain)
+        if desc is None:
+            return kp, sig
+        return kp, sig, desc(pc, sn, kp, priority)[0]
+    return run
+
+
+def _export_artifact(kind, cfg, path, batch):
+    """Export one artifact for the card from the seeded weights; its
+    header, export seconds and file size."""
+    from usip_tpu_torch import model_artifact as ma
+    det_sd = {k: torch.tensor(v) for k, v in
+              seeded_state_dict(cfg.detector, SEED).items()}
+    t0 = time.perf_counter()
+    if kind == "pipeline":
+        desc_sd = {k: torch.tensor(v) for k, v in
+                   seeded_descriptor_state_dict(cfg.descriptor,
+                                                SEED).items()}
+        hdr = ma.export_pipeline_artifact(cfg, det_sd, desc_sd, path,
+                                          batch=batch, platforms=("cuda",))
+    else:
+        hdr = ma.export_detector_artifact(cfg, det_sd, path, batch=batch,
+                                          platforms=("cuda",))
+    return hdr, time.perf_counter() - t0, os.path.getsize(path)
+
+
+def _gaps(label, got, ref):
+    """Count and largest relative gap of the elements that differ."""
+    diff = got != ref
+    if not diff.any():
+        return 0, 0.0
+    scale = float(ref.float().abs().max())
+    gap = float((got.float() - ref.float()).abs().max()) / max(scale, 1e-30)
+    print(f"[13] {label}: {int(diff.sum())} of {ref.numel()} elements "
+          f"differ, largest gap {gap} of max|x|", flush=True)
+    return int(diff.sum()), gap
+
+
+def artifact_rate(art, pc, sn, gen, iters=50, passes=3):
+    """bench.py's protocol on an artifact's call, its draws made each
+    iteration as ``KeypointPipeline.infer`` makes its own: two warm-up
+    calls, the best of ``passes`` x ``iters`` pipelined calls, one
+    synchronize a pass -> (clouds/s, ms a batch)."""
+    from usip_tpu_torch.model_artifact import artifact_draws
+    for _ in range(2):
+        art(pc, sn, *artifact_draws(art.header, gen))
+    sync()
+    best = float("inf")
+    for _ in range(passes):
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            out = art(pc, sn, *artifact_draws(art.header, gen))
+        sync()
+        best = min(best, time.perf_counter() - t0)
+    check(bool(torch.isfinite(out[0]).all()), "artifact keypoints finite")
+    return pc.shape[0] * iters / best, best / iters * 1e3
+
+
+def phase13(card, tmp):
+    """Deployment: artifacts exported for the card from seeded weights
+    (the KITTI SOM detector, the Oxford ball detector, the KITTI pipeline
+    in the descriptor role) at full width; each loaded and called in fp32
+    at batch 2 with the in-process port's draws, launch counts reset
+    before the call: its kernels launched, its outputs and every usip::
+    op's outputs equal to the in-process port's; ``run-model --device
+    cuda`` in a subprocess against ``run_detector_artifact`` in process;
+    then the bf16 artifacts timed with the bench protocol beside the
+    in-process detect."""
+    from usip_tpu_torch.model_artifact import (artifact_draws, load_artifact,
+                                               run_detector_artifact)
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(13)
+    fp32 = {"detector.compute_dtype": "float32"}
+    cases = {
+        "som": (get_config("kitti", **fp32), kitti_cloud),
+        "ball": (oxford_config("ball", **fp32), oxford_cloud),
+        "pipeline": (get_config("kitti", role="descriptor", **DESC_FP32),
+                     kitti_cloud),
+    }
+    launches, paths, sizes = {}, {}, {}
+    for tag, (cfg, cloud_fn) in cases.items():
+        kind = "pipeline" if tag == "pipeline" else "detector"
+        path = os.path.join(tmp, f"{tag}.usipart")
+        hdr, secs, size = _export_artifact(kind, cfg, path, DEPLOY_B)
+        paths[tag], sizes[tag] = path, size
+        art = load_artifact(path, "cuda")
+        run = _deploy_programs(cfg, kind, dev)
+        pc, sn = (torch.from_numpy(a).to(dev) for a in
+                  cloud_fn(rng, DEPLOY_B, cfg.data.input_pc_num))
+        gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+        draws = artifact_draws(hdr, gen)
+        kernels.reset_launch_counts()
+        got = art(pc, sn, *draws)
+        sync()
+        launches[f"artifact_{tag}"] = dict(kernels.LAUNCHES)
+        kernels.reset_launch_counts()
+        with torch.inference_mode():
+            ref = run(pc, sn, *draws)
+        sync()
+        in_process = dict(kernels.LAUNCHES)
+        for name in DEPLOY_KERNELS[tag]:
+            check(launches[f"artifact_{tag}"][name] > 0,
+                  f"kernel {name} launched by the {tag} artifact")
+        check(launches[f"artifact_{tag}"] == in_process,
+              f"{tag}: the artifact launches what the in-process port does")
+        # every usip:: op's outputs, artifact against in-process
+        with OpRecorder() as rec_art:
+            art(pc, sn, *draws)
+        with OpRecorder() as rec_ref, torch.inference_mode():
+            run(pc, sn, *draws)
+        check([c[0] for c in rec_art.calls] == [c[0] for c in rec_ref.calls],
+              f"{tag}: the same usip:: ops in the same order")
+        for (op, a_outs), (_, r_outs) in zip(rec_art.calls, rec_ref.calls):
+            for a, r in zip(a_outs, r_outs):
+                if a.dtype in (torch.int32, torch.int64):
+                    check(torch.equal(a, r), f"{tag}: {op} indices "
+                          "identical")
+                else:
+                    _, gap = _gaps(f"{tag} {op}", a, r)
+                    check(gap <= 1e-5, f"{tag}: {op} within 1e-5 of max|x|")
+        for name, a, r in zip(hdr["outputs"], got, ref):
+            check(bool(torch.isfinite(a).all()), f"{tag}: {name} finite")
+            _, gap = _gaps(f"{tag} {name}", a, r)
+            check(gap <= 1e-5, f"{tag}: {name} within 1e-5 of max|x|")
+        print(f"[13] {tag} artifact fp32 ({DEPLOY_B}, "
+              f"{cfg.data.input_pc_num}) -> {cfg.data.node_num}: exported in "
+              f"{secs:.2f} s, {size} bytes; launches "
+              f"{launches[f'artifact_{tag}']} (in process {in_process}); "
+              f"{len(rec_art.calls)} usip:: op calls with identical indices; "
+              "outputs "
+              + ", ".join(f"{n} {'identical' if torch.equal(a, r) else 'differ'}"
+                          for n, a, r in zip(hdr["outputs"], got, ref)),
+              flush=True)
+
+    # run-model in a subprocess against the loaded artifact in process
+    cloud_dir = os.path.join(tmp, "deploy_clouds")
+    os.makedirs(cloud_dir)
+    clouds = []
+    for i in range(DEPLOY_CLOUDS):
+        pc, sn = kitti_cloud(rng, 1, 20000)
+        clouds.append(os.path.join(cloud_dir, f"cloud{i}.npy"))
+        np.save(clouds[-1], np.concatenate([pc[0], sn[0]], -1))
+    out_cli = os.path.join(tmp, "deploy_cli")
+    t0 = time.perf_counter()
+    stdout, _ = run_module("run-model", [
+        "usip_tpu_torch.cli", "run-model", "--artifact", paths["som"],
+        "--input", cloud_dir, "--out", out_cli, "--device", "cuda",
+        "--seed", "7"], timeout=300)
+    cli_s = time.perf_counter() - t0
+    check(json.loads(stdout.splitlines()[-1])["clouds"] == DEPLOY_CLOUDS,
+          f"run-model served {DEPLOY_CLOUDS} clouds")
+    out_in = os.path.join(tmp, "deploy_in_process")
+    stats = run_detector_artifact(paths["som"], clouds, out_in, seed=7,
+                                  device="cuda")
+    check(stats["clouds"] == DEPLOY_CLOUDS, "in-process run served them")
+    for c in clouds:
+        name = os.path.splitext(os.path.basename(c))[0] + ".keypoints.bin"
+        a = np.fromfile(os.path.join(out_cli, name), np.float32)
+        b = np.fromfile(os.path.join(out_in, name), np.float32)
+        check(a.shape == (128 * 3,) and np.isfinite(a).all(),
+              f"{name}: 128 finite keypoints")
+        check(np.array_equal(a, b), f"{name}: run-model equals the artifact "
+              "in process, byte for byte")
+    out_pipe = os.path.join(tmp, "deploy_pipeline")
+    run_detector_artifact(paths["pipeline"], clouds, out_pipe, seed=7,
+                          device="cuda")
+    rows = min(128, cases["pipeline"][0].data.node_num)
+    for c in clouds:
+        name = os.path.splitext(os.path.basename(c))[0]
+        kp = np.fromfile(os.path.join(out_pipe, f"{name}.keypoints.bin"),
+                         np.float32).reshape(-1, 3)
+        d = np.fromfile(os.path.join(out_pipe, f"{name}.desc.bin"),
+                        np.float32).reshape(-1, 128)
+        check(kp.shape[0] == d.shape[0] == rows and np.isfinite(d).all(),
+              f"pipeline {name}: {rows} paired keypoint and descriptor rows")
+    print(f"[13] run-model --device cuda ({DEPLOY_CLOUDS} clouds at batch "
+          f"{DEPLOY_B}, a ragged tail): .bin files equal to the artifact "
+          f"called in process with the same seed ({cli_s:.1f} s with "
+          "start-up); the pipeline artifact's rows paired", flush=True)
+
+    # bench.py's protocol: kitti, batch 8, bf16 presets
+    bench = {"som": get_config("kitti"),
+             "pipeline": get_config("kitti", role="descriptor")}
+    kitti = bench["som"]
+    pc8, sn8 = (torch.from_numpy(a).to(dev) for a in
+                kitti_cloud(rng, B_BENCH, kitti.data.input_pc_num))
+    rates = {}
+    for tag, cfg in bench.items():
+        kind = "pipeline" if tag == "pipeline" else "detector"
+        path = os.path.join(tmp, f"{tag}_bench.usipart")
+        _, secs, size = _export_artifact(kind, cfg, path, B_BENCH)
+        art = load_artifact(path, "cuda")
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        rates[f"{tag} artifact"] = artifact_rate(art, pc8, sn8, gen)
+        sizes[f"{tag} bf16 batch 8"] = size
+        print(f"[13] {tag} artifact bf16 batch 8: exported in {secs:.2f} s, "
+              f"{size} bytes", flush=True)
+    sd = {k: torch.tensor(v) for k, v in
+          seeded_state_dict(kitti.detector, SEED).items()}
+    pipe = KeypointPipeline(kitti, sd, "cuda")
+    rate, ms, _ = bench_rate(pipe, pc8, sn8)
+    rates["in-process detect"] = (rate, ms)
+    print(f"[13] {card} | bench protocol, kitti bf16 batch 8: "
+          + "; ".join(f"{k} {r:.2f} clouds/s ({m:.3f} ms a batch)"
+                      for k, (r, m) in rates.items())
+          + f" (the pipeline in the descriptor role: "
+          f"{bench['pipeline'].data.node_num} proposals described)",
+          flush=True)
+    return launches
+
+
 def nccl_two_card(rank, world, arg):
     """The data-parallel detector step over 2 cards under NCCL (where the
     host has them): its losses."""
@@ -4060,6 +4334,8 @@ def main():
         rank_launches, shard_k4 = phase12(card, tmp, ckpt)
         launches.update(rank_launches)
         lap("12 ranks")
+        launches.update(phase13(card, tmp))
+        lap("13 deployment")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"[t] wall time by phase (s): {json.dumps(walls)}", flush=True)
@@ -4119,7 +4395,10 @@ def main():
              "indoor_shapes": {label: t for label, t in indoor_times.items()
                                if INDOOR_SHAPES[label][0] == name},
              "launches_rank0": {tag: launches[tag][name]
-                                for tag in RANK_LAUNCH_TAGS}}
+                                for tag in RANK_LAUNCH_TAGS},
+             "launches_per_artifact_call": {
+                 tag: launches[f"artifact_{tag}"][name]
+                 for tag in DEPLOY_KERNELS}}
             for name, (src, rep) in meta.items()]
     # K2 at each of its four shapes (the entry's own time is the serve one)
     line[1]["shapes"] = k2

@@ -754,3 +754,90 @@ def test_segment_mean_count_is_deterministic_on_the_card(dev):
     assert torch.equal(a, b) and torch.equal(a[3:4], one)
     torch.testing.assert_close(a.cpu(), cpu, rtol=1e-5, atol=1e-5)
     assert torch.equal(ca.cpu(), ccpu)
+
+
+def _op_cases(dev):
+    """Small inputs of each ``usip::`` op on the card."""
+    rng = np.random.default_rng(77)
+    pts = _rand(rng, (2, 300, 3), dev, 5.0)
+    ws = [_rand(rng, shape, dev, 0.2) for shape in (
+        (19, 32), (32, 32), (32, 32), (32, 64), (32, 64), (64, 64))]
+    bs = [_rand(rng, (n,), dev, 0.1) for n in (32, 32, 32, 64, 64)]
+    chain = kernels.prepare_chain(ws, bs)
+    return {
+        "fps": (pts, torch.tensor([0, 7], dtype=torch.int32, device=dev),
+                32),
+        "min_argmin": (pts, pts[:, :40].contiguous(), True),
+        "fusion_chain": (_rand(rng, (2, 16, 8, 19), dev), chain.packed,
+                         *chain.biases, 19, 32, 64),
+        "smallest_k": (_rand(rng, (2, 16, 300), dev), 12),
+        "scatter_max": (_rand(rng, (2, 300, 16), dev), torch.from_numpy(
+            rng.integers(0, 20, (2, 300))).to(dev), 24),
+    }
+
+
+@pytest.mark.parametrize("op", ["fps", "min_argmin", "fusion_chain",
+                                "smallest_k", "scatter_max"])
+def test_custom_op_launches_its_kernel(dev, op):
+    """Each ``usip::`` op on CUDA tensors launches its kernel once a call
+    (``LAUNCHES``), equals its CPU kernel on the same inputs (the fusion
+    chain within its bf16 tolerance), and its fake kernel gives the CUDA
+    kernel's shapes and dtypes (``torch.library.opcheck``)."""
+    args = _op_cases(dev)[op]
+    fn = getattr(torch.ops.usip, op).default
+    kernels.reset_launch_counts()
+    got = fn(*args)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[op] == 1
+    ref = fn(*[a.cpu() if torch.is_tensor(a) else a for a in args])
+    got = got if isinstance(got, tuple) else (got,)
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    for g, r in zip(got, ref):
+        if op == "fusion_chain":
+            scale = float(r.abs().max())
+            assert float((g.cpu() - r).abs().max()) <= 1e-2 * scale
+        else:
+            assert torch.equal(g.cpu(), r)
+    torch.library.opcheck(fn, args, test_utils=("test_schema",
+                                                "test_faketensor"))
+
+
+def test_artifact_equals_in_process_on_the_card(tmp_path):
+    """A SOM detector artifact exported for the card equals the in-process
+    port on the card bit for bit, given the same draws, and launches the
+    same kernels."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU build")
+    from usip_tpu_torch import model_artifact as ma
+    from usip_tpu_torch.config import get_config
+    from usip_tpu_torch.models import Detector
+    from usip_tpu_torch.models.fused_infer import detector_infer_fused
+    from usip_tpu_torch.ops.sampling import sample_nodes
+    from usip_tpu_torch.weights import seeded_state_dict
+    cfg = get_config("kitti", **{"data.input_pc_num": 2048,
+                                 "data.node_num": 128,
+                                 "detector.compute_dtype": "float32"})
+    sd = {k: torch.tensor(v) for k, v in
+          seeded_state_dict(cfg.detector, 0).items()}
+    path = str(tmp_path / "som.usipart")
+    hdr = ma.export_detector_artifact(cfg, sd, path, batch=2)
+    art = ma.load_artifact(path, "cuda")
+    rng = np.random.default_rng(5)
+    pc = _rand(rng, (2, 2048, 3), "cuda", 20.0)
+    sn = _rand(rng, (2, 2048, 4), "cuda")
+    draws = ma.artifact_draws(hdr, torch.Generator("cuda").manual_seed(1))
+    kernels.reset_launch_counts()
+    kp, sig = art(pc, sn, *draws)
+    torch.cuda.synchronize()
+    launched = dict(kernels.LAUNCHES)
+    det = Detector(cfg.detector)
+    det.load_state_dict(sd)
+    det = det.cuda().eval()
+    kernels.reset_launch_counts()
+    with torch.inference_mode():
+        node = sample_nodes(pc, 128, cfg.data.fps_subsample_ratio,
+                            subset_idx=draws[0], first=draws[1])
+        _, kp_ref, sig_ref = detector_infer_fused(det, pc, sn, node)
+    torch.cuda.synchronize()
+    assert launched == kernels.LAUNCHES and all(launched.values())
+    assert torch.equal(kp, kp_ref) and torch.equal(sig, sig_ref)

@@ -166,7 +166,7 @@ PORT_MODULES = (
     "parallel.collectives", "parallel.sharded_ops",
     "parallel.sharded_detector", "parallel.sharded_train",
     "parallel.sharded_descriptor", "parallel.tensor_parallel",
-    "parallel.pipeline_parallel")
+    "parallel.pipeline_parallel", "model_artifact")
 
 
 def test_port_imports_nothing_of_usip_tpu():

@@ -196,6 +196,28 @@ def test_segment_ops_match():
     np.testing.assert_array_equal(back.numpy(), np.asarray(back_ref))
 
 
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_segment_mean_count_half_precision_large_nodes(dtype):
+    """Nodes past 256 points in bf16 (and fp16): ones (1, 2001, 3), 301
+    points on node 0 and 1700 on node 1. The means agree with usip_tpu's
+    (1.0; its bf16 sums and counts both stop growing at 256) within one
+    rounding step of the dtype at 1.0; the counts are the true counts
+    rounded to the dtype."""
+    ids = np.concatenate([np.zeros(301, np.int32), np.ones(1700, np.int32)])
+    x = jnp.ones((1, 2001, 3), getattr(jnp, dtype))
+    mean_ref, _ = segment_mean_count(x, jnp.asarray(ids[None]), 2)
+    tdt = getattr(torch, dtype)
+    mean, cnt = tops.segment_mean_count(torch.ones((1, 2001, 3), dtype=tdt),
+                                        _t(ids[None]).long(), 2)
+    assert mean.dtype == tdt and cnt.dtype == tdt
+    step = float(torch.finfo(tdt).eps)
+    np.testing.assert_allclose(mean.float().numpy(),
+                               np.asarray(mean_ref, np.float32), rtol=0,
+                               atol=step)
+    np.testing.assert_allclose(mean.float().numpy(), 1.0, rtol=0, atol=step)
+    assert torch.equal(cnt, torch.tensor([[301.0, 1700.0]]).to(tdt))
+
+
 @pytest.mark.parametrize("b,n,m,form", [
     # the serve assignment, the train step's assignment (bf16), its
     # keypoint -> cloud and its keypoint chamfer (fp32)

@@ -25,10 +25,18 @@
       [--descriptor-checkpoint d.pt] [--device cuda]
   python -m usip_tpu_torch.cli serve --dataset oxford \
       --override detector.grouping=ball --checkpoint w.pth
+  python -m usip_tpu_torch.cli export-model --checkpoint w.pth \
+      --out det.usipart [--descriptor-checkpoint d.pt [--pipeline]] \
+      [--batch 8] [--platforms cuda,cpu]
+  python -m usip_tpu_torch.cli run-model --artifact det.usipart \
+      --input clouds/ --out served/ [--desc-artifact d.usipart] [--device cuda]
+  python -m usip_tpu_torch.cli import-torch --pth 100_net_detector.pth \
+      --out imported.pt [--role descriptor]
 
 The flags and the request and reply protocol are ``usip_tpu.cli``'s, plus
 ``--device`` (default ``cuda``, which raises without CUDA rather than run on
-the CPU).
+the CPU). ``run-model`` loads no model code and no config: the artifact
+holds the program.
 
 Several ranks (``train-detector``, ``train-descriptor``, ``export-keypoints``,
 ``export-descriptors``): ``--num-devices N`` on one host starts N ranks
@@ -61,8 +69,6 @@ import sys
 
 import numpy as np
 
-from usip_tpu_torch.config import get_config
-
 
 def _sn_columns(data, s):
     """The sn feature block of an (N, 3+F) cloud, zero-padded when the file
@@ -93,6 +99,7 @@ def _build_config(args, role="detector"):
     """The preset of ``role`` with ``--override``s, then the run flags a
     command has (``--dataroot``, ``--name``, ...); an explicit
     ``--override`` wins over a flag's default, as in usip_tpu."""
+    from usip_tpu_torch.config import get_config
     overrides = _parse_overrides(args.override)
     cfg = get_config(args.dataset, role=role, **overrides)
     updates = {key: getattr(args, flag) for flag, key in (
@@ -500,12 +507,88 @@ def cmd_bench(args):
     bench_main(["--device", args.device])
 
 
-def _add_config_flags(p):
+def cmd_export_model(args):
+    """Write self-contained model artifacts (``torch.export`` programs with
+    the weights baked in, one a platform): the deployment form, run without
+    model code by ``run-model``."""
+    from usip_tpu_torch.model_artifact import (export_descriptor_artifact,
+                                               export_detector_artifact,
+                                               export_pipeline_artifact)
+    platforms = tuple(p.strip() for p in args.platforms.split(","))
+    cfg = _build_config(
+        args, role="descriptor" if args.descriptor_checkpoint else "detector")
+    if args.pipeline:
+        if not args.descriptor_checkpoint:
+            raise SystemExit("--pipeline needs --descriptor-checkpoint "
+                             "(it fuses detect+describe into one program)")
+        hdr = export_pipeline_artifact(
+            cfg, args.checkpoint, args.descriptor_checkpoint, args.out,
+            batch=args.batch, platforms=platforms)
+        hdr["path"] = args.out
+        print(json.dumps({"pipeline": hdr}))
+        return
+    out = {}
+    out["detector"] = export_detector_artifact(
+        cfg, args.checkpoint, args.out, batch=args.batch, platforms=platforms)
+    out["detector"]["path"] = args.out
+    if args.descriptor_checkpoint:
+        desc_out = args.desc_out or (os.path.splitext(args.out)[0]
+                                     + ".descriptor.usipart")
+        out["descriptor"] = export_descriptor_artifact(
+            cfg, args.descriptor_checkpoint, desc_out, batch=args.batch,
+            num_keypoints=args.num_keypoints, platforms=platforms)
+        out["descriptor"]["path"] = desc_out
+    print(json.dumps(out))
+
+
+def cmd_run_model(args):
+    """Serve raw .npy clouds through exported artifacts (the checkpoint-free
+    counterpart of ``detect``)."""
+    from usip_tpu_torch.model_artifact import run_detector_artifact
+    paths = sorted(globmod.glob(os.path.join(args.input, "*.npy"))
+                   if os.path.isdir(args.input) else globmod.glob(args.input))
+    if not paths:
+        raise SystemExit(f"no .npy clouds match {args.input}")
+    stats = run_detector_artifact(
+        args.artifact, paths, args.out, num_keypoints=args.num_keypoints,
+        nms_radius=args.nms_radius, desc_artifact_path=args.desc_artifact,
+        seed=args.seed, device=args.device)
+    print(json.dumps(stats))
+
+
+def cmd_import_torch(args):
+    """Turn a reference PyTorch checkpoint (``<epoch>_net_detector.pth`` /
+    ``_net_descriptor.pth``) into a full-state ``.pt`` (the model's
+    ``state_dict`` loaded with ``strict=True``, a fresh Adam, step 0) that
+    ``train-detector``/``train-descriptor --resume`` fine-tune from."""
+    from usip_tpu_torch.train.checkpoint import save_checkpoint
+    from usip_tpu_torch.train.state import TrainState
+    from usip_tpu_torch.weights import load_detector_weights
+
+    cfg = _build_config(args, role=args.role)
+    if args.role == "detector":
+        from usip_tpu_torch.models import Detector
+        model = Detector(cfg.detector)
+    else:
+        from usip_tpu_torch.models import Descriptor
+        model = Descriptor(cfg.descriptor)
+    model.load_state_dict(load_detector_weights(args.pth), strict=True)
+    save_checkpoint(args.out, TrainState.create(model, cfg.train.lr),
+                    metadata={"imported_from": args.pth, "role": args.role})
+    print(f"imported {args.pth} -> {args.out} ({args.role}, "
+          f"dataset={cfg.data.dataset})")
+
+
+def _add_preset_flags(p):
     p.add_argument("--dataset", default="kitti",
                    choices=["modelnet", "shrec", "oxford", "kitti", "scenenn",
                             "match3d"])
     p.add_argument("--override", action="append", default=[],
                    help="dotted config override, e.g. data.input_pc_num=4096")
+
+
+def _add_config_flags(p):
+    _add_preset_flags(p)
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cuda' fails when CUDA is absent")
 
@@ -680,6 +763,55 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--out", default=None,
                    help="default output dir when requests omit 'out'")
     p.set_defaults(fn=cmd_serve)
+
+    p = sub.add_parser("export-model",
+                       help="write a self-contained artifact (torch.export "
+                            "programs, weights baked in) for checkpoint-free "
+                            "serving")
+    _add_preset_flags(p)
+    p.add_argument("--checkpoint", required=True, help="detector checkpoint")
+    p.add_argument("--out", required=True, help="artifact path (.usipart)")
+    p.add_argument("--batch", type=int, default=1,
+                   help="pinned serving batch (static shapes)")
+    p.add_argument("--platforms", default="cuda",
+                   help="comma-separated devices the file holds a program "
+                        "for: cuda, cpu")
+    p.add_argument("--descriptor-checkpoint", default=None,
+                   help="also export a descriptor artifact")
+    p.add_argument("--desc-out", default=None,
+                   help="descriptor artifact path (default: "
+                        "<out>.descriptor.usipart)")
+    p.add_argument("--num-keypoints", type=int, default=128,
+                   help="keypoint-set shape pinned into the descriptor "
+                        "artifact")
+    p.add_argument("--pipeline", action="store_true",
+                   help="one program (FPS+detect+describe, descriptors for "
+                        "every proposal) instead of two artifacts")
+    p.set_defaults(fn=cmd_export_model)
+
+    p = sub.add_parser("run-model",
+                       help="run exported artifacts over raw .npy clouds "
+                            "(no model code or checkpoints needed)")
+    p.add_argument("--artifact", required=True)
+    p.add_argument("--input", required=True,
+                   help=".npy file, glob, or directory of clouds")
+    p.add_argument("--out", required=True)
+    p.add_argument("--num-keypoints", type=int, default=128)
+    p.add_argument("--nms-radius", type=float, default=0.0)
+    p.add_argument("--desc-artifact", default=None)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--device", default="cuda",
+                   help="torch device; 'cuda' fails when CUDA is absent")
+    p.set_defaults(fn=cmd_run_model)
+
+    p = sub.add_parser("import-torch", help="convert a reference .pth "
+                       "state_dict into a full-state checkpoint (.pt)")
+    p.add_argument("--pth", required=True)
+    p.add_argument("--out", required=True)
+    p.add_argument("--role", default="detector",
+                   choices=["detector", "descriptor"])
+    _add_preset_flags(p)
+    p.set_defaults(fn=cmd_import_torch)
 
     return parser
 

@@ -5,6 +5,7 @@ from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from usip_tpu_torch.ops import kernels
@@ -87,15 +88,24 @@ def ball_scores(points: Tensor, centers: Tensor, radius: float,
     """
     n = points.shape[1]
     sq = pairwise_sqdist(centers, points, round_bf16=round_bf16)
-    r2 = torch.tensor(radius * radius, dtype=torch.float32)
     if priority is None:
         priority = torch.arange(n, dtype=torch.float32, device=points.device)
     else:
         priority = priority.to(points.device, torch.float32)[:, None, :]
     if round_bf16:
-        r2 = r2.to(torch.bfloat16).float()
         priority = priority.to(torch.bfloat16).float()
-    return torch.where(sq <= r2.item(), priority, torch.inf)
+    return torch.where(sq <= _radius_sq(radius, round_bf16), priority,
+                       torch.inf)
+
+
+def _radius_sq(radius: float, round_bf16: bool) -> float:
+    """``radius^2`` rounded to fp32 (and then to bf16, to nearest even,
+    with ``round_bf16``), as a Python float: computed on the host, so that
+    a traced program (``torch.export``) holds it as a constant."""
+    bits = np.array([radius * radius], np.float32).view(np.uint32)
+    if round_bf16:
+        bits = (bits + 0x7FFF + ((bits >> 16) & 1)) & 0xFFFF0000
+    return float(bits.astype(np.uint32).view(np.float32)[0])
 
 
 def ball_select(scores: Tensor, k: int) -> BallQueryResult:

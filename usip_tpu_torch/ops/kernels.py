@@ -4,14 +4,21 @@ Counterpart of ``usip_tpu/ops/pallas_kernels.py``. Each kernel has:
 
 * a plain PyTorch version (``*_plain``), the reference that the CPU tests and
   ``chip_smoke.py`` hold the kernel against;
-* a wrapper that runs the plain version for CPU tensors and, for CUDA
-  tensors, checks device, dtype, shape and contiguity, launches the kernel on
-  the current stream, or raises. There is no fallback from a CUDA tensor to
-  the plain version;
-* an integer launch count in ``LAUNCHES``, raised by one where the wrapper
-  launches its kernel and nowhere else.
+* a ``torch.library`` custom op (``usip::fps``, ``usip::min_argmin``,
+  ``usip::fusion_chain``, ``usip::smallest_k``, ``usip::scatter_max``) with
+  a CPU kernel (the plain version), a CUDA kernel (checks device, dtype,
+  shape and contiguity, launches the CUDA kernel on the current stream, or
+  raises) and a fake kernel (the output shapes and dtypes, for
+  ``torch.export`` and other tracers). There is no fallback from a CUDA
+  tensor to the plain version;
+* a public wrapper that calls the op (a tensor on any device but the CPU
+  and CUDA is refused);
+* an integer launch count in ``LAUNCHES``, raised by one where the CUDA
+  kernel of the op launches and nowhere else.
 
-The kernels (``csrc/*.cu``) are compiled with nvcc at first use
+Importing this module registers the ops, so a program exported with
+``torch.export`` that calls them loads once it is imported. The kernels
+(``csrc/*.cu``) are compiled with nvcc at first use
 (``usip_tpu_torch._build``) and bound with ctypes.
 """
 
@@ -138,6 +145,14 @@ def _cuda_device(t: Tensor, what: str) -> torch.device:
     return t.device
 
 
+def _refuse_other_devices(t: Tensor, what: str) -> None:
+    """The public wrappers take CPU tensors (the op's plain kernel) and CUDA
+    tensors (its CUDA kernel); any other device raises here, before the op's
+    fake kernel could answer for it."""
+    if t.device.type not in ("cpu", "cuda"):
+        _cuda_device(t, what)
+
+
 # --------------------------------------------------------------------- FPS --
 
 def fps_plain(points: Tensor, first: Tensor, k: int) -> Tensor:
@@ -198,14 +213,29 @@ def fps_form(s: int) -> FpsForm:
 
 
 def fps(points: Tensor, first: Tensor, k: int) -> Tensor:
-    """FPS picks ``(B, k)`` int32; kernel ``csrc/fps.cu`` for CUDA tensors.
+    """FPS picks ``(B, k)`` int32: the op ``usip::fps``, kernel
+    ``csrc/fps.cu`` for CUDA tensors, ``fps_plain`` for CPU tensors.
 
     Counterpart of ``pallas_kernels.fps_pallas``: one block per cloud, each
     thread's points and running minimum in registers (``fps_form``), one
     barrier a step.
     """
-    if points.device.type == "cpu":
-        return fps_plain(points, first, k)
+    _refuse_other_devices(points, "points")
+    return torch.ops.usip.fps(points, first, k)
+
+
+@torch.library.custom_op("usip::fps", mutates_args=(), device_types="cpu")
+def _fps_op(points: Tensor, first: Tensor, k: int) -> Tensor:
+    return fps_plain(points, first, k)
+
+
+@_fps_op.register_fake
+def _fps_fake(points: Tensor, first: Tensor, k: int) -> Tensor:
+    return points.new_empty((points.shape[0], k), dtype=torch.int32)
+
+
+@_fps_op.register_kernel("cuda")
+def _fps_cuda(points: Tensor, first: Tensor, k: int) -> Tensor:
     dev = _cuda_device(points, "points")
     b, s = points.shape[0], points.shape[1]
     _check(points, "points", torch.float32, (b, s, 3), dev)
@@ -293,9 +323,31 @@ def min_argmin(points: Tensor, nodes: Tensor, round_bf16: bool = False
     builds the ``(B, N, M)`` matrix: queries in registers, candidates
     streamed through shared memory, split over a cluster when queries are
     few (``min_argmin_form``). Any M; the same results as
-    ``min_argmin_plain`` for finite inputs."""
-    if points.device.type == "cpu":
-        return min_argmin_plain(points, nodes, round_bf16)
+    ``min_argmin_plain`` for finite inputs. The op is ``usip::min_argmin``;
+    ``min_argmin_plain`` for CPU tensors."""
+    _refuse_other_devices(points, "points")
+    return torch.ops.usip.min_argmin(points, nodes, round_bf16)
+
+
+@torch.library.custom_op("usip::min_argmin", mutates_args=(),
+                         device_types="cpu")
+def _min_argmin_op(points: Tensor, nodes: Tensor, round_bf16: bool
+                   ) -> Tuple[Tensor, Tensor]:
+    mins, idx = min_argmin_plain(points, nodes, round_bf16)
+    return mins.contiguous(), idx.contiguous()
+
+
+@_min_argmin_op.register_fake
+def _min_argmin_fake(points: Tensor, nodes: Tensor, round_bf16: bool
+                     ) -> Tuple[Tensor, Tensor]:
+    shape = tuple(points.shape[:-1])
+    return (points.new_empty(shape, dtype=torch.float32),
+            points.new_empty(shape, dtype=torch.int32))
+
+
+@_min_argmin_op.register_kernel("cuda")
+def _min_argmin_cuda(points: Tensor, nodes: Tensor, round_bf16: bool
+                     ) -> Tuple[Tensor, Tensor]:
     dev = _cuda_device(points, "points")
     b, n, m = points.shape[0], points.shape[1], nodes.shape[1]
     _check(points, "points", torch.float32, (b, n, 3), dev)
@@ -454,17 +506,24 @@ def prepare_chain(weights, biases) -> FusionChain:
                        packed, cin)
 
 
-def unpack_chain(chain: FusionChain) -> Tuple[Tensor, ...]:
-    """The folded ``(Cin, Cout)`` bf16 weights ``(w1, w2, w3, w4m, w4h, w5)``
-    read back from ``chain.packed``."""
-    c, c2 = chain.biases[0].shape[0], chain.biases[4].shape[0]
+def _unpack_weights(packed: Tensor, cin: int, c: int, c2: int
+                    ) -> Tuple[Tensor, ...]:
+    """The folded ``(Cin, Cout)`` bf16 weights ``(w1, w2, w3, w4m, w4h,
+    w5)`` read back from a chain's ``packed`` tensor."""
     out, off = [], 0
-    for k, n in _chain_dims(chain.cin, c, c2):
+    for k, n in _chain_dims(cin, c, c2):
         size = math.prod(_packed_shape(k, n))
-        out.append(_unpack_layer(chain.packed[off:off + size], k, n))
+        out.append(_unpack_layer(packed[off:off + size], k, n))
         off += size
     w1, w2, w3, w4, w5 = out
     return w1, w2, w3, w4[:c], w4[c:], w5
+
+
+def unpack_chain(chain: FusionChain) -> Tuple[Tensor, ...]:
+    """The folded ``(Cin, Cout)`` bf16 weights ``(w1, w2, w3, w4m, w4h, w5)``
+    read back from ``chain.packed``."""
+    return _unpack_weights(chain.packed, chain.cin,
+                           chain.biases[0].shape[0], chain.biases[4].shape[0])
 
 
 def fusion_chain_smem(k: int, cin: int, c: int, c2: int) -> int:
@@ -490,22 +549,48 @@ def fusion_chain(grouped: Tensor, chain: FusionChain) -> Tensor:
     shared by clusters of two blocks.
 
     ``chain`` is ``prepare_chain(*fusion_chain_params(layer))``, made once;
-    this call only checks it. For CPU tensors, ``fusion_chain_plain`` on
-    ``chain.weights``.
+    this call only checks it. The op ``usip::fusion_chain`` takes the
+    chain's tensors and widths; for CPU tensors it runs
+    ``fusion_chain_plain`` on the weights read back from ``chain.packed``
+    (the bf16 values the plain version rounds ``chain.weights`` to).
     """
-    if grouped.device.type == "cpu":
-        return fusion_chain_plain(grouped, chain.weights, chain.biases)
-    dev = _cuda_device(grouped, "grouped")
-    b, m, k, cin = grouped.shape
+    _refuse_other_devices(grouped, "grouped")
     c, c2 = chain.biases[0].shape[0], chain.biases[4].shape[0]
-    _check(grouped, "grouped", torch.float32, (b, m, k, cin), dev)
-    if cin != chain.cin:
-        raise ValueError(f"grouped has {cin} channels, the chain takes "
-                         f"{chain.cin}")
+    return torch.ops.usip.fusion_chain(grouped, chain.packed, *chain.biases,
+                                       chain.cin, c, c2)
+
+
+@torch.library.custom_op("usip::fusion_chain", mutates_args=(),
+                         device_types="cpu")
+def _fusion_chain_op(grouped: Tensor, packed: Tensor, b1: Tensor, b2: Tensor,
+                     b3: Tensor, b4: Tensor, b5: Tensor, cin: int, c: int,
+                     c2: int) -> Tensor:
+    return fusion_chain_plain(grouped, _unpack_weights(packed, cin, c, c2),
+                              (b1, b2, b3, b4, b5))
+
+
+@_fusion_chain_op.register_fake
+def _fusion_chain_fake(grouped: Tensor, packed: Tensor, b1: Tensor,
+                       b2: Tensor, b3: Tensor, b4: Tensor, b5: Tensor,
+                       cin: int, c: int, c2: int) -> Tensor:
+    return grouped.new_empty((grouped.shape[0], grouped.shape[1], c2),
+                             dtype=torch.float32)
+
+
+@_fusion_chain_op.register_kernel("cuda")
+def _fusion_chain_cuda(grouped: Tensor, packed: Tensor, b1: Tensor,
+                       b2: Tensor, b3: Tensor, b4: Tensor, b5: Tensor,
+                       cin: int, c: int, c2: int) -> Tensor:
+    dev = _cuda_device(grouped, "grouped")
+    b, m, k, gc = grouped.shape
+    _check(grouped, "grouped", torch.float32, (b, m, k, gc), dev)
+    if gc != cin:
+        raise ValueError(f"grouped has {gc} channels, the chain takes {cin}")
     size = sum(math.prod(_packed_shape(kk, n))
                for kk, n in _chain_dims(cin, c, c2))
-    _check(chain.packed, "packed weights", torch.bfloat16, (size,), dev)
-    for bb, n, name in zip(chain.biases, (c, c, c, c2, c2),
+    _check(packed, "packed weights", torch.bfloat16, (size,), dev)
+    biases = (b1, b2, b3, b4, b5)
+    for bb, n, name in zip(biases, (c, c, c, c2, c2),
                            ("b1", "b2", "b3", "b4", "b5")):
         _check(bb, name, torch.float32, (n,), dev)
     if not 1 <= k <= _CHAIN_ROWS:
@@ -518,9 +603,8 @@ def fusion_chain(grouped: Tensor, chain: FusionChain) -> Tensor:
                          "do not fit one block's shared memory")
     out = torch.empty((b, m, c2), dtype=torch.float32, device=dev)
     if b * m:
-        _launch("fusion_chain", dev, grouped.data_ptr(),
-                chain.packed.data_ptr(),
-                *(bb.data_ptr() for bb in chain.biases), out.data_ptr(),
+        _launch("fusion_chain", dev, grouped.data_ptr(), packed.data_ptr(),
+                *(bb.data_ptr() for bb in biases), out.data_ptr(),
                 b * m, k, cin, c, c2)
     return out
 
@@ -583,12 +667,32 @@ def smallest_k(scores: Tensor, k: int) -> Tuple[Tensor, Tensor]:
     order-preserving keys, one warp per short row (registers) or one block
     per long row (shared memory). Same contract and results as
     ``smallest_k_plain``; rows longer than ``SMALLEST_K_MAX_N``, or whose
-    keys and picks together do not fit one block, raise."""
-    if scores.device.type == "cpu":
-        return smallest_k_plain(scores, k)
-    dev = _cuda_device(scores, "scores")
+    keys and picks together do not fit one block, raise. The op is
+    ``usip::smallest_k``; ``smallest_k_plain`` for CPU tensors."""
+    _refuse_other_devices(scores, "scores")
     if scores.dim() < 1:
         raise ValueError("smallest_k: scores must have a last axis")
+    return torch.ops.usip.smallest_k(scores, k)
+
+
+@torch.library.custom_op("usip::smallest_k", mutates_args=(),
+                         device_types="cpu")
+def _smallest_k_op(scores: Tensor, k: int) -> Tuple[Tensor, Tensor]:
+    vals, idx = smallest_k_plain(scores, k)
+    return vals.contiguous(), idx.contiguous()
+
+
+@_smallest_k_op.register_fake
+def _smallest_k_fake(scores: Tensor, k: int) -> Tuple[Tensor, Tensor]:
+    _check_k(scores.shape[-1], k)
+    shape = tuple(scores.shape[:-1]) + (k,)
+    return (scores.new_empty(shape, dtype=torch.float32),
+            scores.new_empty(shape, dtype=torch.int32))
+
+
+@_smallest_k_op.register_kernel("cuda")
+def _smallest_k_cuda(scores: Tensor, k: int) -> Tuple[Tensor, Tensor]:
+    dev = _cuda_device(scores, "scores")
     n = scores.shape[-1]
     _check(scores, "scores", torch.float32, scores.shape, dev)
     _check_k(n, k)
@@ -670,12 +774,28 @@ def scatter_max(f: Tensor, ids: Tensor, m: int) -> Tensor:
     scatter_max_pallas``): clusters of blocks per (cloud, channel tile), each
     block's node accumulator in shared memory, merged across the cluster
     (``scatter_max_form``). ``f`` fp32, ``ids`` int64; an id outside
-    ``[0, m)`` fails a device assertion."""
-    if f.device.type == "cpu":
-        return scatter_max_plain(f, ids, m)
-    dev = _cuda_device(f, "f")
+    ``[0, m)`` fails a device assertion. The op is ``usip::scatter_max``;
+    ``scatter_max_plain`` for CPU tensors."""
+    _refuse_other_devices(f, "f")
     if f.dim() != 3:
         raise ValueError(f"f has shape {tuple(f.shape)}, expected (B, N, C)")
+    return torch.ops.usip.scatter_max(f, ids, m)
+
+
+@torch.library.custom_op("usip::scatter_max", mutates_args=(),
+                         device_types="cpu")
+def _scatter_max_op(f: Tensor, ids: Tensor, m: int) -> Tensor:
+    return scatter_max_plain(f, ids, m)
+
+
+@_scatter_max_op.register_fake
+def _scatter_max_fake(f: Tensor, ids: Tensor, m: int) -> Tensor:
+    return f.new_empty((f.shape[0], m, f.shape[2]))
+
+
+@_scatter_max_op.register_kernel("cuda")
+def _scatter_max_cuda(f: Tensor, ids: Tensor, m: int) -> Tensor:
+    dev = _cuda_device(f, "f")
     b, n, c = f.shape
     _check(f, "f", torch.float32, (b, n, c), dev)
     _check(ids, "ids", torch.int64, (b, n), dev)

@@ -82,14 +82,20 @@ def segment_mean_count(x: Tensor, ids: Tensor, num_segments: int,
     Each node's sum runs over its points in index order (a stable sort by
     node, then a segment sum): the same bits on every run and for a cloud
     in any batch, where CUDA's atomic scatter-add sums in the order its
-    threads arrive. The counts are exact in any order."""
+    threads arrive. The counts are taken in int64, exact in any order and
+    at any size, and the segment lengths are those integers. The sums and
+    the division run in fp32 (a bf16 sum stops growing at 256 ones); the
+    means and counts come back in ``x``'s dtype."""
     b, _, d = x.shape
-    counts = torch.zeros((b, num_segments), dtype=x.dtype, device=x.device)
-    counts.scatter_add_(1, ids, torch.ones_like(ids, dtype=x.dtype))
+    lengths = torch.zeros((b, num_segments), dtype=torch.int64,
+                          device=x.device)
+    lengths.scatter_add_(1, ids, torch.ones_like(ids, dtype=torch.int64))
     order = ids.argsort(dim=1, stable=True)
-    sums = torch.segment_reduce(torch.gather(x, 1, _expand(order, d)), "sum",
-                                lengths=counts.long(), axis=1, unsafe=True)
-    return sums / (counts[..., None] + eps), counts
+    sums = torch.segment_reduce(
+        torch.gather(x.float(), 1, _expand(order, d)), "sum",
+        lengths=lengths, axis=1, unsafe=True)
+    means = sums / (lengths[..., None].float() + eps)
+    return means.to(x.dtype), lengths.to(x.dtype)
 
 
 def scatter_back(node_features: Tensor, ids: Tensor) -> Tensor:

@@ -201,6 +201,13 @@ def restore_checkpoint(path: str, state) -> Optional[Dict]:
     else:
         dev = next(state.model.parameters()).device
         payload = torch.load(path, map_location=dev, weights_only=True)
+        if not (isinstance(payload, dict) and all(
+                k in payload for k in ("step", "model", "optimizer"))):
+            raise ValueError(
+                f"{path!r} is not a full-state checkpoint (step, model, "
+                "optimizer): a bare state_dict, such as a reference .pth, "
+                "seeds a run after `python -m usip_tpu_torch.cli "
+                "import-torch --pth FILE --out FILE.pt`")
         _load_model(state, payload["model"], path)
         state.optimizer.load_state_dict(payload["optimizer"])
         state.step = int(payload["step"])
