@@ -166,7 +166,28 @@ script exits nonzero without the final ``ok`` line:
    files byte-equal to ``run_detector_artifact`` in process with the same
    seed, and the pipeline artifact's paired rows; the bf16 SOM and pipeline
    artifacts (batch 8) timed with the bench protocol beside the in-process
-   detect.
+   detect;
+14. the last modules: each kernel at the object presets' shapes (FPS (8,
+   1250) -> 512, min/argmin (16, 5000) x 512 and the losses' (8, 512) x
+   5000 and x 512, the chain (8, 512, 32, 131) -> 512, the node kNN (16
+   and 8, 512, 512) k=32, scatter-max (16, 5000) on assignment ids at C=64
+   and 128) against its plain version and timed beside its bound and
+   library call; the modelnet preset's train step at full width (batch 8
+   pairs of 5000-point shapes, 512 nodes, c1 128, c2 512, k=32, bf16,
+   rot_3d): five steps with each kernel's launches a step checked (K1 2,
+   K2 5, K3 0, K4 1, K5 2), one fp32 step (batch 2) card against CPU under
+   deterministic algorithms (phase 6's tolerances), the step's time,
+   split, peak memory and busy share; ``train-detector --dataset shrec
+   --synthetic --epochs 1`` and ``--dataset modelnet`` in process with
+   their launches; ``python -m usip_tpu_torch.fullscale eval`` and
+   ``eval-reg --yaw`` in process on phase 7's tree, detector and phase 9's
+   descriptor, each arm's launches (model arms all five kernels, random
+   keypoints none); ``SOMTrainer`` on the card against the CPU on 8 object
+   shapes (nodes within ``SOM_TOL``); ``export-keypoints --with-sigmas``
+   (all five kernels), then ``render-keypoints --kp-dim 4`` and ``detect
+   --render --html`` on two clouds, or, on a host without matplotlib, both
+   raising its ImportError and the line ``[14] render: not run,
+   matplotlib absent on this host``.
 
 The second-to-last line is a JSON object with one entry per kernel (time,
 plain and library times, bound, launches); the last is ``{"ok": true,
@@ -197,7 +218,7 @@ sys.path.insert(0, REPO)
 sys.path.insert(1, os.path.join(REPO, "tests"))
 
 from usip_tpu_torch import _build  # noqa: E402
-from usip_tpu_torch import cli, quality  # noqa: E402
+from usip_tpu_torch import cli, fullscale, quality  # noqa: E402
 from usip_tpu_torch.bench import bench_rate  # noqa: E402
 from usip_tpu_torch.config import get_config  # noqa: E402
 from usip_tpu_torch.inference import KeypointPipeline  # noqa: E402
@@ -214,8 +235,9 @@ from usip_tpu_torch.data.descriptor_loaders import (  # noqa: E402
     KittiDescriptorDataset, SceneNNDescriptorDataset)
 from usip_tpu_torch.data.preprocess import build_modelnet_rotated  # noqa: E402
 from usip_tpu_torch.data.pipeline import BatchLoader  # noqa: E402
-from usip_tpu_torch.train import (PackedPairBatch, ParentBatch,  # noqa: E402
-                                  TrainState, make_descriptor_train_step,
+from usip_tpu_torch.train import (DetectorBatch,  # noqa: E402
+                                  PackedPairBatch, ParentBatch, TrainState,
+                                  make_descriptor_train_step,
                                   make_detector_train_step, pack_pair_batch)
 from usip_tpu_torch.train.descriptor_loop import DescriptorEngine  # noqa: E402
 from usip_tpu_torch.train import steps as train_steps  # noqa: E402
@@ -1352,6 +1374,29 @@ def run_module(tag, args, timeout=900):
     return proc.stdout, time.perf_counter() - t0
 
 
+def run_cli(tag, args):
+    """``run_module``'s ``python -m <args>`` in this process (the module's
+    ``main``: ``usip_tpu_torch.cli`` or ``usip_tpu_torch.quality``), without
+    a process's start-up, CUDA context and kernel load (~10 s each): its
+    stdout (the command fails the script if it exits) and its wall time.
+    ``run_module`` stays for the first run of each command, ``bench``, the
+    multi-rank runs (their ranks print to their own stdout), the service,
+    the artifact runner and the deterministic descriptor gate (its cuBLAS
+    workspace is set before the process's first matmul)."""
+    mains = {"usip_tpu_torch.cli": cli.main,
+             "usip_tpu_torch.quality": quality.main}
+    check(args[0] in mains, f"{tag}: {args[0]} runs in process")
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            mains[args[0]](args[1:])
+    except SystemExit as e:
+        check(False, f"{tag} exited: {e} {buf.getvalue()[-2000:]}")
+    sync()
+    return buf.getvalue(), time.perf_counter() - t0
+
+
 def read_jsonl(path):
     with open(path) as f:
         return [json.loads(line) for line in f]
@@ -1385,8 +1430,8 @@ def phase7(card, tmp, step_rate):
           == (16384, 20480, 512, 128, 512, "float16", "bfloat16"),
           "train-detector ran the KITTI preset at full width")
     first = read_jsonl(os.path.join(out_dir, "kitti_metrics.jsonl"))
-    out, t_resume = run_module("train-detector --resume auto",
-                               base + ["--epochs", "3", "--resume", "auto"])
+    out, t_resume = run_cli("train-detector --resume auto",
+                            base + ["--epochs", "3", "--resume", "auto"])
     check("at epoch 2" in out, "the resumed run starts at epoch 2")
     recs = read_jsonl(os.path.join(out_dir, "kitti_metrics.jsonl"))
     resumed = recs[len(first):]
@@ -1401,8 +1446,9 @@ def phase7(card, tmp, step_rate):
     tests = [(r["epoch"], round(r["loss"], 4)) for r in recs
              if r["prefix"] == "test"]
     print(f"[7] train-detector --dataset kitti --device cuda: 2 epochs in "
-          f"{t_first:.1f} s, --resume auto to epoch 3 in {t_resume:.1f} s "
-          f"(process start-up included); [epoch, train loss, sigma_mean] "
+          f"{t_first:.1f} s (a process, its start-up included), --resume "
+          f"auto to epoch 3 in {t_resume:.1f} s (in process); [epoch, train "
+          f"loss, sigma_mean] "
           f"{epochs}, [epoch, test loss] {tests}; checkpoint {ckpt}",
           flush=True)
 
@@ -1455,6 +1501,7 @@ def phase7(card, tmp, step_rate):
           f"beforehand: {2 * cfg.train.batch_size * steps / pre:.2f} "
           f"clouds/s ({pre / steps * 1e3:.3f} ms a step)", flush=True)
 
+    # a process of its own, as a user runs it: the rate of a fresh process
     out, t_bench = run_module("bench", ["usip_tpu_torch.cli", "bench",
                                         "--device", "cuda"])
     line = json.loads(out.strip().splitlines()[-1])
@@ -1507,13 +1554,13 @@ def phase8(card, tmp, root, ckpt):
           f"{launches}; eval-repeatability --coord-fix kitti: "
           f"{json.dumps(rep)}", flush=True)
 
-    out, t_gate = run_module("quality", [
+    out, t_gate = run_cli("quality", [
         "usip_tpu_torch.quality", "--root", os.path.join(tmp, "quality"),
         "--device", "cuda", "--factor", str(QUALITY_FACTOR)])
     res = json.loads(out.strip().splitlines()[-1])
-    print(f"[8] {card} | quality gate (phase_smoke sizes: input 2048, parent "
-          f"2560, M 64, c1 32, c2 128, batch 4, 4096-point scans, 16 "
-          f"epochs) in {t_gate:.1f} s: trained repeatability "
+    print(f"[8] {card} | quality gate in process (phase_smoke sizes: input "
+          f"2048, parent 2560, M 64, c1 32, c2 128, batch 4, 4096-point "
+          f"scans, 16 epochs) in {t_gate:.1f} s: trained repeatability "
           f"{res['trained']['repeatability']}, random "
           f"{res['random']['repeatability']} over {res['pairs']} pairs, "
           f"ratio {res['ratio']} (required >= {QUALITY_FACTOR}); phases (s) "
@@ -1718,8 +1765,8 @@ def phase9_engine(card, tmp, root, ckpt, step_rate):
         check(os.path.exists(os.path.join(out_dir, name)),
               f"train-descriptor wrote {name}")
     first = read_jsonl(os.path.join(out_dir, "kitti_desc_metrics.jsonl"))
-    out, t_resume = run_module("train-descriptor --resume auto",
-                               base + ["--epochs", "3", "--resume", "auto"])
+    out, t_resume = run_cli("train-descriptor --resume auto",
+                            base + ["--epochs", "3", "--resume", "auto"])
     check("at epoch 2" in out, "the resumed descriptor run starts at epoch 2")
     recs = read_jsonl(os.path.join(out_dir, "kitti_desc_metrics.jsonl"))
     resumed = recs[len(first):]
@@ -1735,8 +1782,8 @@ def phase9_engine(card, tmp, root, ckpt, step_rate):
     tests = [(r["epoch"], round(r["loss"], 4)) for r in recs
              if r["prefix"] == "desc_test"]
     print(f"[9] train-descriptor --dataset kitti --device cuda (phase 7's "
-          f"tree and detector): 2 epochs in {t_first:.1f} s, --resume auto "
-          f"to epoch 3 in {t_resume:.1f} s (process start-up included); "
+          f"tree and detector): 2 epochs in {t_first:.1f} s (a process), "
+          f"--resume auto to epoch 3 in {t_resume:.1f} s (in process); "
           f"[epoch, train loss, active share] {epochs}, [epoch, test loss] "
           f"{tests}", flush=True)
 
@@ -2392,7 +2439,7 @@ def phase10_entry(card, root, desc_rate):
     sroot = os.path.join(root, "scenenn")
     common = ["--dataroot", sroot, "--name", "indoor", "--checkpoints-dir",
               ckpt_dir, "--device", "cuda", "--override", "train.log_every=5"]
-    _, t_det = run_module("train-detector --lite", [
+    _, t_det = run_cli("train-detector --lite", [
         "usip_tpu_torch.cli", "train-detector", "--dataset", "scenenn",
         "--lite", "--epochs", "2"] + common)
     det_dir = os.path.join(ckpt_dir, "indoor")
@@ -2407,12 +2454,12 @@ def phase10_entry(card, root, desc_rate):
           "every lite detector loss finite")
     base = ["usip_tpu_torch.cli", "train-descriptor", "--dataset", "scenenn",
             "--detector-checkpoint", find_checkpoint(det_dir)] + common
-    _, t_desc = run_module("train-descriptor scenenn", base + ["--epochs",
-                                                              "2"])
+    _, t_desc = run_cli("train-descriptor scenenn", base + ["--epochs",
+                                                           "2"])
     out_dir = os.path.join(ckpt_dir, "indoor_descriptor")
     first = read_jsonl(os.path.join(out_dir, "indoor_desc_metrics.jsonl"))
-    out, t_resume = run_module("train-descriptor scenenn --resume auto",
-                               base + ["--epochs", "3", "--resume", "auto"])
+    out, t_resume = run_cli("train-descriptor scenenn --resume auto",
+                            base + ["--epochs", "3", "--resume", "auto"])
     check("at epoch 2" in out, "the resumed indoor descriptor run starts at "
           "epoch 2")
     recs = read_jsonl(os.path.join(out_dir, "indoor_desc_metrics.jsonl"))
@@ -2461,10 +2508,10 @@ def phase10_entry(card, root, desc_rate):
           flush=True)
     del engine
 
-    print(f"[10] train-detector --dataset scenenn --lite --device cuda: 2 "
-          f"epochs in {t_det:.1f} s; train-descriptor --dataset scenenn: 2 "
-          f"epochs in {t_desc:.1f} s, --resume auto to epoch 3 in "
-          f"{t_resume:.1f} s (process start-up included); [epoch, train "
+    print(f"[10] train-detector --dataset scenenn --lite --device cuda (in "
+          f"process, as the two below): 2 epochs in {t_det:.1f} s; "
+          f"train-descriptor --dataset scenenn: 2 epochs in {t_desc:.1f} s, "
+          f"--resume auto to epoch 3 in {t_resume:.1f} s; [epoch, train "
           f"loss, match_acc] {epochs}, [epoch, test loss, match_acc] "
           f"{tests}; the bare descriptor step {desc_rate:.2f} clouds/s",
           flush=True)
@@ -2886,7 +2933,21 @@ def ox_learns(card, rng):
     fresh init, one fixed batch; the mean eval loss over four fixed draws
     falls over ``LEARN_STEPS`` train steps. Printed beside it at 0, 20 and
     ``LEARN_STEPS`` steps: the same draws' loss in train mode (batch
-    statistics, on a copy of the model)."""
+    statistics, on a copy of the model). Under deterministic algorithms:
+    the backward's atomic accumulations otherwise sum in a run-dependent
+    order, and the bf16 run's eval loss after 80 steps moved from run to
+    run (1.53851 and 1.69716 against 1.69502 at the start, on an H100
+    80GB HBM3 at 700 W); deterministic, it is 1.67469 on every run
+    there."""
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        _ox_learns(card, rng)
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def _ox_learns(card, rng):
     cfg = oxford_config("ball")
     dev = torch.device("cuda")
     state = init_detector_state(cfg, SEED, dev)
@@ -2978,7 +3039,7 @@ def phase11_entry(card, tmp, rates):
             "--dataroot", root, "--name", "oxford", "--checkpoints-dir",
             ckpt_dir, "--device", "cuda", "--override",
             "detector.grouping=ball", "--override", "train.log_every=1"]
-    _, t_first = run_module("train-detector oxford", base + ["--epochs", "2"])
+    _, t_first = run_cli("train-detector oxford", base + ["--epochs", "2"])
     with open(os.path.join(out_dir, "config.json")) as f:
         saved = json.load(f)
     check((saved["data"]["input_pc_num"], saved["data"]["parent_pc_num"],
@@ -2991,8 +3052,8 @@ def phase11_entry(card, tmp, rates):
               1.0), "train-detector ran the Oxford preset's ball detector "
           "at full width")
     first = read_jsonl(os.path.join(out_dir, "oxford_metrics.jsonl"))
-    out, t_resume = run_module("train-detector oxford --resume auto",
-                               base + ["--epochs", "3", "--resume", "auto"])
+    out, t_resume = run_cli("train-detector oxford --resume auto",
+                            base + ["--epochs", "3", "--resume", "auto"])
     check("at epoch 2" in out, "the resumed Oxford run starts at epoch 2")
     recs = read_jsonl(os.path.join(out_dir, "oxford_metrics.jsonl"))
     check({r["epoch"] for r in recs[len(first):]} == {2},
@@ -3005,8 +3066,8 @@ def phase11_entry(card, tmp, rates):
     check(ckpt is not None, "an Oxford checkpoint")
     print(f"[11] train-detector --dataset oxford --override "
           f"detector.grouping=ball --device cuda: 2 epochs in {t_first:.1f} "
-          f"s, --resume auto to 3 in {t_resume:.1f} s; [epoch, train loss, "
-          f"sigma_mean] "
+          f"s, --resume auto to 3 in {t_resume:.1f} s (both in process); "
+          f"[epoch, train loss, sigma_mean] "
           f"{[(r['epoch'], round(r['loss'], 4), round(r['sigma_mean'], 4)) for r in recs if r['prefix'] == 'train_epoch']}"
           f", [epoch, test loss] "
           f"{[(r['epoch'], round(r['loss'], 4)) for r in recs if r['prefix'] == 'test']}",
@@ -3769,9 +3830,9 @@ def phase12_entry(card, tmp, root, ckpt):
     _, t_exp2 = run_module("export-keypoints --num-devices 2",
                            exp + ranks + ["--batch-size", "8", "--out",
                                           os.path.join(tmp, "kp_ranks")])
-    _, t_exp1 = run_module("export-keypoints --num-devices 1",
-                           exp + ["--batch-size", "4", "--out",
-                                  os.path.join(tmp, "kp_one")])
+    _, t_exp1 = run_cli("export-keypoints --num-devices 1",
+                        exp + ["--batch-size", "4", "--out",
+                               os.path.join(tmp, "kp_one")])
     a, b = (_tree_bytes(os.path.join(tmp, d)) for d in ("kp_ranks",
                                                         "kp_one"))
     check(bool(a) and a == b, "export-keypoints over 2 ranks (batch 8) "
@@ -3790,7 +3851,7 @@ def phase12_entry(card, tmp, root, ckpt):
           f"train-detector 2 epochs {t_first:.1f} s, --resume auto to 3 "
           f"{t_resume:.1f} s ([epoch, loss] "
           f"{[(r['epoch'], round(r['loss'], 4)) for r in recs if r['prefix'] == 'train_epoch']}"
-          f"); export-keypoints 2 ranks {t_exp2:.1f} s, 1 rank "
+          f"); export-keypoints 2 ranks {t_exp2:.1f} s, 1 rank (in process) "
           f"{t_exp1:.1f} s, {len(a)} frames byte-identical; train-descriptor"
           f" one epoch {t_desc:.1f} s", flush=True)
 
@@ -4276,6 +4337,516 @@ def phase13(card, tmp):
     return launches
 
 
+# --------------------------------------------------------------- phase 14 --
+# the object presets (modelnet, shrec: 5000-point shapes, 512 nodes, c1 128,
+# c2 512, node kNN 32, rot_3d, batch 8) in training at full width: steps in
+# the counted run, and the kernels' shapes there (a step: FPS on (8, 1250)
+# twice, the assignment (16, 5000) x 512, the losses' keypoint -> shape (8,
+# 512) x 5000 and chamfer (8, 512) x 512 twice each, the node kNN (16, 512,
+# 512) k=32, scatter-max (16, 5000) at C=64 and 128; the export adds the
+# chain at (8, 512, 32, 131) -> 512 and K1, K2, K4, K5 at batch 8)
+OBJECT_STEPS = 5
+OBJECT_STEP_LAUNCHES = {"fps": 2, "min_argmin": 5, "fusion_chain": 0,
+                        "smallest_k": 1, "scatter_max": 2}
+OBJECT_SHAPES = {
+    "fps (8, 1250) -> 512": ("fps", (8, 1250)),
+    "min_argmin (16, 5000) x 512 bf16": ("min_argmin", (16, 5000, 512, True)),
+    "min_argmin keypoint->shape (8, 512) x 5000 fp32": (
+        "min_argmin", (8, 512, 5000, False)),
+    "min_argmin chamfer (8, 512) x 512 fp32": (
+        "min_argmin", (8, 512, 512, False)),
+    "fusion_chain (8, 512, 32, 131) -> 512": ("fusion_chain", 32),
+    "smallest_k node kNN (16, 512, 512) k=32": ("smallest_k", (16, 32)),
+    "smallest_k node kNN (8, 512, 512) k=32": ("smallest_k", (8, 32)),
+    "scatter_max (16, 5000) C=64+128": ("scatter_max", 16),
+}
+# the fp32 step card against CPU at the object width
+OBJECT_FP32 = {"detector.compute_dtype": "float32"}
+# SOMTrainer card against CPU (its defaults: an 8 x 8 grid, 20 + 60
+# updates) on 8 object shapes: the points' final nodes the same but for a
+# share SOM_FLIPS of them, and the nodes within SOM_TOL. A point within fp32
+# noise of a tie that goes to the other node in one update moves both
+# nodes' means by its offset over their ~78 points, a few 1e-3 on these
+# shapes (one such flip: 1.763e-03 on an H100, the rest of the nodes at
+# fp32 noise); the nodes beyond 1e-4 are counted and printed
+SOM_TOL, SOM_FLIPS = 1e-2, 1e-3
+# the full-scale protocol's arms on phase 7's tree, and the kernels each
+# must launch (the model's keypoints, or keypoints and descriptors: all
+# five; random keypoints and the random descriptors: none)
+FULLSCALE_EVAL_ARMS = ("trained_defaults", "trained_fp32_exact",
+                       "untrained_defaults", "random_keypoints")
+FULLSCALE_REG_ARMS = ("trained_desc", "untrained_desc", "random_desc_floor",
+                      "trained_desc_yaw", "untrained_desc_yaw")
+
+
+def object_shapes(b, seed):
+    """``b`` synthetic object shapes of 5000 points (SyntheticDataset, the
+    modelnet preset's size) and their normals, (b, 5000, 3) each."""
+    from usip_tpu_torch.data.synthetic import SyntheticDataset
+    ds = SyntheticDataset(size=b, input_pc_num=5000, surface_normal_len=3,
+                          seed=seed)
+    items = [ds[i] for i in range(b)]
+    return (np.stack([it["src_pc"] for it in items]),
+            np.stack([it["src_sn"] for it in items]),
+            np.stack([it["dst_pc"] for it in items]),
+            np.stack([it["dst_sn"] for it in items]))
+
+
+def object_chain(dev):
+    """The folded, packed fusion chain of the seeded modelnet detector."""
+    det = seeded_detector(get_config("modelnet"), dev)
+    ws, bs = kernels.fusion_chain_params(det.knnlayer_1)
+    return ws, bs, kernels.prepare_chain(ws, bs)
+
+
+def object_kernels(card, rng):
+    """Each kernel at the object shapes against its plain version (K1, K2,
+    K4, K5 identical, K3 within 1e-2 of max|plain|, median 1e-3), then its
+    CUDA-graph time beside the plain version's, the library call's and its
+    bound (``kernel_bounds``' reckoning at these shapes). Returns the worst
+    error of each kernel and the times by shape."""
+    dev = torch.device("cuda")
+    pc_np, _, _, _ = object_shapes(16, 30)
+    pc = torch.from_numpy(pc_np).to(dev)
+    nodes = torch.from_numpy(np.stack([p[rng.choice(5000, 512,
+                                                    replace=False)]
+                                       for p in pc_np])).to(dev)
+    errs = {k: 0.0 for k in kernels.LAUNCHES}
+    out = {}
+    for label, (name, arg) in OBJECT_SHAPES.items():
+        lib = None
+        if name == "fps":
+            b, s_ = arg
+            pts = torch.from_numpy(np.stack([p[rng.choice(
+                5000, s_, replace=False)] for p in pc_np[:b]])).to(dev)
+            first = torch.from_numpy(rng.integers(0, s_, b).astype(
+                np.int32)).to(dev)
+            got, ref = kernels.fps(pts, first, 512), kernels.fps_plain(
+                pts, first, 512)
+            sync()
+            check(torch.equal(got, ref), f"{label}: picks identical")
+            run = lambda p=pts, f=first: kernels.fps(p, f, 512)  # noqa: E731
+            plain = lambda p=pts, f=first: kernels.fps_plain(p, f, 512)  # noqa: E731
+            bnd = bound(b * s_ * 12 + b * 4 + b * 512 * 4,
+                        8 * b * 511 * s_, FP32_FLOPS)
+        elif name == "min_argmin":
+            b, n, m, bf16 = arg
+            # the assignment (shapes onto their nodes), keypoints onto
+            # shapes, and the chamfer between two copies' keypoints
+            q = pc[:b] if n == 5000 else nodes[:b]
+            c = pc[:b] if m == 5000 else nodes[b:2 * b] if n == 512 \
+                else nodes[:b]
+            for mode in (False, True):
+                mins, idx = kernels.min_argmin(q, c, mode)
+                rmins, ridx = kernels.min_argmin_plain(q, c, mode)
+                sync()
+                check(torch.equal(idx, ridx) and torch.equal(mins, rmins),
+                      f"{label} round_bf16={mode}: identical")
+                errs[name] = max(errs[name],
+                                 float((mins - rmins).abs().max()))
+            run = lambda q=q, c=c, f=bf16: kernels.min_argmin(q, c, f)  # noqa: E731
+            plain = lambda q=q, c=c, f=bf16: kernels.min_argmin_plain(  # noqa: E731
+                q, c, f)
+            bnd = min_argmin_bound(b, n, m)
+        elif name == "fusion_chain":
+            ws, bs, chain = object_chain(dev)
+            g = torch.from_numpy(np.concatenate(
+                [rng.normal(0, 0.3, size=(B_BENCH, 512, arg, 3)),
+                 np.abs(rng.normal(size=(B_BENCH, 512, arg, 128)))],
+                -1).astype(np.float32)).to(dev)
+            got = kernels.fusion_chain(g, chain)
+            ref = kernels.fusion_chain_plain(g, ws, bs)
+            sync()
+            scale, err = float(ref.abs().max()), (got - ref).abs()
+            check(scale > 0 and float(err.max()) <= 1e-2 * scale
+                  and float(err.median()) <= 1e-3 * scale,
+                  f"{label}: within 1e-2 (max) and 1e-3 (median) of "
+                  f"max|plain| {scale}")
+            errs[name] = max(errs[name], float(err.max()))
+            run = lambda g=g, c=chain: kernels.fusion_chain(g, c)  # noqa: E731
+            plain = lambda g=g, w=ws, b_=bs: kernels.fusion_chain_plain(  # noqa: E731
+                g, w, b_)
+            bnd = chain_bound(B_BENCH, 512, arg, 131, 256, 512)
+        elif name == "smallest_k":
+            b, k = arg
+            sc = pairwise_sqdist(nodes[:b], nodes[:b])
+            vals, idx = kernels.smallest_k(sc, k)
+            rvals, ridx = kernels.smallest_k_plain(sc, k)
+            sync()
+            check(torch.equal(idx, ridx) and torch.equal(vals, rvals),
+                  f"{label}: values and indices identical")
+            run = lambda s=sc, k=k: kernels.smallest_k(s, k)  # noqa: E731
+            plain = lambda s=sc, k=k: kernels.smallest_k_plain(s, k)  # noqa: E731
+            lib = graph_ms(lambda s=sc, k=k: torch.topk(
+                s, k, dim=-1, largest=False, sorted=True), 20)
+            bnd = bound(b * 512 * 512 * 4 + b * 512 * k * 8, 0, FP32_FLOPS)
+        else:
+            b = arg
+            # the assignment's own ids: each point's nearest node
+            ids = kernels.min_argmin(pc[:b], nodes[:b], True)[1].long()
+            fs = [torch.from_numpy(rng.normal(size=(b, 5000, c)).astype(
+                np.float32)).to(dev) for c in (64, 128)]
+            for f in fs:
+                got = kernels.scatter_max(f, ids, 512)
+                ref = kernels.scatter_max_plain(f, ids, 512)
+                sync()
+                check(torch.equal(got, ref), f"{label} C={f.shape[-1]}: "
+                      "equals scatter_reduce amax")
+            run = lambda fs=fs, i=ids: [kernels.scatter_max(f, i, 512)  # noqa: E731
+                                        for f in fs]
+            plain = lambda fs=fs, i=ids: [  # noqa: E731
+                kernels.scatter_max_plain(f, i, 512) for f in fs]
+            lib = graph_ms(plain, 20)
+            bnd = bound(sum(b * 5000 * c * 4 + b * 5000 * 8 + b * 512 * c * 4
+                            for c in (64, 128)), 0, FP32_FLOPS)
+        out[label] = {"ms": graph_ms(run, 20), "plain_ms": time_ms(plain, 3),
+                      "library_ms": lib, "events_ms": time_ms(run, 20),
+                      "bound_ms": bnd[0], "bound_by": bnd[1]}
+        r = out[label]
+        print(f"[14] {card} | {label}: identical to plain"
+              f"{' (K3 within its bound)' if name == 'fusion_chain' else ''}"
+              f"; kernel {r['ms']:.4f} ms (back-to-back events "
+              f"{r['events_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, "
+              f"library {'none' if lib is None else f'{lib:.4f} ms'}, bound "
+              f"{bnd[0]:.4f} ms by {bnd[1]}", flush=True)
+    return errs, out
+
+
+def object_batch(cfg, b, dev, seed):
+    src_pc, src_sn, dst_pc, dst_sn = object_shapes(b, seed)
+    return DetectorBatch(*(torch.from_numpy(a).to(dev)
+                           for a in (src_pc, src_sn, dst_pc, dst_sn)))
+
+
+def object_step(card):
+    """The modelnet preset's train step at full width: five bf16 steps with
+    each kernel's launches a step checked, one fp32 step (batch 2) on the
+    card against the CPU under deterministic algorithms, the step's time,
+    split, peak memory and device busy share."""
+    dev = torch.device("cuda")
+    cfg = get_config("modelnet")
+    b = cfg.train.batch_size
+    check((cfg.data.input_pc_num, cfg.data.node_num, cfg.detector.c1,
+           cfg.detector.c2, cfg.detector.node_knn_k, b,
+           cfg.detector.compute_dtype, cfg.augment.rot_3d)
+          == (5000, 512, 128, 512, 32, 8, "bfloat16", True),
+          "the modelnet preset at full width")
+    batch = object_batch(cfg, b, dev, 31)
+    state = train_state(cfg, dev)
+    step = make_detector_train_step(cfg)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    kernels.reset_launch_counts()
+    history = [step(state, batch, 0, generator=gen)
+               for _ in range(OBJECT_STEPS)]
+    sync()
+    launches = dict(kernels.LAUNCHES)
+    losses = [float(h["loss"]) for h in history]
+    print(f"[14] train modelnet bf16 batch {b} ({2 * b} shapes of 5000 "
+          f"points, rot_3d), {OBJECT_STEPS} steps: losses {losses}; "
+          f"launches {launches} ({OBJECT_STEP_LAUNCHES} a step expected)",
+          flush=True)
+    check(all(all(bool(torch.isfinite(v)) for v in h.values())
+              for h in history), "every object train metric finite")
+    check(launches == {k: n * OBJECT_STEPS
+                       for k, n in OBJECT_STEP_LAUNCHES.items()},
+          "the object step's launches a step")
+
+    cfg32 = get_config("modelnet", **OBJECT_FP32)
+    batch2 = object_batch(cfg32, 2, "cpu", 32)
+    res, grads = {}, {}
+    for device in ("cuda", "cpu"):
+        st = train_state(cfg32, device)
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            res[device] = make_detector_train_step(cfg32)(
+                st, DetectorBatch(*(t.to(device) for t in batch2)), 0,
+                generator=torch.Generator().manual_seed(SEED + 1))
+        finally:
+            torch.use_deterministic_algorithms(False)
+        grads[device] = {n: p.grad.detach().double().cpu() for n, p in
+                         st.model.named_parameters() if p.grad is not None}
+    gpu, cpu = ({k: float(v) for k, v in res[d].items()}
+                for d in ("cuda", "cpu"))
+    rel = {k: abs(gpu[k] - cpu[k]) / max(abs(cpu[k]), 1e-30) for k in cpu}
+    worst, low, leaf = grad_errors("fp32 object step", grads)
+    print(f"[14] train modelnet fp32 batch 2, one step on the card and on "
+          f"the CPU (deterministic algorithms): card {json.dumps(gpu)}, CPU "
+          f"{json.dumps(cpu)}, relative differences {json.dumps(rel)} "
+          f"(tolerance: loss and its parts 1e-4, grad_norm 1e-3); gradients "
+          f"of {len(leaf)} parameters: worst {worst[0]:.3e} ({worst[1]}), "
+          f"lowest cosine {low[0]:.9f} ({low[1]}) (tolerance "
+          f"{GRAD_TOL[1]:g}, cosine >= {GRAD_TOL[2]})", flush=True)
+    for k, r in rel.items():
+        check(r <= (1e-3 if k == "grad_norm" else 1e-4),
+              f"fp32 object step {k} on the card within tolerance of the CPU")
+    check(worst[0] <= GRAD_TOL[1] and low[0] >= GRAD_TOL[2], "fp32 object "
+          "step gradients on the card within tolerance of the CPU")
+
+    for _ in range(2):
+        step(state, batch, 0, generator=gen)
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    iters = 10
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        step(state, batch, 0, generator=gen)
+    sync()
+    step_ms = (time.perf_counter() - t0) / iters * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    split = event_split(
+        lambda mark: step(state, batch, 0, generator=gen, mark=mark),
+        ("prep", "forward", "losses", "backward", "optimizer"), iters)
+    busy, ops, _ = profile_busy(lambda: step(state, batch, 0,
+                                             generator=gen), 2)
+    print(f"[14] {card} | train step modelnet bf16 batch {b}: {step_ms:.3f} "
+          f"ms a step (mean of {iters}, pipelined), "
+          f"{2 * b * 1e3 / step_ms:.2f} clouds/s; split (ms): "
+          + json.dumps({k: round(v, 4) for k, v in split.items()})
+          + f"; peak memory {peak:.0f} MiB; kernels {busy:.3f} ms a step on "
+          f"the device ({busy / step_ms:.4f} of the step); by operator: "
+          + json.dumps([[k, round(t, 4), c] for t, c, k in ops[:8]]),
+          flush=True)
+    return launches
+
+
+def object_entry(card, tmp):
+    """``train-detector --dataset shrec|modelnet --synthetic --epochs 1``
+    through ``cli.main`` in process, each with its launch counts."""
+    launches = {}
+    for name in ("shrec", "modelnet"):
+        ckpt_dir = os.path.join(tmp, "ckpt_object")
+        out_dir = os.path.join(ckpt_dir, name)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli.main(["train-detector", "--dataset", name, "--synthetic",
+                      "--epochs", "1", "--name", name, "--checkpoints-dir",
+                      ckpt_dir, "--device", "cuda", "--override",
+                      "train.log_every=4"])
+        sync()
+        wall = time.perf_counter() - t0
+        launches[f"object_{name}"] = dict(kernels.LAUNCHES)
+        with open(os.path.join(out_dir, "config.json")) as f:
+            saved = json.load(f)
+        # shrec trains under the object preset, the modelnet recipe
+        check((saved["data"]["input_pc_num"], saved["data"]["node_num"],
+               saved["detector"]["c1"], saved["detector"]["c2"],
+               saved["detector"]["node_knn_k"], saved["augment"]["rot_3d"])
+              == (5000, 512, 128, 512, 32, True),
+              f"train-detector --dataset {name} at full width")
+        recs = read_jsonl(os.path.join(out_dir, f"{name}_metrics.jsonl"))
+        losses = [r["loss"] for r in recs if "loss" in r]
+        check(bool(losses) and all(np.isfinite(losses)),
+              f"train-detector --dataset {name}: every loss finite")
+        check(find_checkpoint(out_dir) is not None,
+              f"train-detector --dataset {name} wrote a checkpoint")
+        for k in PATH_KERNELS["engine"]:
+            check(launches[f"object_{name}"][k] > 0,
+                  f"{k} launched by train-detector --dataset {name}")
+        print(f"[14] {card} | train-detector --dataset {name} --synthetic "
+              f"--epochs 1 --device cuda (in process): {wall:.1f} s, "
+              f"losses {[round(x, 4) for x in losses]}, launches "
+              f"{launches[f'object_{name}']}", flush=True)
+    return launches
+
+
+def fullscale_arms(card, tmp, root, ckpt):
+    """``python -m usip_tpu_torch.fullscale eval`` and ``eval-reg --yaw``
+    in process on phase 7's tree, detector and phase 9's descriptor (in the
+    protocol's checkpoint layout), each arm's launches counted."""
+    for sub, src in (("fullscale", ckpt), ("fullscale_descriptor", os.path.join(
+            tmp, "ckpt_desc", "kitti_descriptor", "best.pt"))):
+        os.makedirs(os.path.join(root, "ckpt", sub), exist_ok=True)
+        shutil.copy(src, os.path.join(root, "ckpt", sub, "best.pt"))
+    launches = {}
+
+    def counted(fn, at):
+        """``fn`` with the launches of each call kept under the basename of
+        its output directory, its positional argument ``at``."""
+        def run(*args, **kw):
+            kernels.reset_launch_counts()
+            out = fn(*args, **kw)
+            sync()
+            launches[os.path.basename(args[at])] = dict(kernels.LAUNCHES)
+            return out
+        return run
+
+    # the output directory: _export_and_rep(cfg, checkpoint, out_dir, ...),
+    # _export_and_reg(cfg, det_ckpt, desc_ckpt, out_root, ...)
+    saved = {"_export_and_rep": 2, "_export_and_reg": 3}
+    saved = {k: (getattr(fullscale, k), at) for k, at in saved.items()}
+    try:
+        for k, (fn, at) in saved.items():
+            setattr(fullscale, k, counted(fn, at))
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            ev = fullscale.main(["eval", "--root", root, "--device", "cuda"])
+        t_eval = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            reg = fullscale.main(["eval-reg", "--yaw", "--root", root,
+                                  "--device", "cuda"])
+        t_reg = time.perf_counter() - t0
+    finally:
+        for k, (fn, _) in saved.items():
+            setattr(fullscale, k, fn)
+    dirs = {"trained_defaults": "kp_default", "trained_fp32_exact": "kp_exact",
+            "untrained_defaults": "kp_untrained",
+            "random_keypoints": "kp_random", "trained_desc": "reg_trained",
+            "untrained_desc": "reg_untrained",
+            "trained_desc_yaw": "reg_trained_yaw",
+            "untrained_desc_yaw": "reg_untrained_yaw"}
+    arm_launches = {arm: launches[d] for arm, d in dirs.items()}
+    check(set(ev) == {"phase", "pairs", *FULLSCALE_EVAL_ARMS,
+                      "default_vs_exact_delta"}
+          and all(ev[a]["pairs"] == ev["pairs"] > 0
+                  and 0.0 <= ev[a]["repeatability"] <= 1.0
+                  for a in FULLSCALE_EVAL_ARMS),
+          f"fullscale eval's arms {ev}")
+    check(set(reg) == {"phase", "pairs", "desc_name", *FULLSCALE_REG_ARMS}
+          and all(reg[a]["total"] == reg["pairs"] > 0
+                  and 0.0 <= reg[a]["success_rate"] <= 1.0
+                  for a in FULLSCALE_REG_ARMS),
+          f"fullscale eval-reg's arms {reg}")
+    for arm, counts in arm_launches.items():
+        want = PATH_KERNELS["export"] if arm != "random_keypoints" else ()
+        check(all(counts[k] > 0 for k in want)
+              and (want or not any(counts.values())),
+              f"fullscale arm {arm} launches {counts}")
+    print(f"[14] {card} | python -m usip_tpu_torch.fullscale eval (in "
+          f"process, phase 7's tree and detector, {ev['pairs']} pairs) in "
+          f"{t_eval:.1f} s: " + json.dumps({a: ev[a]["repeatability"]
+                                          for a in FULLSCALE_EVAL_ARMS}),
+          flush=True)
+    print(f"[14] {card} | python -m usip_tpu_torch.fullscale eval-reg --yaw "
+          f"(phase 9's descriptor) in {t_reg:.1f} s: "
+          + json.dumps({a: [reg[a]["success_rate"],
+                            reg[a]["inlier_ratio_mean"]]
+                        for a in FULLSCALE_REG_ARMS})
+          + " (success, inlier ratio)", flush=True)
+    print(f"[14] fullscale launches by arm: {json.dumps(arm_launches)}",
+          flush=True)
+    return {f"fullscale_{a}": c for a, c in arm_launches.items()}
+
+
+def som_check(card):
+    """``SOMTrainer`` (its defaults) on the card against the CPU on the same
+    8 object shapes, fp32, the card under deterministic algorithms."""
+    from usip_tpu_torch.ops.som import SOMTrainer
+    x = object_shapes(8, 33)[0]
+    nodes = {}
+    for device in ("cuda", "cpu"):
+        trainer = SOMTrainer(device=device)
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            t0 = time.perf_counter()
+            nodes[device] = trainer.optimize(x)
+            if device == "cuda":
+                sync()
+            wall = time.perf_counter() - t0
+        finally:
+            torch.use_deterministic_algorithms(False)
+        nodes[device] = nodes[device].cpu().double().numpy()
+        print(f"[14] SOMTrainer on {device}: (8, 5000, 3) -> "
+              f"{nodes[device].shape}, {trainer.max_iteration // 3} + "
+              f"{trainer.max_iteration} updates in {wall:.2f} s", flush=True)
+    diff = np.abs(nodes["cuda"] - nodes["cpu"]).max(-1)
+    gap = float(diff.max())
+    ids = {d: np.argmin(((x[:, :, None] - n[:, None]) ** 2).sum(-1), -1)
+           for d, n in nodes.items()}
+    flips = float((ids["cuda"] != ids["cpu"]).mean())
+    print(f"[14] SOMTrainer card against CPU: max |nodes diff| {gap:.3e} "
+          f"(tolerance {SOM_TOL:g}), nodes beyond 1e-4 "
+          f"{int((diff > 1e-4).sum())} of {diff.size}, points whose final "
+          f"node differs {flips:.6f} (tolerance {SOM_FLIPS:g})", flush=True)
+    check(np.isfinite(nodes["cuda"]).all() and gap <= SOM_TOL
+          and flips <= SOM_FLIPS, "SOMTrainer on the card matches the CPU")
+
+
+def render_contract(card, tmp, root, ckpt):
+    """``export-keypoints --with-sigmas``, ``render-keypoints --kp-dim 4``
+    and ``detect --render --html`` on two clouds; where matplotlib is
+    absent, both renders must raise its ImportError."""
+    import importlib.util
+    kp4 = os.path.join(tmp, "kp_sigmas")
+    kernels.reset_launch_counts()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main(["export-keypoints", "--dataset", "kitti", "--dataroot",
+                  root, "--checkpoint", ckpt, "--out", kp4,
+                  "--with-sigmas", "--device", "cuda"])
+    sync()
+    launches = {"sigma_export": dict(kernels.LAUNCHES)}
+    stats = json.loads(buf.getvalue().strip().splitlines()[-1])
+    rows = [np.fromfile(os.path.join(d, f), np.float32).reshape(-1, 4)
+            for d, _, fs in os.walk(kp4) for f in fs]
+    # the detector's keypoints by ascending sigma, then any rows padded from
+    # the cloud (sigma inf)
+    fin = [r[np.isfinite(r[:, 3]), 3] for r in rows]
+    check(stats["frames"] == len(rows) > 0
+          and all(r.shape == (128, 4) and np.all(np.diff(f) >= 0)
+                  and np.isfinite(r[:len(f), 3]).all()
+                  for r, f in zip(rows, fin)),
+          "export-keypoints --with-sigmas: 128 rows of (xyz, sigma) a "
+          "frame, sigmas ascending")
+    for name in PATH_KERNELS["export"]:
+        check(launches["sigma_export"][name] > 0,
+              f"{name} launched by export-keypoints --with-sigmas")
+    clouds = os.path.join(tmp, "render_clouds")
+    os.makedirs(clouds)
+    rng = np.random.default_rng(14)
+    for i in range(2):
+        pc, sn = kitti_cloud(rng, 1, 20000)
+        np.save(os.path.join(clouds, f"c{i}.npy"),
+                np.concatenate([pc[0], sn[0]], -1))
+    render = ["render-keypoints", "--dataset", "kitti", "--dataroot", root,
+              "--kp-dir", kp4, "--kp-dim", "4", "--out",
+              os.path.join(tmp, "gallery")]
+    detect = ["detect", "--input", clouds, "--out",
+              os.path.join(tmp, "rendered"), "--dataset", "kitti",
+              "--checkpoint", ckpt, "--render", "--html", "--device", "cuda"]
+    print(f"[14] export-keypoints --with-sigmas: {json.dumps(stats)}, "
+          f"launches {launches['sigma_export']}", flush=True)
+    if importlib.util.find_spec("matplotlib") is None:
+        for argv in (render, detect):
+            try:
+                with contextlib.redirect_stdout(io.StringIO()):
+                    cli.main(argv)
+            except ImportError as e:
+                check("matplotlib" in str(e), f"{argv[0]} raised {e!r}")
+            else:
+                check(False, f"{argv[0]} without matplotlib must raise")
+        print("[14] render: not run, matplotlib absent on this host",
+              flush=True)
+        return launches
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main(render)
+    res = json.loads(buf.getvalue().strip().splitlines()[-1])
+    check(res["rendered"] == len(rows) and os.path.exists(res["html"]),
+          f"render-keypoints {res}")
+    with contextlib.redirect_stdout(io.StringIO()):
+        cli.main(detect)
+    files = sorted(os.listdir(os.path.join(tmp, "rendered")))
+    check(files == ["c0.keypoints.bin", "c0.png", "c1.keypoints.bin",
+                    "c1.png", "index.html"], f"detect --render --html {files}")
+    print(f"[14] render-keypoints --kp-dim 4: {json.dumps(res)}; detect "
+          f"--render --html: {files}", flush=True)
+    return launches
+
+
+def phase14(card, tmp, root, ckpt):
+    """The full-scale protocol's eval arms on phase 7's tree, the object
+    presets in training, SOMTrainer and the render contract."""
+    errs, times = object_kernels(card, np.random.default_rng(14))
+    launches = {"object_step": object_step(card)}
+    launches.update(object_entry(card, tmp))
+    launches.update(fullscale_arms(card, tmp, root, ckpt))
+    som_check(card)
+    launches.update(render_contract(card, tmp, root, ckpt))
+    return launches, errs, times
+
+
 def nccl_two_card(rank, world, arg):
     """The data-parallel detector step over 2 cards under NCCL (where the
     host has them): its losses."""
@@ -4336,6 +4907,12 @@ def main():
         lap("12 ranks")
         launches.update(phase13(card, tmp))
         lap("13 deployment")
+        object_launches, object_errs, object_times = phase14(
+            card, tmp, root, ckpt)
+        launches.update(object_launches)
+        for name, err in object_errs.items():
+            errs[name] = max(errs[name], err)
+        lap("14 full-scale arms, object presets, SOM, render")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"[t] wall time by phase (s): {json.dumps(walls)}", flush=True)
@@ -4398,7 +4975,19 @@ def main():
                                 for tag in RANK_LAUNCH_TAGS},
              "launches_per_artifact_call": {
                  tag: launches[f"artifact_{tag}"][name]
-                 for tag in DEPLOY_KERNELS}}
+                 for tag in DEPLOY_KERNELS},
+             "object_shapes": {label: t for label, t in object_times.items()
+                               if OBJECT_SHAPES[label][0] == name},
+             "launches_per_object_step": (launches["object_step"][name]
+                                          / OBJECT_STEPS),
+             "launches_object_train_detector": {
+                 d: launches[f"object_{d}"][name]
+                 for d in ("shrec", "modelnet")},
+             "launches_fullscale": {
+                 arm: launches[f"fullscale_{arm}"][name]
+                 for arm in (*FULLSCALE_EVAL_ARMS, *FULLSCALE_REG_ARMS)
+                 if f"fullscale_{arm}" in launches},
+             "launches_sigma_export": launches["sigma_export"][name]}
             for name, (src, rep) in meta.items()]
     # K2 at each of its four shapes (the entry's own time is the serve one)
     line[1]["shapes"] = k2

@@ -33,8 +33,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # --------------------------------------------------------- the surface ----
 
-# usip_tpu's commands the port lacks: rendering, the next slice
-MISSING_COMMANDS = {"render-keypoints"}
+# usip_tpu's commands the port lacks: none
+MISSING_COMMANDS = set()
 # flags that pick a JAX platform (the port takes --device)
 JAX_PLATFORM = {"--platform"}
 # usip_tpu's multi-host flags on commands that run on one host
@@ -46,7 +46,9 @@ UNREAD_RUN_FLAGS = {"--dataroot", "--batch-size", "--epochs", "--num-devices",
                     "--profile-dir"}
 NOT_TRAINING = JAX_PLATFORM | MULTI_HOST | UNREAD_RUN_FLAGS
 MISSING_FLAGS = {
-    "detect": NOT_TRAINING | {"--render", "--html"},  # rendering
+    "detect": NOT_TRAINING,
+    # host code over an export tree: it reads --dataroot and --synthetic
+    "render-keypoints": NOT_TRAINING - {"--dataroot", "--synthetic"},
     "serve": NOT_TRAINING,
     "export-model": NOT_TRAINING,
     "import-torch": NOT_TRAINING,

@@ -6,8 +6,8 @@ eval_loaders,descriptor_loaders}`` (the indoor tree builders, the
 SceneNN pair loader and the Redwood, 3DMatch and rotated-ModelNet frames
 among them), the host coordinate flip, ``utils/logging``,
 ``eval/{export,repeatability,eval_runner,registration,indoor,fgr,baselines}``
-(the ISS, Harris-3D and SIFT-3D baselines among them) and the CLI's
-``_sn_columns``.
+(the ISS, Harris-3D and SIFT-3D baselines among them), the rendering
+helpers ``utils/{vis,html}`` and the CLI's ``_sn_columns``.
 These tests hold each copy equal to usip_tpu's bit for bit on the same
 inputs and seeds (usip_tpu's loaders on their numpy path, its native batch
 loader switched off), and show in a fresh interpreter that importing the
@@ -166,7 +166,8 @@ PORT_MODULES = (
     "parallel.collectives", "parallel.sharded_ops",
     "parallel.sharded_detector", "parallel.sharded_train",
     "parallel.sharded_descriptor", "parallel.tensor_parallel",
-    "parallel.pipeline_parallel", "model_artifact")
+    "parallel.pipeline_parallel", "model_artifact", "fullscale", "ops.som",
+    "eval.render", "utils.vis", "utils.html")
 
 
 def test_port_imports_nothing_of_usip_tpu():
@@ -969,3 +970,76 @@ def test_sift_subsampling_equals_usip_tpu(monkeypatch, rng_seed):
     np.testing.assert_array_equal(
         torch_baselines.baseline_keypoints("sift", pc, rng(), **kw),
         jax_baselines.baseline_keypoints("sift", pc, rng(), **kw))
+
+
+# ----------------------------------------------------- rendering helpers ----
+
+@pytest.mark.parametrize("image_dir", ["images", ""])
+def test_html_gallery_equals_usip_tpu(tmp_path, image_dir):
+    """The same sections give the same ``index.html`` bytes (titles and
+    captions escaped, links under ``image_dir`` or beside the page)."""
+    from usip_tpu.utils.html import HTMLGallery as JaxGallery
+    from usip_tpu_torch.utils.html import HTMLGallery
+    pages = []
+    for cls, name in ((HTMLGallery, "port"), (JaxGallery, "ref")):
+        g = cls(str(tmp_path / name), title="a <b> & 'c'",
+                image_dir=image_dir)
+        assert g.image_path("x.png") == os.path.join(
+            str(tmp_path / name), image_dir, "x.png")
+        g.add_section("3 frames", [("00_1.png", "seq 0 frame 1: 4/8 <x>"),
+                                   ("a&b.png", "")])
+        g.add_section("empty", [])
+        with open(g.save()) as f:
+            pages.append(f.read())
+    assert pages[0] == pages[1]
+
+
+def _png(path):
+    with open(path, "rb") as f:
+        return f.read()
+
+
+@pytest.mark.parametrize("case", ["full", "no_nodes_no_sigmas",
+                                  "empty_sigmas", "inf_sigmas"])
+def test_vis_scene_equals_usip_tpu(tmp_path, case):
+    """``save_keypoint_scene`` writes usip_tpu's PNG bytes for the same
+    cloud, nodes, keypoints, sigmas and partner keypoints (and the edge
+    cases its guard is for: no keypoint left, sigmas all inf)."""
+    from usip_tpu.utils import vis as jax_vis
+    from usip_tpu_torch.utils import vis
+    rng = np.random.default_rng(5)
+    pc = rng.normal(size=(300, 3)).astype(np.float32)
+    kp = rng.normal(size=(12, 3)).astype(np.float32)
+    args = {"full": (rng.normal(size=(16, 3)), kp,
+                     rng.uniform(0.01, 0.5, 12), kp + 0.1),
+            "no_nodes_no_sigmas": (None, kp, None, None),
+            "empty_sigmas": (None, kp[:0], np.zeros(0), None),
+            "inf_sigmas": (None, kp, np.full(12, np.inf), None)}[case]
+    paths = [str(tmp_path / f"{n}.png") for n in ("port", "ref")]
+    for mod, path in zip((vis, jax_vis), paths):
+        nodes, k, sig, other = args
+        assert mod.save_keypoint_scene(path, pc, nodes, keypoints=k,
+                                       sigmas=sig,
+                                       keypoints_other=other) == path
+    assert _png(paths[0]) == _png(paths[1])
+
+
+def test_vis_plot_helpers_equal_usip_tpu(tmp_path):
+    """``plot_pc`` (with its z cut-off) and ``axis_equal_3d`` give the same
+    axes and the same PNG."""
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+    from usip_tpu.utils import vis as jax_vis
+    from usip_tpu_torch.utils import vis
+    pc = np.random.default_rng(6).normal(size=(200, 3)) * [1, 3, 2]
+    out = []
+    for mod, name in ((vis, "port"), (jax_vis, "ref")):
+        ax = mod.axis_equal_3d(mod.plot_pc(pc, color="g", size=2.0,
+                                           z_cutoff=1.5))
+        limits = [getattr(ax, f"get_{d}lim")() for d in "xyz"]
+        path = str(tmp_path / f"{name}.png")
+        ax.figure.savefig(path, dpi=50)
+        plt.close(ax.figure)
+        out.append((limits, _png(path)))
+    assert out[0] == out[1]

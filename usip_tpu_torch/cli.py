@@ -20,7 +20,10 @@
       --out logs/ [--estimator ransac|fgr] [--overlapped-only]
   python -m usip_tpu_torch.cli bench [--device cuda]
   python -m usip_tpu_torch.cli detect --input clouds/ --checkpoint w.pth \
-      --out served/ [--descriptor-checkpoint d.pt] [--device cuda]
+      --out served/ [--descriptor-checkpoint d.pt] [--device cuda] \
+      [--render] [--html]
+  python -m usip_tpu_torch.cli render-keypoints --dataset kitti \
+      --dataroot TREE --kp-dir kp/ --out gallery/ [--kp-dim 4]
   python -m usip_tpu_torch.cli serve --checkpoint w.pth \
       [--descriptor-checkpoint d.pt] [--device cuda]
   python -m usip_tpu_torch.cli serve --dataset oxford \
@@ -35,8 +38,10 @@
 
 The flags and the request and reply protocol are ``usip_tpu.cli``'s, plus
 ``--device`` (default ``cuda``, which raises without CUDA rather than run on
-the CPU). ``run-model`` loads no model code and no config: the artifact
-holds the program.
+the CPU). ``render-keypoints`` and ``detect --render``/``--html`` draw with
+matplotlib, imported when a scene is drawn; without it they raise its
+``ImportError``, as usip_tpu's do. ``run-model`` loads no model code and
+no config: the artifact holds the program.
 
 Several ranks (``train-detector``, ``train-descriptor``, ``export-keypoints``,
 ``export-descriptors``): ``--num-devices N`` on one host starts N ranks
@@ -130,11 +135,13 @@ def _pipeline(args):
                                  descriptor_checkpoint=desc)
 
 
-def _detect_one(pipe, args, data, s, out_dir, name, nk, nms):
+def _detect_one(pipe, args, data, s, out_dir, name, nk, nms, render=False):
     """Keypoints (and descriptors) of one cloud written to ``out_dir``:
-    ``{"keypoints": path, "descriptors": path?, "n": count}``."""
+    ``{"keypoints": path, "descriptors": path?, "n": count}``; with
+    ``render``, also the keypoint scene ``<name>.png`` (keypoints shaded by
+    sigma, unshaded with a descriptor, as in usip_tpu)."""
     pc, sn = data[:, :3], _sn_columns(data, s)
-    reply = {}
+    reply, sig = {}, None
     if args.descriptor_checkpoint:
         kp, desc = pipe.detect_and_describe(pc, sn, num_keypoints=nk,
                                             nms_radius=nms)
@@ -142,9 +149,16 @@ def _detect_one(pipe, args, data, s, out_dir, name, nk, nms):
         desc.astype(np.float32).tofile(dpath)
         reply["descriptors"] = dpath
     else:
-        kp, _ = pipe.detect(pc, sn, num_keypoints=nk, nms_radius=nms)
+        kp, sig = pipe.detect(pc, sn, num_keypoints=nk, nms_radius=nms)
     kpath = os.path.join(out_dir, f"{name}.keypoints.bin")
     kp.astype(np.float32).tofile(kpath)
+    if render:
+        # the working replacement of the reference's broken matplotlib
+        # keypoint viewer (oxford/test.py:6,17) and of the visdom scatter
+        # payloads (models/keypoint_detector.py:259-334)
+        from usip_tpu_torch.utils.vis import save_keypoint_scene
+        save_keypoint_scene(os.path.join(out_dir, f"{name}.png"), pc, None,
+                            kp, sig)
     return {"keypoints": kpath, **reply, "n": int(kp.shape[0])}
 
 
@@ -158,12 +172,24 @@ def cmd_detect(args):
         raise SystemExit(f"no .npy clouds match {args.input}")
     cfg, pipe = _pipeline(args)
     os.makedirs(args.out, exist_ok=True)
+    gallery = None
+    if args.html:
+        from usip_tpu_torch.utils.html import HTMLGallery
+        # image_dir='' -> renders live next to index.html, links stay valid
+        gallery = HTMLGallery(args.out, title="usip_tpu detections",
+                              image_dir="")
     s = cfg.detector.surface_normal_len
     for path in paths:
         name = os.path.splitext(os.path.basename(path))[0]
         reply = _detect_one(pipe, args, np.load(path), s, args.out, name,
-                            args.num_keypoints, args.nms_radius)
+                            args.num_keypoints, args.nms_radius,
+                            render=args.render or gallery is not None)
+        if gallery is not None:
+            gallery.add_section(name, [(f"{name}.png",
+                                        f"{reply['n']} keypoints")])
         print(f"{name}: {reply['n']} keypoints", flush=True)
+    if gallery is not None:
+        gallery.save()
     print(json.dumps({"clouds": len(paths), "out": args.out}))
 
 
@@ -369,6 +395,20 @@ def cmd_export_keypoints(args):
                        with_sigmas=args.with_sigmas, device=args.device,
                        subset=args.subset)
     _print_main(json.dumps(stats))
+
+
+def cmd_render_keypoints(args):
+    """Browse exported keypoints over their clouds (the reference's
+    evaluation/visualize_keypoints viewer); host code, needs matplotlib."""
+    cfg = _build_config(args)
+    from usip_tpu_torch.eval.render import run_render
+    stats = run_render(cfg, kp_dir=args.kp_dir, out_dir=args.out,
+                       kp_dim=args.kp_dim,
+                       sigma_threshold=args.sigma_threshold,
+                       max_frames=args.max_frames, html=not args.no_html,
+                       seed=args.seed, synthetic=args.synthetic,
+                       subset=args.subset)
+    print(json.dumps(stats))
 
 
 def cmd_export_descriptors(args):
@@ -694,6 +734,34 @@ def build_parser() -> argparse.ArgumentParser:
                    help="write 4-column (xyz, sigma) bins")
     p.set_defaults(fn=cmd_export_keypoints)
 
+    p = sub.add_parser("render-keypoints",
+                       help="render exported keypoint .bin trees over their "
+                            "source clouds (evaluation/visualize_keypoints "
+                            "viewer): PNGs + an HTML gallery; needs "
+                            "matplotlib")
+    _add_preset_flags(p)
+    p.add_argument("--dataroot", default="")
+    p.add_argument("--synthetic", action="store_true",
+                   help="render over the synthetic eval frames")
+    p.add_argument("--kp-dir", required=True,
+                   help="root of an export-keypoints .bin tree")
+    p.add_argument("--out", required=True)
+    p.add_argument("--kp-dim", type=int, default=3, choices=[3, 4],
+                   help="columns per keypoint row (4 = --with-sigmas exports)")
+    p.add_argument("--sigma-threshold", type=float, default=None,
+                   help="keep keypoints with sigma < threshold (defaults to "
+                        "the reference's per-dataset value for 4-column bins: "
+                        "modelnet 0.04 / oxford 0.25 / kitti 0.3 / "
+                        "scenenn 0.08, visualize_features.m)")
+    p.add_argument("--max-frames", type=int, default=16)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--no-html", action="store_true")
+    p.add_argument("--subset", default="original",
+                   choices=["original", "rotated"],
+                   help="modelnet/shrec: which half of the rotated-pair "
+                        "tree the bins were exported from")
+    p.set_defaults(fn=cmd_render_keypoints)
+
     p = sub.add_parser("export-descriptors")
     _add_run_flags(p)
     p.add_argument("--checkpoint", required=True, help="detector checkpoint")
@@ -755,6 +823,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--input", required=True,
                    help="directory of .npy clouds, or a glob")
     p.add_argument("--out", required=True)
+    p.add_argument("--render", action="store_true",
+                   help="write a keypoint-scene PNG per cloud (needs "
+                        "matplotlib)")
+    p.add_argument("--html", action="store_true",
+                   help="also build an index.html gallery of the renders")
     p.set_defaults(fn=cmd_detect)
 
     p = sub.add_parser("serve", help="resident keypoint service: JSON "

@@ -251,6 +251,9 @@ def run_export_with_descriptors(cfg: Config, detector_checkpoint: str,
             continue
         rots = None
         if frame_yaw_seed is not None:
+            # the real rows only (a ragged batch's padding is re-made from
+            # the rotated rows below, as the unrotated path's is)
+            pc_np, sn_np = pc_np[:real_b], sn_np[:real_b]
             rots = [_frame_yaw_matrix(frame_yaw_seed, int(raw["seq"][b]),
                                       int(raw["frame"][b]))
                     for b in range(real_b)]

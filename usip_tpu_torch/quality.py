@@ -35,6 +35,20 @@ place, for the trained descriptor, the untrained one and random vectors.
 It prints one JSON line and exits nonzero unless trained /
 untrained >= ``--factor``. Every seed is fixed, and it runs under
 deterministic algorithms, so that a run on one card repeats.
+
+The object recipe's (counterpart of ``scripts/validate_synthetic.py``):
+
+    python -m usip_tpu_torch.quality --object [--epochs 30] [--factor 2] \
+        [--device cuda] [--override data.fps_parallel=2 ...]
+
+At the modelnet preset on synthetic shapes (256 training shapes of 1024
+points, 64 nodes, c1 64, c2 128, node kNN 8, batch 16; the rest of the
+modelnet recipe, rot_3d among it, as it is; ``--override``s after these):
+it trains ``--epochs`` epochs, then detects 32 keypoints on 24 test shapes
+(seed 1) and on a copy of each under a random 3D rotation (numpy seed 7),
+and scores the pairs' repeatability within 0.25, and that of random
+keypoints; it prints one JSON line and exits nonzero unless model / random
+>= ``--factor``.
 """
 
 from __future__ import annotations
@@ -273,6 +287,109 @@ def yaw_matching(cfg, det, models, test_items, match_radius) -> dict:
     return {k: float(np.mean(v)) for k, v in accs.items()}
 
 
+# scripts/validate_synthetic.py's defaults (its --pc, --nodes, --keypoints,
+# --radius and the widths it sets)
+OBJECT_GATE = dict(points=1024, nodes=64, keypoints=32, radius=0.25,
+                   train_size=256, test_size=32, pairs=24, workers=4)
+
+
+def run_object(root: str, device="cuda", epochs: int = 30, *, points, nodes,
+               keypoints, radius, train_size, test_size, pairs, workers,
+               overrides=()) -> dict:
+    """The object recipe's learning check (``scripts/validate_synthetic.py``
+    at the given sizes, then the dotted ``overrides``): rotated-pair
+    repeatability of the trained detector and of random keypoints."""
+    import numpy as np
+    import torch
+
+    from usip_tpu_torch.config import get_config
+    from usip_tpu_torch.data.augment import rotation_matrix
+    from usip_tpu_torch.data.pipeline import BatchLoader
+    from usip_tpu_torch.data.synthetic import SyntheticDataset
+    from usip_tpu_torch.eval.export import select_keypoints
+    from usip_tpu_torch.eval.repeatability import pair_repeatability
+    from usip_tpu_torch.inference import resolve_device
+    from usip_tpu_torch.ops import sample_nodes
+    from usip_tpu_torch.train.loop import DetectorEngine
+
+    dev = resolve_device(device)
+    cfg = get_config("modelnet", **{
+        "data.input_pc_num": points, "data.node_num": nodes,
+        "detector.c1": 64, "detector.c2": 128, "detector.node_knn_k": 8,
+        "train.batch_size": 16, "train.log_every": 50,
+        **_overrides(overrides)})
+    sn_len = cfg.detector.surface_normal_len
+    train_ds = SyntheticDataset(size=train_size, input_pc_num=points,
+                                surface_normal_len=sn_len, seed=0)
+    test_ds = SyntheticDataset(size=test_size, input_pc_num=points,
+                               surface_normal_len=sn_len, seed=1)
+    bs = cfg.train.batch_size
+    train = BatchLoader(train_ds, bs, num_workers=workers, seed=0)
+    test = BatchLoader(test_ds, bs, shuffle=False, num_workers=workers,
+                       seed=0)
+    t0 = time.perf_counter()
+    engine = DetectorEngine(cfg, train, test, out_dir=root, device=dev)
+    avg = {}
+    for epoch in range(epochs):
+        avg = engine.train_epoch(epoch)
+        if epoch % 5 == 0 or epoch == epochs - 1:
+            t = engine.test_epoch(epoch)
+            print(f"epoch {epoch}: train {avg['loss']:.4f} "
+                  f"test {t.get('loss', float('nan')):.4f} "
+                  f"chamfer_pure {t.get('chamfer_pure', float('nan')):.4f}",
+                  flush=True)
+    seconds = {"train": time.perf_counter() - t0}
+
+    t0 = time.perf_counter()
+    model = engine.state.model.eval()
+    ratio = (cfg.data.eval_fps_subsample_ratio
+             or cfg.data.fps_subsample_ratio)
+    to = lambda a: torch.from_numpy(  # noqa: E731
+        np.ascontiguousarray(a[None], np.float32)).to(dev)
+
+    def detect(pc, sn, seed):
+        node = sample_nodes(to(pc), cfg.data.node_num, ratio,
+                            cfg.data.fps_parallel,
+                            generator=torch.Generator(device=dev)
+                            .manual_seed(seed))
+        _, kp, sig = model(to(pc), to(sn), node)
+        return kp[0].cpu().numpy(), sig[0].cpu().numpy()
+
+    rng = np.random.default_rng(7)
+    reps_model, reps_random = [], []
+    with torch.no_grad():
+        for i in range(pairs):
+            item = test_ds[i % len(test_ds)]
+            pc, sn = item["src_pc"], item["src_sn"]
+            theta = rng.uniform(0, 2 * np.pi, size=3).astype(np.float32)
+            R = rotation_matrix(torch.from_numpy(theta)).numpy()
+            pc_rot = (pc @ R.T).astype(np.float32)
+            sn_rot = sn.copy()
+            sn_rot[:, :3] = sn[:, :3] @ R.T
+            kp_a, sig_a = detect(pc, sn, 2 * i)
+            kp_p, sig_p = detect(pc_rot, sn_rot, 2 * i + 1)
+            sel_a = select_keypoints(kp_a, sig_a, pc, desired_num=keypoints,
+                                     rng=rng)
+            sel_p = select_keypoints(kp_p, sig_p, pc_rot,
+                                     desired_num=keypoints, rng=rng)
+            T = np.eye(4)
+            T[:3, :3] = R.T
+            reps_model.append(pair_repeatability(sel_a, sel_p, T, radius))
+            rand_a = pc[rng.choice(len(pc), keypoints, replace=False)]
+            rand_p = pc_rot[rng.choice(len(pc_rot), keypoints,
+                                       replace=False)]
+            reps_random.append(pair_repeatability(rand_a, rand_p, T, radius))
+    seconds["eval"] = time.perf_counter() - t0
+    model_rep, random_rep = float(np.mean(reps_model)), float(
+        np.mean(reps_random))
+    return {"repeatability_model": model_rep,
+            "repeatability_random": random_rep,
+            "gain": model_rep / max(random_rep, 1e-9), "epochs": epochs,
+            "inlier_radius": radius, "keypoints": keypoints,
+            "fps_parallel": cfg.data.fps_parallel,
+            "final_loss": avg.get("loss"), "seconds": seconds}
+
+
 def run(root: str, epochs: int = 16, factor: float = 2.0, device="cuda",
         overrides=(), frames: int = 6, test_frames: int = 10,
         points: int = 4096) -> dict:
@@ -333,7 +450,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(prog="usip_tpu_torch.quality")
     ap.add_argument("--root", default=None,
                     help="working dir (default: a fresh temp dir)")
-    ap.add_argument("--epochs", type=int, default=16)
+    ap.add_argument("--epochs", type=int, default=None,
+                    help="training epochs (default: 16; --object 30)")
     ap.add_argument("--factor", type=float, default=2.0,
                     help="required trained/random repeatability ratio")
     ap.add_argument("--device", default="cuda",
@@ -343,20 +461,32 @@ def main(argv=None):
     ap.add_argument("--override", action="append", default=[],
                     help="dotted config override, after the reduced sizes "
                          "(either gate)")
-    ap.add_argument("--descriptor", action="store_true",
-                    help="the descriptor's gate (yaw-matching accuracy, "
-                         "trained over untrained) instead of the "
-                         "detector's")
+    gate = ap.add_mutually_exclusive_group()
+    gate.add_argument("--descriptor", action="store_true",
+                      help="the descriptor's gate (yaw-matching accuracy, "
+                           "trained over untrained) instead of the "
+                           "detector's")
+    gate.add_argument("--object", action="store_true",
+                      help="the object recipe's gate (rotated-pair "
+                           "repeatability on synthetic shapes, model over "
+                           "random keypoints)")
     args = ap.parse_args(argv)
     root = args.root or tempfile.mkdtemp(prefix="usip_smoke_")
-    if args.descriptor:
+    if args.object:
+        result = run_object(root, args.device, args.epochs or 30,
+                            overrides=args.override, **OBJECT_GATE)
+        result.update(phase="object", factor=args.factor,
+                      ratio=result["gain"],
+                      passed=bool(result["gain"] >= args.factor))
+        what = "model/random rotated-pair repeatability"
+    elif args.descriptor:
         result = run_descriptor(root, args.device, overrides=args.override,
                                 **DESCRIPTOR_GATE)
         result.update(phase="descriptor", factor=args.factor,
                       passed=bool(result["ratio"] >= args.factor))
         what = "trained/untrained yaw-matching accuracy"
     else:
-        result = run(root, args.epochs, args.factor, args.device,
+        result = run(root, args.epochs or 16, args.factor, args.device,
                      args.override)
         what = "trained/random repeatability"
     print(json.dumps(result), flush=True)

@@ -24,9 +24,6 @@ data mesh (``train/steps.py``), every rank draws the same generators, rank
 the global batch. The metrics are the global batch's on every rank, so the
 decisions made from them (best saves, the non-finite abort) are the same on
 every rank.
-
-Not ported: the PNG render of ``snapshot_visuals`` (its ``.npz`` payload is
-written).
 """
 
 from __future__ import annotations
@@ -379,8 +376,9 @@ class DetectorEngine:
         """Keypoint-scene snapshot during training (the visdom
         display_current_results analog, keypoint_detector.py:259-334): the
         cloud, nodes, keypoints and sigmas of one test (or train) cloud as
-        ``.npz``, from the eval forward on the nodes it shows. Rank 0
-        only."""
+        ``.npz``, from the eval forward on the nodes it shows, and, when
+        matplotlib is present, a PNG render beside it (usip_tpu's rule:
+        skipped only on its ``ImportError``). Rank 0 only."""
         if not is_main_process():
             return None
         loader = self.test_loader or self.train_loader
@@ -407,9 +405,16 @@ class DetectorEngine:
         _, kp, sig = model(pc, sn, nodes)
         arrays = {"pc": pc[0], "nodes": nodes[0], "keypoints": kp[0],
                   "sigmas": sig[0]}
-        return self.logger.snapshot_clouds(
-            "scene", self.state.step,
-            **{k: v.cpu().numpy() for k, v in arrays.items()})
+        arrays = {k: v.cpu().numpy() for k, v in arrays.items()}
+        path = self.logger.snapshot_clouds("scene", self.state.step, **arrays)
+        try:
+            from usip_tpu_torch.utils.vis import save_keypoint_scene
+            save_keypoint_scene(path.replace(".npz", ".png"), arrays["pc"],
+                                arrays["nodes"], arrays["keypoints"],
+                                arrays["sigmas"])
+        except ImportError:
+            pass  # matplotlib not installed: .npz payload is still written
+        return path
 
     def fit(self, epochs: Optional[int] = None,
             chamfer_gate: Optional[float] = None, min_epoch: int = 0):

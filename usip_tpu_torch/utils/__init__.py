@@ -1,1 +1,1 @@
-"""Observability helpers."""
+"""Observability and rendering helpers."""
