@@ -8,7 +8,8 @@ script exits nonzero without the final ``ok`` line:
 0. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
    refuses to run without CUDA;
 1. builds the five CUDA kernels from ``usip_tpu_torch/csrc`` into a clean
-   build directory, one nvcc each, side by side;
+   build directory, one nvcc each, and the host data-path library
+   (``csrc/host/usip_native.cpp``, g++), side by side;
 2. holds each kernel against its plain PyTorch version on the card at the
    main paths' shapes (FPS, min/argmin, smallest-k and scatter-max
    exactly, the fused chain within a stated tolerance): FPS on LiDAR-like
@@ -187,7 +188,19 @@ script exits nonzero without the final ``ok`` line:
    (all five kernels), then ``render-keypoints --kp-dim 4`` and ``detect
    --render --html`` on two clouds, or, on a host without matplotlib, both
    raising its ImportError and the line ``[14] render: not run,
-   matplotlib absent on this host``.
+   matplotlib absent on this host``;
+15. the host data path (``usip_tpu_torch.native``, the default batch
+   loader of the engines): the host library loaded from ``build/`` (a
+   missing library fails the run) and a fresh g++ build of it timed; one
+   ``batch_load_subsample`` at KITTI's parent size (8 x 20480 points of 8
+   columns, phase 7's tree) byte-identical at one thread and one a core,
+   its fp16 wire ``astype(float16)`` of its fp32 output, every output row a
+   row of its file (each once: the scans are 20480 rows); then one
+   ``DetectorEngine`` epoch on phase 7's tree on the native path and one on
+   the numpy path (``native.available`` off), each with its clouds/s, idle
+   share (phase 7's method), launches a step (K1 2, K2 5, K3 0, K4 1, K5 2)
+   and how many batches ``get_batch`` served (all on the native epoch, none
+   on the numpy one).
 
 The second-to-last line is a JSON object with one entry per kernel (time,
 plain and library times, bound, launches); the last is ``{"ok": true,
@@ -218,7 +231,7 @@ sys.path.insert(0, REPO)
 sys.path.insert(1, os.path.join(REPO, "tests"))
 
 from usip_tpu_torch import _build  # noqa: E402
-from usip_tpu_torch import cli, fullscale, quality  # noqa: E402
+from usip_tpu_torch import cli, fullscale, native, quality  # noqa: E402
 from usip_tpu_torch.bench import bench_rate  # noqa: E402
 from usip_tpu_torch.config import get_config  # noqa: E402
 from usip_tpu_torch.inference import KeypointPipeline  # noqa: E402
@@ -234,6 +247,7 @@ from usip_tpu_torch import indoor as indoor_protocol  # noqa: E402
 from usip_tpu_torch.data.descriptor_loaders import (  # noqa: E402
     KittiDescriptorDataset, SceneNNDescriptorDataset)
 from usip_tpu_torch.data.preprocess import build_modelnet_rotated  # noqa: E402
+from usip_tpu_torch.data.loaders import make_detector_dataset  # noqa: E402
 from usip_tpu_torch.data.pipeline import BatchLoader  # noqa: E402
 from usip_tpu_torch.train import (DetectorBatch,  # noqa: E402
                                   PackedPairBatch, ParentBatch, TrainState,
@@ -516,7 +530,8 @@ def phase1():
     _build.build_all()
     for name in _build.KERNELS:
         _build.load(name)
-    print(f"[1] built {', '.join(_build.KERNELS)} into {_build.BUILD_DIR} in "
+    print(f"[1] built {', '.join(_build.KERNELS)} and the host library "
+          f"{_build.host_library_path().name} into {_build.BUILD_DIR} in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
 
 
@@ -4847,6 +4862,142 @@ def phase14(card, tmp, root, ckpt):
     return launches, errs, times
 
 
+# --------------------------------------------------------------- phase 15 --
+# the host data path: the native batch loader's checks at KITTI's parent
+# size (a batch of 8 parents of 20480 points, 8 columns on disk, sn 4), and
+# the kernels a KITTI engine step launches
+NATIVE_BATCH = 8
+ENGINE_STEP_LAUNCHES = {"fps": 2, "min_argmin": 5, "fusion_chain": 0,
+                        "smallest_k": 1, "scatter_max": 2}
+
+
+@contextlib.contextmanager
+def numpy_loader():
+    """The loaders' numpy path: ``native.available`` off for the block."""
+    saved = native.available
+    native.available = lambda: False
+    try:
+        yield
+    finally:
+        native.available = saved
+
+
+def native_checks(card, tmp, root):
+    """The host library loaded from ``build/``, a fresh build of it timed,
+    and its checks at KITTI's parent size; its call's host ms."""
+    check(native.available(), "the host library loads (native.available())")
+    lib = native.library_path()
+    check(os.path.dirname(lib) == str(_build.BUILD_DIR),
+          f"the host library is the port's build under build/: {lib}")
+    t0 = time.perf_counter()
+    fresh = _build.build_host(os.path.join(tmp, "host_build"))
+    built = time.perf_counter() - t0
+    print(f"[15] host library {lib} loaded (built in phase 1); a fresh g++ "
+          f"build of csrc/host/usip_native.cpp ({fresh.name}): {built:.2f} s",
+          flush=True)
+    cfg = get_config("kitti", **{"data.dataroot": root})
+    ds = make_detector_dataset("kitti", cfg.data, "train",
+                               cfg.detector.surface_normal_len)
+    paths = [ds.item_path(i) for i in range(NATIVE_BATCH)]
+    p, sn_len = cfg.data.parent_pc_num, cfg.detector.surface_normal_len
+    seed = 2 ** 62 + 2026
+    times = {}
+    out = {}
+    for threads in (1, 0):
+        t0 = time.perf_counter()
+        out[threads] = native.batch_load_subsample(paths, p, sn_len,
+                                                   seed=seed, threads=threads)
+        times[threads] = (time.perf_counter() - t0) * 1e3
+    check(all(a.tobytes() == b.tobytes() for a, b in zip(out[1], out[0])),
+          "batch_load_subsample: threads=1 and threads=0 byte-identical")
+    t0 = time.perf_counter()
+    half = native.batch_load_subsample(paths, p, sn_len, seed=seed,
+                                       dtype=np.float16)
+    times["f16"] = (time.perf_counter() - t0) * 1e3
+    check(all(h.dtype == np.float16 and h.tobytes()
+              == f.astype(np.float16).tobytes()
+              for h, f in zip(half, out[0])),
+          "the fp16 wire is astype(float16) of the fp32 output")
+    for b, path in enumerate(paths):
+        data = np.load(path).astype(np.float32)[:, :3 + sn_len]
+        rows = np.concatenate([out[0][0][b], out[0][1][b]], axis=1)
+        have = {}
+        for r in data:
+            have[r.tobytes()] = have.get(r.tobytes(), 0) + 1
+        seen = {}
+        for r in rows:
+            k = r.tobytes()
+            check(k in have, f"row of {path} not in its file")
+            seen[k] = seen.get(k, 0) + 1
+        short = len(data) < p
+        check(short or all(seen[k] <= have[k] for k in seen),
+              f"{path}: a row repeated though the file holds {len(data)} "
+              f"rows")
+    print(f"[15] batch_load_subsample {NATIVE_BATCH} x {p} points, sn "
+          f"{sn_len}: threads=1 {times[1]:.1f} ms, one a core "
+          f"{times[0]:.1f} ms, fp16 wire {times['f16']:.1f} ms (host); "
+          "byte-identical over threads, fp16 = astype(float16) of fp32, "
+          "every row a row of its file", flush=True)
+
+
+def loader_epochs(card, tmp, root, step_rate):
+    """One KITTI ``DetectorEngine`` epoch on each host path: clouds/s, idle
+    share (phase 7's method), launches a step, batches ``get_batch``
+    served."""
+    cfg = get_config("kitti", **{"data.dataroot": root,
+                                 "train.log_every": 100})
+    train, test = cli._make_loaders(
+        cfg, types.SimpleNamespace(synthetic=False),
+        cfg.detector.surface_normal_len)
+    engine = DetectorEngine(cfg, train, test,
+                            out_dir=os.path.join(tmp, "engine15"),
+                            device="cuda")
+    engine.train_epoch(0)  # warm-up
+    sync()
+    steps = len(train)
+    rates = {}
+    for label in ("native", "numpy"):
+        with (numpy_loader() if label == "numpy"
+              else contextlib.nullcontext()):
+            train.served = {"get_batch": 0, "items": 0}
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            avg = engine.train_epoch(1)
+            sync()
+            wall = time.perf_counter() - t0
+            launches = dict(kernels.LAUNCHES)
+            served = dict(train.served)
+            busy, _, pwall = profile_busy(lambda: engine.train_epoch(2), 1)
+        check(all(np.isfinite(list(avg.values()))),
+              f"{label} epoch metrics finite")
+        want = ({"get_batch": steps, "items": 0} if label == "native"
+                else {"get_batch": 0, "items": steps})
+        check(served == want, f"{label} epoch: batches served {served}, "
+              f"expected {want}")
+        for name, per in ENGINE_STEP_LAUNCHES.items():
+            check(launches[name] == per * steps,
+                  f"{label} epoch: {name} launched {launches[name]} times "
+                  f"in {steps} steps, expected {per} a step")
+        rate = 2 * cfg.train.batch_size * steps / wall
+        idle = 1.0 - busy / (wall * 1e3)
+        rates[label] = rate
+        print(f"[15] {card} | engine epoch on the {label} host path, "
+              f"{steps} steps: {rate:.2f} clouds/s ({wall / steps * 1e3:.3f}"
+              f" ms a step; bare step {step_rate:.2f}); device busy "
+              f"{busy:.3f} ms ({pwall * 1e3:.3f} ms profiled), idle share "
+              f"{idle:.4f} of {wall * 1e3:.3f} ms; launches a step "
+              + json.dumps({k: v / steps for k, v in launches.items()})
+              + f"; batches served {json.dumps(served)}", flush=True)
+    return rates
+
+
+def phase15(card, tmp, root, step_rate):
+    """The host data path: the native batch loader's build and checks, and
+    the KITTI engine on it and on the numpy path."""
+    native_checks(card, tmp, root)
+    return loader_epochs(card, tmp, root, step_rate)
+
+
 def nccl_two_card(rank, world, arg):
     """The data-parallel detector step over 2 cards under NCCL (where the
     host has them): its losses."""
@@ -4913,6 +5064,8 @@ def main():
         for name, err in object_errs.items():
             errs[name] = max(errs[name], err)
         lap("14 full-scale arms, object presets, SOM, render")
+        phase15(card, tmp, root, step_rate)
+        lap("15 host data path")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"[t] wall time by phase (s): {json.dumps(walls)}", flush=True)

@@ -146,7 +146,7 @@ def test_read_msgpack_decodes_every_type_flax_writes():
 
 def test_msgpack_checkpoint_forward_matches_usip_tpu(jax_checkpoint):
     """The port restores usip_tpu's checkpoint (parameters, BatchNorm
-    statistics, step; a fresh Adam) and its fp32 eval forward on JAX's
+    statistics, step and Adam's moments) and its fp32 eval forward on JAX's
     nodes agrees with usip_tpu's; the nodes themselves, drawn by the port
     from JAX's draws, are identical."""
     path, jcfg, jmodel, jstate = jax_checkpoint
@@ -154,7 +154,16 @@ def test_msgpack_checkpoint_forward_matches_usip_tpu(jax_checkpoint):
     state = init_detector_state(cfg, seed=7)
     meta = restore_checkpoint(path, state)
     assert meta == {"epoch": 4, "loss": 0.5}
-    assert state.step == 1 and not state.optimizer.state
+    assert state.step == 1
+    inner = jstate.opt_state.inner_state[0]
+    mu = state_dict_from_jax(jax.tree_util.tree_map(
+        np.asarray, {"params": inner.mu, "batch_stats": jstate.batch_stats}))
+    params = dict(state.model.named_parameters())
+    assert len(state.optimizer.state) == len(params)
+    for name, p in params.items():
+        entry = state.optimizer.state[p]
+        assert float(entry["step"]) == 1.0, name
+        assert torch.equal(entry["exp_avg"], mu[name]), name
     pc, sn = _clouds(5, 3, N)
     key = jax.random.PRNGKey(21)
 

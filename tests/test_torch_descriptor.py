@@ -279,7 +279,7 @@ def test_descriptor_weights_load_from_files(tmp_path):
             if not k.endswith("num_batches_tracked"):
                 assert torch.equal(fresh.state_dict()[k], v), (name, k)
     # a usip_tpu descriptor checkpoint restores into the port's train state
-    # (parameters, statistics, step; Adam starts fresh)
+    # (parameters, statistics, step; Adam's moments, zero at step 0)
     from usip_tpu_torch.train import TrainState
     from usip_tpu_torch.train.checkpoint import restore_checkpoint
     state = TrainState.create(Descriptor(cfg.descriptor), 1e-3)

@@ -14,6 +14,8 @@ after ``restore_checkpoint``):
   keys are its aligned arms'), its arms' frame counts, and a
   ``random_desc_floor`` equal to the script's ``_random_desc_arm`` on the
   same keypoints; the yaw arms run a ragged last batch;
+* the train phase's loaders of both packages on their default paths (the
+  native batch loaders) give the same batches over two epochs;
 * ``train``, ``train-desc`` (1 epoch each) and ``gen`` run through
   ``main``, and ``smoke`` is ``python -m usip_tpu_torch.quality``.
 """
@@ -30,6 +32,7 @@ import pytest
 import torch
 
 import usip_tpu.native
+import usip_tpu_torch.native
 from usip_tpu.config import get_config as jax_get_config
 from usip_tpu.data import pipeline as jax_pipeline
 from usip_tpu.train.checkpoint import save_checkpoint as jax_save_checkpoint
@@ -123,11 +126,12 @@ def _jax_node_draws(i):
 
 @pytest.fixture
 def one_loader_thread(monkeypatch):
-    """usip_tpu's loaders on their numpy path and one fetch thread: its
-    test frames share one rng, which a pool of threads would draw from in
-    a run-dependent order (the port's loader fetches such items in order
-    on one thread)."""
+    """Both packages' loaders on their numpy path and usip_tpu's on one
+    fetch thread: its test frames share one rng, which a pool of threads
+    would draw from in a run-dependent order (the port's loader fetches such
+    items in order on one thread)."""
     monkeypatch.setattr(usip_tpu.native, "available", lambda: False)
+    monkeypatch.setattr(usip_tpu_torch.native, "available", lambda: False)
     init = jax_pipeline.BatchLoader.__init__
 
     def single(self, *args, **kwargs):
@@ -231,6 +235,31 @@ def test_eval_reg_matches_script(tree, capsys, one_loader_thread):
         rows = np.fromfile(os.path.join(tree, arm, "keypoints", "09", "9.bin"),
                            np.float32)
         assert rows.shape == (DESIRED * 3,) and np.isfinite(rows).all()
+
+
+def test_train_loaders_equal_usip_tpu_with_both_defaults(tree):
+    """The train phase's loaders (``cli._make_loaders``: parent clouds of
+    the KITTI tree on the fp16 wire) of both packages on their default
+    paths, the native batch loaders on: two epochs of train and test
+    batches equal batch for batch, every port batch through ``get_batch``."""
+    from types import SimpleNamespace
+
+    from usip_tpu import cli as jax_cli
+    from usip_tpu_torch import cli
+    assert usip_tpu.native.available() and usip_tpu_torch.native.available()
+    over = {**_overrides(), "data.dataroot": tree}
+    cfg, jcfg = get_config("kitti", **over), jax_get_config("kitti", **over)
+    args = SimpleNamespace(synthetic=False)
+    ours = cli._make_loaders(cfg, args, cfg.detector.surface_normal_len)
+    ref = jax_cli._make_loaders(jcfg, args, jcfg.detector.surface_normal_len)
+    for la, lb in zip(ours, ref):
+        for _ in range(2):
+            for a, b in zip(list(la), list(lb), strict=True):
+                assert sorted(a) == sorted(b) == ["pc", "sn"]
+                for k in a:
+                    assert a[k].dtype == b[k].dtype == np.float16
+                    assert np.array_equal(a[k], b[k]), k
+        assert la.served == {"get_batch": 2 * len(la), "items": 0}
 
 
 def test_train_phases_and_gen(tmp_path, capsys):

@@ -9,9 +9,11 @@ among them), the host coordinate flip, ``utils/logging``,
 (the ISS, Harris-3D and SIFT-3D baselines among them), the rendering
 helpers ``utils/{vis,html}`` and the CLI's ``_sn_columns``.
 These tests hold each copy equal to usip_tpu's bit for bit on the same
-inputs and seeds (usip_tpu's loaders on their numpy path, its native batch
-loader switched off), and show in a fresh interpreter that importing the
-port loads no ``usip_tpu``, jax, flax or msgpack module.
+inputs and seeds (the loaders on their numpy path: both packages' native
+batch loaders switched off; ``tests/test_torch_native_loaders.py`` holds
+the default native path), and show in a fresh interpreter that importing
+the port loads no ``usip_tpu``, jax, flax or msgpack module and that its
+host library is the one it built under ``build/``.
 """
 
 import dataclasses
@@ -24,6 +26,7 @@ import numpy as np
 import pytest
 
 import usip_tpu.native
+import usip_tpu_torch.native
 from usip_tpu import cli as jax_cli
 from usip_tpu import config as jax_config
 from usip_tpu.data import augment as jax_augment
@@ -167,14 +170,16 @@ PORT_MODULES = (
     "parallel.sharded_detector", "parallel.sharded_train",
     "parallel.sharded_descriptor", "parallel.tensor_parallel",
     "parallel.pipeline_parallel", "model_artifact", "fullscale", "ops.som",
-    "eval.render", "utils.vis", "utils.html")
+    "eval.render", "utils.vis", "utils.html", "native", "prepare_kitti",
+    "train.reference_runtime")
 
 
 def test_port_imports_nothing_of_usip_tpu():
     """A fresh interpreter imports every module of the port and finds
     neither ``usip_tpu`` nor any ``usip_tpu.*`` module loaded
     (``usip_tpu_torch`` shares the prefix, so the match is exact), nor jax,
-    flax or msgpack."""
+    flax or msgpack; the host library it loads is its own build under
+    ``build/``, not usip_tpu's ``native/``."""
     code = (
         "import importlib, sys\n"
         f"for m in {PORT_MODULES!r}:\n"
@@ -185,6 +190,13 @@ def test_port_imports_nothing_of_usip_tpu():
         "assert 'usip_tpu_torch.train.loop' in sys.modules\n"
         "assert 'usip_tpu_torch.train.descriptor_loop' in sys.modules\n"
         "assert 'usip_tpu_torch.eval.fgr' in sys.modules\n"
+        "from usip_tpu_torch import native\n"
+        "assert native.available(), 'the host library did not load'\n"
+        "lib = native.library_path().split('/')\n"
+        "assert lib[-3:-1] == ['build', 'usip_tpu_torch'], lib\n"
+        "assert 'native' not in lib and lib[-1].startswith('usip_native-')\n"
+        "bad += [m for m in sys.modules\n"
+        "        if m.split('.')[0] in ('usip_tpu', 'jax', 'flax', 'msgpack')]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -304,6 +316,7 @@ def test_kitti_loaders_equal_usip_tpu(kitti_trees, monkeypatch, mode, crop):
     """KittiDataset and ParentCloudDataset items and their BatchLoader
     batches (shuffle order included), usip_tpu on its numpy path."""
     monkeypatch.setattr(usip_tpu.native, "available", lambda: False)
+    monkeypatch.setattr(usip_tpu_torch.native, "available", lambda: False)
     ours_cfg, ref_cfg = _kitti_cfgs(kitti_trees["port"],
                                     **{"data.crop_radius": crop})
     ours = torch_loaders.make_detector_dataset("kitti", ours_cfg, mode, 4,
@@ -332,6 +345,7 @@ def test_modelnet_and_concat_loaders_equal_usip_tpu(tmp_path, monkeypatch):
     """The modelnet tree layout, ConcatSiameseDataset over two of them, and
     a cloud shorter than input_pc_num (padding by repetition)."""
     monkeypatch.setattr(usip_tpu.native, "available", lambda: False)
+    monkeypatch.setattr(usip_tpu_torch.native, "available", lambda: False)
     rng = np.random.default_rng(8)
     (tmp_path / "modelnet40_shape_names.txt").write_text("chair\ndesk\n")
     names = {"train": ["chair_0001", "desk_0002", "chair_0003"],
@@ -506,6 +520,7 @@ def test_oxford_gt_and_frames_equal_usip_tpu(tmp_path, monkeypatch):
     for i in range(4):
         _assert_items_equal(fa[i], fb[i])
     monkeypatch.setattr(usip_tpu.native, "available", lambda: False)
+    monkeypatch.setattr(usip_tpu_torch.native, "available", lambda: False)
     over["data.crop_radius"] = None
     da = torch_loaders.make_detector_dataset(
         "oxford", torch_config.get_config("oxford", **over).data, "test", 4,
@@ -539,6 +554,7 @@ def test_kitti_descriptor_loader_equals_usip_tpu(kitti_trees, monkeypatch,
     the poses), its pose-distance negative mining, and the pair batches of
     a BatchLoader; usip_tpu on its numpy path."""
     monkeypatch.setattr(usip_tpu.native, "available", lambda: False)
+    monkeypatch.setattr(usip_tpu_torch.native, "available", lambda: False)
     over = {"data.positive_radius": 6.0, "data.negative_radius": 8.0}
     ours_cfg, ref_cfg = _kitti_cfgs(kitti_trees["port"], **over)
     ours = torch_desc_loaders.KittiDescriptorDataset(ours_cfg, mode, seed=5)

@@ -1,10 +1,15 @@
-"""Build the CUDA kernels of ``csrc/`` with nvcc and load them with ctypes.
+"""Build the CUDA kernels of ``csrc/`` with nvcc, and the host data-path
+library of ``csrc/host/`` with g++, and load them with ctypes.
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on its own
 into ``build/usip_tpu_torch/<name>-<hash>.so`` beside the package, at first
-use. The hash covers the source and the flags, so an edited source builds
-anew and an unchanged one is loaded as it is. A failed build raises with
-nvcc's output.
+use; ``csrc/host/usip_native.cpp`` (the batch loader, ``native.py``) into
+``build/usip_tpu_torch/usip_native-<hash>.so`` with ``native/Makefile``'s
+flags. The hash covers the source and the flags, so an edited source builds
+anew and an unchanged one is loaded as it is. Every build compiles to a
+private name and renames it into place, so processes that build the same
+library at once never load a half-written one. A failed build raises with
+the compiler's output.
 """
 
 from __future__ import annotations
@@ -23,6 +28,10 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "usip_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC")
+HOST_SRC = CSRC / "host" / "usip_native.cpp"
+# native/Makefile's CXXFLAGS and LDFLAGS (-march=native: F16C's fp16 encode)
+GXX_FLAGS = ("-O3", "-march=native", "-fPIC", "-std=c++17", "-shared",
+             "-pthread")
 
 
 def nvcc_path() -> str:
@@ -38,31 +47,28 @@ def nvcc_path() -> str:
                        "are built with the CUDA toolkit's nvcc")
 
 
+def _hashed(stem: str, src: Path, flags, build_dir: Path) -> Path:
+    digest = hashlib.sha256(src.read_bytes()
+                            + " ".join(flags).encode()).hexdigest()
+    return Path(build_dir) / f"{stem}-{digest[:16]}.so"
+
+
 def library_path(name: str, build_dir: Path = BUILD_DIR) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return Path(build_dir) / f"{name}-{digest[:16]}.so"
+    return _hashed(name, CSRC / f"{name}.cu", NVCC_FLAGS, build_dir)
 
 
-def build(name: str, build_dir: Path = BUILD_DIR) -> Path:
-    """Compile ``csrc/<name>.cu`` unless its library is already built."""
-    if name not in KERNELS:
-        raise ValueError(f"unknown kernel {name!r}; choose from {KERNELS}")
-    out = library_path(name, build_dir)
-    if out.exists():
-        return out
-    nvcc = nvcc_path()
+def _compile(argv, src: Path, out: Path, what: str) -> Path:
+    """Run ``argv + ['-o', <private name>, src]`` and rename the result to
+    ``out``: a process that builds the same library at the same time never
+    loads a half-written one."""
     out.parent.mkdir(parents=True, exist_ok=True)
-    # compile to a private name, then rename: a process that builds the same
-    # kernel at the same time never loads a half-written library
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
     os.close(fd)
     try:
-        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp,
-                               str(CSRC / f"{name}.cu")],
+        proc = subprocess.run([*argv, "-o", tmp, str(src)],
                               capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed to build {name}.cu "
+            raise RuntimeError(f"{what} failed to build {src.name} "
                                f"(exit {proc.returncode}):\n{proc.stdout}"
                                f"{proc.stderr}")
         os.replace(tmp, out)
@@ -72,10 +78,42 @@ def build(name: str, build_dir: Path = BUILD_DIR) -> Path:
     return out
 
 
+def build(name: str, build_dir: Path = BUILD_DIR) -> Path:
+    """Compile ``csrc/<name>.cu`` unless its library is already built."""
+    if name not in KERNELS:
+        raise ValueError(f"unknown kernel {name!r}; choose from {KERNELS}")
+    out = library_path(name, build_dir)
+    if out.exists():
+        return out
+    return _compile([nvcc_path(), *NVCC_FLAGS], CSRC / f"{name}.cu", out,
+                    "nvcc")
+
+
+def host_library_path(build_dir: Path = BUILD_DIR,
+                      flags=GXX_FLAGS) -> Path:
+    return _hashed("usip_native", HOST_SRC, flags, build_dir)
+
+
+def build_host(build_dir: Path = BUILD_DIR, flags=GXX_FLAGS) -> Path:
+    """Compile ``csrc/host/usip_native.cpp`` with g++ unless its library is
+    already built; raises with g++'s output when it cannot."""
+    out = host_library_path(build_dir, flags)
+    if out.exists():
+        return out
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError("g++ not found on PATH: the usip_tpu_torch host "
+                           "data-path library is built with g++")
+    return _compile([gxx, *flags], HOST_SRC, out, "g++")
+
+
 def build_all(build_dir: Path = BUILD_DIR) -> None:
-    """Compile every kernel, one nvcc process each, side by side."""
-    with ThreadPoolExecutor(len(KERNELS)) as pool:
-        for future in [pool.submit(build, n, build_dir) for n in KERNELS]:
+    """Compile every kernel, one nvcc process each, and the host library,
+    side by side."""
+    with ThreadPoolExecutor(len(KERNELS) + 1) as pool:
+        futures = [pool.submit(build, n, build_dir) for n in KERNELS]
+        futures.append(pool.submit(build_host, build_dir))
+        for future in futures:
             future.result()
 
 

@@ -696,8 +696,8 @@ def build_parser() -> argparse.ArgumentParser:
     _add_run_flags(p)
     p.add_argument("--resume", default=None,
                    help="checkpoint path (the port's .pt, or a usip_tpu "
-                        ".msgpack: its Adam moments are not carried over), "
-                        "or 'auto' for <out_dir>/last.pt")
+                        ".msgpack, its Adam moments included), or 'auto' "
+                        "for <out_dir>/last.pt")
     p.add_argument("--lite", action="store_true",
                    help="indoor lite widths (c1=64/c2=256, RPN_DetectorLite)")
     p.set_defaults(fn=cmd_train_detector)

@@ -226,6 +226,16 @@ def random_height_scale(pcs, low: float = 0.25, high: float = 1.2,
     return [pc * factor for pc in pcs]
 
 
+def coordinate_nwu_to_cam(points):
+    """NWU -> camera axes on the host: x <- -y, y <- -z, z <- x (numpy,
+    (N, 3); usip_tpu's ``data/augment.py:188``)."""
+    out = np.copy(points)
+    out[:, 0] = -points[:, 1]
+    out[:, 1] = -points[:, 2]
+    out[:, 2] = points[:, 0]
+    return out
+
+
 def coordinate_enu_to_cam(points):
     """ENU -> camera axes on the host: x <- x, y <- -z, z <- y (numpy,
     (N, 3); usip_tpu's ``data/augment.py:198``, used by the Oxford

@@ -19,10 +19,18 @@ Directory contracts match the reference datasets exactly:
   * scenenn: frames_<mode>/*.npy + info_<mode>.pkl (scenenn_detector_loader.py:48-67),
   * match3d: training_list.txt folder tree walk (match3d_detector_loader.py:50-75).
 
-Only the numpy path is ported: usip_tpu also assembles whole batches in a
-C++ thread pool when its native library builds, with draws of its own RNG.
-Every draw here comes from the dataset's ``numpy.random.Generator`` in
-usip_tpu's numpy-path order, so one seed gives usip_tpu's items.
+Both of usip_tpu's paths are ported. By default (``get_batch``) a whole
+batch is assembled in the C++ thread pool of the port's host library
+(``native.py``, ``csrc/host/usip_native.cpp``): the dataset's
+``numpy.random.Generator`` draws one seed for the src copies and one for the
+dst copies (one for a parent batch), and the library draws each item from
+``seed + b * 7919``, as usip_tpu's does (``b`` the item's place in the
+global batch: a rank that loads its slice passes the slice's ``offset``). Where the library is not built, or
+an item is not a plain ``.npy`` (shrec's npz, a kitti radius crop, a
+single-view item), ``get_batch`` returns None and the loader fetches items
+through ``__getitem__``, every draw from the dataset's Generator in
+usip_tpu's numpy-path order. On either path one seed gives the batches
+usip_tpu gives on that path.
 """
 
 from __future__ import annotations
@@ -63,6 +71,53 @@ class SiameseDetectorDataset:
         return {"src_pc": src_pc, "src_sn": src_sn,
                 "dst_pc": dst_pc, "dst_sn": dst_sn}
 
+    # -------------------- native batch fast path (usip_native.cpp) ----------
+    # Datasets whose item is a plain Nx(3+sn) .npy needing only
+    # subsample+split return the file path here; the thread-pooled C++ loader
+    # then assembles the whole batch in one GIL-free call (the reference's
+    # DataLoader(num_workers) analog, kitti/options_detector.py:25).
+
+    def item_path(self, index: int) -> Optional[str]:
+        return None
+
+    def post_batch(self, batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+        """Hook for cheap whole-batch post-processing (e.g. coordinate flips)."""
+        return batch
+
+    def get_batch(self, indices: Sequence[int], offset: int = 0
+                  ) -> Optional[Dict[str, np.ndarray]]:
+        """Assemble a siamese batch via the native loader, or None to signal
+        the caller to fall back to per-item ``__getitem__``. ``indices`` sit
+        at ``offset`` in the global batch: item b draws as the global batch's
+        item ``offset + b`` (a rank's slice of usip_tpu's one-host batch)."""
+        from usip_tpu_torch import native
+        if not native.available():
+            return None
+        paths = [self.item_path(int(i)) for i in indices]
+        if any(p is None for p in paths):
+            return None
+        n = self.cfg.input_pc_num
+        dt = self._wire_numpy_dtype()
+        seed_src = self._item_seed(offset)
+        seed_dst = self._item_seed(offset)
+        src_pc, src_sn = native.batch_load_subsample(paths, n, self.sn_len,
+                                                     seed=seed_src, dtype=dt)
+        dst_pc, dst_sn = native.batch_load_subsample(paths, n, self.sn_len,
+                                                     seed=seed_dst, dtype=dt)
+        return self.post_batch({"src_pc": src_pc, "src_sn": src_sn,
+                                "dst_pc": dst_pc, "dst_sn": dst_sn})
+
+    def _item_seed(self, offset: int) -> int:
+        """One batch seed from the dataset's rng, moved to the item at
+        ``offset`` (the library draws item b from ``seed + b * 7919``)."""
+        return int(self._rng.integers(0, 2 ** 62)) + offset * 7919
+
+    def _wire_numpy_dtype(self):
+        """The float16 wire is encoded in the native loader's thread pool
+        (F16C), which the engine's copy to the card then takes as it is;
+        other wires load fp32."""
+        return np.float16 if self.cfg.wire_dtype == "float16" else np.float32
+
 
 class ModelNetDataset(SiameseDetectorDataset):
     """ModelNet40 10k (x,y,z,nx,ny,nz npy per shape)."""
@@ -91,6 +146,27 @@ class ModelNetDataset(SiameseDetectorDataset):
         data = np.load(path)
         data = subsample_fixed(rng, data, n or self.cfg.input_pc_num)
         return split_pc_sn(data, self.sn_len)
+
+    def item_path(self, index):
+        return self.items[index][0]
+
+
+class ModelNetClsDataset(ModelNetDataset):
+    """Classification-style single-view items ``{pc, sn, label}``: the
+    SO-Net-legacy loader (reference data/modelnet_cls_loader.py:84-208,
+    unreferenced by any USIP entry script), kept so the reference tree's
+    data surface carries over. Nodes are sampled on the device like every
+    other loader here."""
+
+    def __getitem__(self, index: int) -> Dict[str, np.ndarray]:
+        pc, sn = self.sample_instance(self._rng, index)
+        return {"pc": pc, "sn": sn,
+                "label": np.asarray(self.items[index][1], np.int32)}
+
+    def get_batch(self, indices, offset=0):
+        # the native fast path assembles *siamese* batches; single-view items
+        # take the per-item route
+        return None
 
 
 class ShrecDataset(SiameseDetectorDataset):
@@ -178,6 +254,29 @@ class OxfordDataset(SiameseDetectorDataset):
             sn = np.concatenate([coordinate_enu_to_cam(sn[:, :3]), sn[:, 3:]], 1)
         return pc, sn
 
+    def item_path(self, index):
+        if self.mode == "train":
+            fn = self.items[index]["file"]
+            return os.path.join(self.folder, fn[0:-3] + "npy")
+        return os.path.join(self.folder, f"{self.items[index]['anc_idx']}.npy")
+
+    def post_batch(self, batch):
+        # ENU->cam on the stacked (B, N, 3) arrays (elementwise column swap);
+        # applies to siamese (src_/dst_) and parent-cloud (pc/sn) batches alike
+        def flip(a):
+            out = np.copy(a)
+            out[..., 1] = -a[..., 2]
+            out[..., 2] = a[..., 1]
+            return out
+
+        for k in batch:
+            if k.endswith("pc"):
+                batch[k] = flip(batch[k])
+            elif k.endswith("sn") and self.sn_len >= 3:
+                batch[k] = np.concatenate(
+                    [flip(batch[k][..., :3]), batch[k][..., 3:]], axis=-1)
+        return batch
+
 
 KITTI_NP_FOLDER = "np_0.20_20480_r90_sn"
 
@@ -221,6 +320,12 @@ class KittiDataset(SiameseDetectorDataset):
         data = subsample_fixed(rng, data, n or self.cfg.input_pc_num)
         return split_pc_sn(data, self.sn_len)
 
+    def item_path(self, index):
+        if self.cfg.crop_radius is not None and self.cfg.crop_radius < 90:
+            return None  # native path has no radius crop; use __getitem__
+        i, _, in_seq = self.locate(index)
+        return os.path.join(self.folders[i], f"{in_seq:06d}.npy")
+
 
 class SceneNNDataset(SiameseDetectorDataset):
     """SceneNN indoor frames (scenenn_detector_loader.py:48-90)."""
@@ -243,6 +348,9 @@ class SceneNNDataset(SiameseDetectorDataset):
         data = np.load(os.path.join(self.frame_folder, f"{index}.npy"))
         data = subsample_fixed(rng, data, n or self.cfg.input_pc_num)
         return split_pc_sn(data, self.sn_len)
+
+    def item_path(self, index):
+        return os.path.join(self.frame_folder, f"{index}.npy")
 
 
 class Match3DDataset(SiameseDetectorDataset):
@@ -273,11 +381,14 @@ class Match3DDataset(SiameseDetectorDataset):
         data = subsample_fixed(rng, data, n or self.cfg.input_pc_num)
         return split_pc_sn(data, self.sn_len)
 
+    def item_path(self, index):
+        return self.files[index]
+
 
 class ConcatSiameseDataset(SiameseDetectorDataset):
     """Concatenation of same-type siamese datasets (scenenn trains on
     train+val, scenenn/train_detector.py:55-60). Delegates loading to the
-    child owning each index."""
+    child owning each index, so the native batch fast path keeps working."""
 
     def __init__(self, children: Sequence[SiameseDetectorDataset]):
         assert children
@@ -299,6 +410,14 @@ class ConcatSiameseDataset(SiameseDetectorDataset):
         child, local = self._locate(index)
         return child.sample_instance(rng, local, n)
 
+    def item_path(self, index):
+        child, local = self._locate(index)
+        return child.item_path(local)
+
+    def post_batch(self, batch):
+        # same-type children share the post-processing (e.g. a coordinate flip)
+        return self.children[0].post_batch(batch)
+
 
 class ParentCloudDataset:
     """View over a SiameseDetectorDataset for device-side siamese sampling
@@ -306,8 +425,9 @@ class ParentCloudDataset:
     {pc (P,3), sn (P,S)}; the train step draws both input_pc_num-subsamples on
     the device (train/steps.py ParentBatch), so only one copy crosses to it.
 
-    Parent rows come in uniformly random order (``subsample_fixed``), which
-    the train step's 'slice' sampling mode relies on (train/steps.py
+    Parent rows come in uniformly random order (the native partial
+    Fisher-Yates or ``subsample_fixed``), which the train step's 'slice'
+    sampling mode relies on (train/steps.py
     _as_siamese). Files larger than parent_pc_num are host-subsampled to P
     first, which mildly correlates the siamese pair against the reference's
     independent draws (kitti_detector_loader.py:101-147); at kitti scale the
@@ -331,6 +451,23 @@ class ParentCloudDataset:
         pc, sn = self.base.sample_instance(self.base._rng, index,
                                            n=self.parent_pc_num)
         return {"pc": pc, "sn": sn}
+
+    def get_batch(self, indices: Sequence[int], offset: int = 0
+                  ) -> Optional[Dict[str, np.ndarray]]:
+        """The parents of ``indices`` in one native call (in the wire dtype,
+        float16 encoded in the C++ pool), or None for the per-item route;
+        ``offset`` as in ``SiameseDetectorDataset.get_batch``."""
+        from usip_tpu_torch import native
+        if not native.available():
+            return None
+        paths = [self.base.item_path(int(i)) for i in indices]
+        if any(p is None for p in paths):
+            return None
+        seed = self.base._item_seed(offset)
+        pc, sn = native.batch_load_subsample(paths, self.parent_pc_num,
+                                             self.base.sn_len, seed=seed,
+                                             dtype=self.base._wire_numpy_dtype())
+        return self.base.post_batch({"pc": pc, "sn": sn})
 
 
 DETECTOR_DATASETS = {

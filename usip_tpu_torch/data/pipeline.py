@@ -3,8 +3,10 @@
 
 Replaces the reference's ``DataLoader(num_workers=nThreads)`` processes:
 augmentation and FPS run on the device, so the host work per item is file
-IO and subsampling, which a small thread pool covers. Batches are assembled
-ahead of the consumer. The transfer to the card is the engine's
+IO and subsampling. A dataset's ``get_batch`` (the native C++ thread pool,
+``data/loaders.py``) assembles a whole batch in one call; where it returns
+None, a small thread pool fetches the items. Batches are assembled ahead of
+the consumer. The transfer to the card is the engine's
 (``train/loop.py prefetch_batches``)."""
 
 from __future__ import annotations
@@ -25,7 +27,10 @@ class BatchLoader:
     """Iterates shuffled fixed-size batches with background prefetch.
 
     Args:
-      dataset: indexable with __len__ and __getitem__ -> dict of arrays.
+      dataset: indexable with __len__ and __getitem__ -> dict of arrays;
+        its ``get_batch(rows, offset)``, where it has one, is tried first
+        for each batch (under ``shard``, on this rank's rows, at their offset
+        in the global batch, so that they draw as the global batch's do).
       batch_size: items per batch.
       shuffle: reshuffle indices each epoch.
       num_workers: item-fetch thread pool size.
@@ -35,6 +40,11 @@ class BatchLoader:
         False so every frame is visited (the reference's save_keypoints.py
         loop exports every frame: a dropped tail frame corrupts the
         repeatability protocol on non-divisible eval sets).
+      shard: ``(rank, ranks)``: this rank's contiguous slice of each global
+        batch.
+
+    ``served`` counts the batches of the iterations so far by route:
+    ``get_batch`` (one native call) and ``items`` (per-item fetches).
     """
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
@@ -53,6 +63,7 @@ class BatchLoader:
         self.post_collate = post_collate
         self.drop_last = drop_last
         self._rng = np.random.default_rng(seed)
+        self.served = {"get_batch": 0, "items": 0}
 
     def __len__(self) -> int:
         n = len(self.dataset)
@@ -76,10 +87,14 @@ class BatchLoader:
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         batches = self._epoch_indices()
+        offset = 0
+        if self.shard is not None:
+            offset = self.shard[0] * (self.batch_size // self.shard[1])
         q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
         sentinel = object()
         stop = threading.Event()
 
+        get_batch = getattr(self.dataset, "get_batch", None)
         # np.random.Generator is documented not-thread-safe: datasets with a
         # shared ._rng must not run __getitem__ concurrently (duplicated or
         # correlated subsample draws), and their items' draws depend on the
@@ -109,8 +124,18 @@ class BatchLoader:
                 for row in batches:
                     if stop.is_set():
                         break
-                    items = list(pool.map(fetch, [int(i) for i in row]))
-                    batch = collate(items)
+                    # batch fast path first (native thread-pooled
+                    # load+subsample+split, usip_native.cpp
+                    # usip_batch_load_subsample: one GIL-free call); None
+                    # means this dataset or config is not native-eligible
+                    batch = (get_batch(row, offset) if get_batch is not None
+                             else None)
+                    if batch is None:
+                        items = list(pool.map(fetch, [int(i) for i in row]))
+                        batch = collate(items)
+                        self.served["items"] += 1
+                    else:
+                        self.served["get_batch"] += 1
                     if self.post_collate is not None:
                         batch = self.post_collate(batch, row)
                     if not _put(batch):

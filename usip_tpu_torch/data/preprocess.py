@@ -1,12 +1,16 @@
-"""Dataset preprocessing (counterpart of ``usip_tpu/data/preprocess.py``;
-the port keeps its own copy of what its trees need): the voxel grid and PCA
-surface normals (``:19-58``), the registration test pairs and their
-ground-truth table (``:122-172``, the synthetic KITTI tree), and the
-rotated-ModelNet repeatability tree (``build_modelnet_rotated``,
-``:175-204``).
-The raw KITTI scan preparation (``prepare_lidar_scan``,
-``build_kitti_numpy_tree``) is not ported: every tree the port builds is
-synthetic.
+"""Dataset preprocessing: raw scans -> the .npy trees the loaders consume
+(counterpart of ``usip_tpu/data/preprocess.py``; the port keeps its own
+copy).
+
+Python replacement of the reference's MATLAB data preparation
+(evaluation/matlab/eval_outdoor/kitti/kitti_data_prepare/kitti_test_prepare.m:
+0.2 m voxel-grid downsample, surface normals, r<90 m filter, ~10 m-spaced
+registration test pairs; header :1-8) plus the np_0.20_20480_r90_sn folder
+contract of data/kitti_detector_loader.py:32-33: the voxel grid and PCA
+surface normals, the raw KITTI scan preparation (``prepare_lidar_scan``,
+``read_velodyne_bin``, ``build_kitti_numpy_tree``; the command is ``python
+-m usip_tpu_torch.prepare_kitti``), the registration test pairs and their
+ground-truth table, and the rotated-ModelNet repeatability tree.
 """
 
 from __future__ import annotations
@@ -57,6 +61,68 @@ def estimate_normals(points: np.ndarray, k: int = 16,
     flip = np.sum(normals * to_target, axis=1) < 0
     normals[flip] = -normals[flip]
     return normals.astype(np.float32), curvature.astype(np.float32)
+
+
+def prepare_lidar_scan(xyz_reflectance: np.ndarray, voxel_size: float = 0.2,
+                       target_points: int = 20480, max_radius: float = 90.0,
+                       normal_k: int = 16) -> np.ndarray:
+    """One velodyne scan -> Nx8 array (x, y, z, nx, ny, nz, curvature,
+    reflectance) matching the kitti numpy folder contract."""
+    pts = xyz_reflectance
+    r = np.linalg.norm(pts[:, :3], axis=1)
+    pts = pts[r <= max_radius]
+    down = voxel_downsample(pts, voxel_size)
+    if down.shape[0] > target_points:
+        idx = np.random.default_rng(0).choice(down.shape[0], target_points,
+                                              replace=False)
+        down = down[idx]
+    normals, curvature = estimate_normals(down[:, :3], k=normal_k)
+    refl = down[:, 3] if down.shape[1] > 3 else np.zeros(down.shape[0])
+    return np.concatenate([
+        down[:, :3].astype(np.float32), normals, curvature[:, None],
+        refl[:, None].astype(np.float32)], axis=1)
+
+
+def read_velodyne_bin(path: str) -> np.ndarray:
+    """KITTI velodyne .bin -> (N, 4) x, y, z, reflectance."""
+    return np.fromfile(path, dtype=np.float32).reshape(-1, 4)
+
+
+def build_kitti_numpy_tree(velodyne_dir: str, poses_file: str, out_root: str,
+                           seq: int, calib_tr: Optional[np.ndarray] = None,
+                           voxel_size: float = 0.2, target_points: int = 20480,
+                           max_radius: float = 90.0,
+                           limit: Optional[int] = None) -> int:
+    """Build <out_root>/data_odometry_velodyne/numpy/<seq>/np_0.20_20480_r90_sn/
+    plus <out_root>/poses/<seq>/<frame>.npz from raw KITTI odometry data.
+
+    ``poses_file`` is the odometry poses txt (12 floats/line, cam frame);
+    ``calib_tr`` the velodyne->cam transform if clouds should be stored in the
+    camera frame like the reference's tree.
+    """
+    from usip_tpu_torch.data.loaders import KITTI_NP_FOLDER
+    np_dir = os.path.join(out_root, "data_odometry_velodyne", "numpy",
+                          f"{seq:02d}", KITTI_NP_FOLDER)
+    pose_dir = os.path.join(out_root, "poses", f"{seq:02d}")
+    os.makedirs(np_dir, exist_ok=True)
+    os.makedirs(pose_dir, exist_ok=True)
+    poses = np.loadtxt(poses_file).reshape(-1, 3, 4)
+    files = sorted(f for f in os.listdir(velodyne_dir) if f.endswith(".bin"))
+    if limit:
+        files = files[:limit]
+    for i, fn in enumerate(files):
+        raw = read_velodyne_bin(os.path.join(velodyne_dir, fn))
+        if calib_tr is not None:
+            xyz1 = np.concatenate(
+                [raw[:, :3], np.ones((raw.shape[0], 1), np.float32)], axis=1)
+            cam = (calib_tr @ xyz1.T).T[:, :3]
+            raw = np.concatenate([cam, raw[:, 3:4]], axis=1)
+        out = prepare_lidar_scan(raw, voxel_size, target_points, max_radius)
+        np.save(os.path.join(np_dir, f"{i:06d}.npy"), out)
+        pose = np.eye(4)
+        pose[:3, :4] = poses[i]
+        np.savez(os.path.join(pose_dir, f"{i:06d}.npz"), pose=pose)
+    return len(files)
 
 
 def build_test_pairs(poses: np.ndarray, min_spacing: float = 10.0

@@ -12,9 +12,16 @@ usip_tpu's checkpoints (``.msgpack``: flax ``serialization.to_bytes`` of
 ``{"step", "params", "batch_stats", "opt_state"}``) are read without flax or
 msgpack by ``read_msgpack``, a decoder of the subset of msgpack that flax
 writes. Their parameters and BatchNorm statistics load through
-``weights.state_dict_from_jax``; their Adam moments are not carried over
-(optax's and torch's Adam states differ in layout), so the optimizer starts
-fresh from such a file.
+``weights.state_dict_from_jax``, and so do their Adam moments: optax's
+``inject_hyperparams(adam)`` state (``opt_state.inner_state[0]``'s ``mu``,
+``nu`` and ``count``, the injected ``learning_rate``, ``b1``, ``b2`` and
+``eps``) becomes ``torch.optim.Adam``'s ``exp_avg``, ``exp_avg_sq`` and
+``step`` a parameter and its group's ``lr``, ``betas`` and ``eps``, so a
+resume from usip_tpu's checkpoint takes usip_tpu's next step.
+
+``save_params_only`` / ``load_params_only`` are usip_tpu's inference-only
+export: the port writes the model's ``state_dict`` (``.pt``) and reads
+that or usip_tpu's params-only ``.msgpack`` (its ``params`` tree alone).
 """
 
 from __future__ import annotations
@@ -145,9 +152,46 @@ def state_dict_from_msgpack(path: str) -> Tuple[Dict[str, torch.Tensor], int]:
     """The ``state_dict`` (a detector's or a descriptor's, as the tree
     says) and step count of a usip_tpu checkpoint."""
     payload = read_msgpack(path)
-    sd = state_dict_from_jax({"params": payload["params"],
-                              "batch_stats": payload.get("batch_stats", {})})
-    return sd, int(np.asarray(payload.get("step", 0)))
+    return _model_state(payload), int(np.asarray(payload.get("step", 0)))
+
+
+def _model_state(payload: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    return state_dict_from_jax({"params": payload["params"],
+                                "batch_stats": payload.get("batch_stats",
+                                                           {})})
+
+
+def _load_adam(state, payload: Dict[str, Any]) -> None:
+    """usip_tpu's optax Adam state (``payload["opt_state"]``) into
+    ``state.optimizer``: each parameter's ``step``, ``exp_avg`` and
+    ``exp_avg_sq`` on its device, and the groups' ``lr``, ``betas`` and
+    ``eps``. The moments go through ``state_dict_from_jax``'s name map and
+    layout, as the parameters do (a kernel's transpose applies to its
+    moments alike)."""
+    opt = payload["opt_state"]
+    inner = opt["inner_state"]["0"]
+    stats = payload.get("batch_stats", {})
+    mu = state_dict_from_jax({"params": inner["mu"], "batch_stats": stats})
+    nu = state_dict_from_jax({"params": inner["nu"], "batch_stats": stats})
+    count = float(np.asarray(inner["count"]))
+    hp = opt["hyperparams"]
+    if float(np.asarray(hp.get("eps_root", 0.0))) != 0.0:
+        raise ValueError("usip_tpu Adam with eps_root != 0 has no "
+                         "torch.optim.Adam counterpart")
+    optimizer = state.optimizer
+    optimizer.state.clear()
+    for name, p in state.model.named_parameters():
+        if name not in mu:
+            raise ValueError(f"usip_tpu Adam state has no moments for {name}")
+        optimizer.state[p] = {
+            "step": torch.tensor(count, dtype=torch.float32),
+            "exp_avg": mu[name].to(p.device, p.dtype).reshape(p.shape),
+            "exp_avg_sq": nu[name].to(p.device, p.dtype).reshape(p.shape)}
+    for group in optimizer.param_groups:
+        group.update(lr=float(np.asarray(hp["learning_rate"])),
+                     betas=(float(np.asarray(hp["b1"])),
+                            float(np.asarray(hp["b2"]))),
+                     eps=float(np.asarray(hp["eps"])))
 
 
 def save_checkpoint(path: str, state, metadata: Optional[Dict] = None) -> None:
@@ -176,8 +220,9 @@ def _write_checkpoint(path: str, state, metadata: Optional[Dict]) -> None:
             json.dump(metadata, f, indent=2, default=str)
 
 
-def _load_model(state, sd: Dict[str, torch.Tensor], path: str) -> None:
-    own = state.model.state_dict()
+def _load_model(model: torch.nn.Module, sd: Dict[str, torch.Tensor],
+                path: str) -> None:
+    own = model.state_dict()
     for k, v in sd.items():
         if k in own and tuple(own[k].shape) != tuple(v.shape):
             raise ValueError(
@@ -186,18 +231,20 @@ def _load_model(state, sd: Dict[str, torch.Tensor], path: str) -> None:
                 "with other widths (e.g. a full-width detector where the "
                 "lite widths are built: retrain with --lite, or override "
                 "detector.c1/c2 to match)")
-    state.model.load_state_dict(sd, strict=True)
+    model.load_state_dict(sd, strict=True)
 
 
 def restore_checkpoint(path: str, state) -> Optional[Dict]:
     """Restore ``state`` in place from ``path`` and return the sidecar's
     metadata (None without one). A ``.msgpack`` path is read as a usip_tpu
-    checkpoint: parameters, BatchNorm statistics and step; the optimizer
-    keeps its fresh state."""
+    checkpoint: parameters, BatchNorm statistics, step and Adam state (the
+    moments, their count and the injected hyperparameters)."""
     if path.endswith(".msgpack"):
-        sd, step = state_dict_from_msgpack(path)
-        _load_model(state, sd, path)
-        state.step = step
+        payload = read_msgpack(path)
+        _load_model(state.model, _model_state(payload), path)
+        if "opt_state" in payload:
+            _load_adam(state, payload)
+        state.step = int(np.asarray(payload.get("step", 0)))
     else:
         dev = next(state.model.parameters()).device
         payload = torch.load(path, map_location=dev, weights_only=True)
@@ -208,7 +255,7 @@ def restore_checkpoint(path: str, state) -> Optional[Dict]:
                 "optimizer): a bare state_dict, such as a reference .pth, "
                 "seeds a run after `python -m usip_tpu_torch.cli "
                 "import-torch --pth FILE --out FILE.pt`")
-        _load_model(state, payload["model"], path)
+        _load_model(state.model, payload["model"], path)
         state.optimizer.load_state_dict(payload["optimizer"])
         state.step = int(payload["step"])
     meta = None
@@ -216,6 +263,55 @@ def restore_checkpoint(path: str, state) -> Optional[Dict]:
         with open(path + ".json") as f:
             meta = json.load(f)
     return meta
+
+
+def save_params_only(path: str, model: torch.nn.Module) -> None:
+    """Inference-only export (the reference's ``{epoch}_net_detector.pth``
+    analog): the model's ``state_dict`` (parameters and BatchNorm
+    statistics), written atomically; rank 0 alone under
+    ``torch.distributed``."""
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized() and dist.get_rank():
+        return
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    tmp = path + ".tmp"
+    torch.save(model.state_dict(), tmp)
+    os.replace(tmp, path)
+
+
+def load_params_only(path: str, model: torch.nn.Module) -> torch.nn.Module:
+    """Load a params-only file into ``model``: the port's ``.pt`` (a
+    ``state_dict``) or usip_tpu's ``save_params_only`` ``.msgpack`` (its
+    ``params`` tree alone: the model's BatchNorm statistics are kept)."""
+    if path.endswith(".msgpack"):
+        params = read_msgpack(path)
+        own = model.state_dict()
+        stats = _stats_template(params)
+        sd = state_dict_from_jax({"params": params, "batch_stats": stats})
+        sd = {k: (own[k] if k.endswith(("running_mean", "running_var",
+                                        "num_batches_tracked")) else v)
+              for k, v in sd.items()}
+    else:
+        dev = next(model.parameters()).device
+        sd = torch.load(path, map_location=dev, weights_only=True)
+    _load_model(model, sd, path)
+    return model
+
+
+def _stats_template(params: Dict[str, Any]) -> Dict[str, Any]:
+    """A ``batch_stats`` tree shaped like ``params``' norms (values unused:
+    a params-only file keeps the model's own statistics)."""
+    out = {}
+    for k, v in params.items():
+        if not isinstance(v, dict):
+            continue
+        if k == "norm":
+            out[k] = {"mean": v["scale"], "var": v["scale"]}
+        else:
+            sub = _stats_template(v)
+            if sub:
+                out[k] = sub
+    return out
 
 
 def find_checkpoint(out_dir: str) -> Optional[str]:

@@ -217,7 +217,8 @@ class DetectorEngine:
         """Exact resume from a full-state checkpoint: parameters, BatchNorm
         statistics, optimizer and step; the epoch, best test loss and
         sample counters from the metadata sidecar. A usip_tpu ``.msgpack``
-        restores all but the optimizer (``train/checkpoint.py``)."""
+        restores the same, its Adam moments included
+        (``train/checkpoint.py``)."""
         meta = restore_checkpoint(path, self.state)
         if meta and "epoch" in meta:
             self.start_epoch = int(meta["epoch"]) + 1

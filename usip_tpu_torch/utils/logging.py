@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import json
 import os
+import sys
 import time
 from typing import Dict
 
@@ -22,6 +23,14 @@ def _is_main_process() -> bool:
     import torch.distributed as dist
     return not (dist.is_available() and dist.is_initialized()) \
         or dist.get_rank() == 0
+
+
+def notice(message: str) -> None:
+    """``message`` on stderr (rank 0 only): a one-off notice, such as which
+    host loader path ``native.py`` took and why, that the metric streams
+    must not carry."""
+    if _is_main_process():
+        print(message, file=sys.stderr, flush=True)
 
 
 class MetricsLogger:
