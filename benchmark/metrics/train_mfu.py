@@ -1,0 +1,7 @@
+"""Model FLOPs of the train steps done (three forwards a cloud) over the
+window's wall time at the bf16 peak."""
+from benchmark.metrics._shared import mfu
+
+
+def read(w):
+    return mfu(w)
