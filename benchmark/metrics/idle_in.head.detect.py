@@ -1,0 +1,7 @@
+"""The device's idle share of the traced window in the keypoint head
+(``usip.infer.head``)."""
+from benchmark.metrics._spans import idle_in
+
+
+def read(w):
+    return idle_in(w, ("usip.infer.head",))

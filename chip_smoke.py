@@ -50,8 +50,9 @@ script exits nonzero without the final ``ok`` line:
    every loss and gradient norm finite; one fp32 step (batch 2) on the
    card against the same step on the CPU (loss within 1e-4, gradient norm
    within 1e-3, relative; each parameter's gradient within ``GRAD_TOL``);
-   then the step time, train clouds/s and the step's split into data prep,
-   forward, losses, backward and optimizer (the parts run one by one);
+   then the step time, train clouds/s and the step's split into its spans
+   (``usip.step.inputs``, ``.forward``, ``.losses``, ``.backward``,
+   ``.optimizer``; CUDA events around each);
 7. trains at full KITTI width through the entry points: builds a synthetic
    KITTI tree of 20480-point scans (``build_synthetic_kitti_tree``), runs
    ``python -m usip_tpu_torch.cli train-detector --device cuda`` for 2
@@ -260,6 +261,7 @@ from usip_tpu_torch.train.checkpoint import (find_checkpoint,  # noqa: E402
 from usip_tpu_torch.train.loop import (DetectorEngine,  # noqa: E402
                                        init_detector_state)
 from usip_tpu_torch.data.synthetic import build_synthetic_kitti_tree  # noqa: E402
+from usip_tpu_torch.utils.logging import recording  # noqa: E402
 from usip_tpu_torch.weights import (seeded_descriptor_state_dict,  # noqa: E402
                                     seeded_state_dict)
 from oxford_tree import build_oxford_tree  # noqa: E402
@@ -1187,28 +1189,26 @@ def parent_batch(rng, cfg, b, device):
                        torch.from_numpy(sn).to(device))
 
 
+# the spans of the train steps' parts (``train/steps.py``), in order
+DETECTOR_STEP_SPANS = tuple("usip.step." + p for p in (
+    "inputs", "forward", "losses", "backward", "optimizer"))
+DESCRIPTOR_STEP_SPANS = tuple("usip.step." + p for p in (
+    "inputs", "detector", "group", "describe", "losses", "backward",
+    "optimizer"))
+
+
 def event_split(run, names, iters):
-    """The mean time (ms) of each part of a step, over ``iters`` steps:
-    ``run(mark)`` runs one step, which calls ``mark`` after each of its
-    parts; a CUDA event is recorded before the step and at each mark
-    (timing only)."""
-    marks = []
-    for _ in range(iters):
-        ev = [torch.cuda.Event(enable_timing=True)]
-        ev[0].record()
-
-        def mark(ev=ev):
-            ev.append(torch.cuda.Event(enable_timing=True))
-            ev[-1].record()
-
-        run(mark)
-        marks.append(ev)
-    sync()
-    check(all(len(ev) == len(names) + 1 for ev in marks),
-          f"one mark a part of the step ({names})")
-    return {n: float(np.mean([ev[i].elapsed_time(ev[i + 1])
-                              for ev in marks]))
-            for i, n in enumerate(names)}
+    """The mean device time (ms) of each part of a step, by its span's
+    name, over ``iters`` steps: ``run()`` runs one step, whose parts are
+    the spans ``names``; under ``recording()`` each span records a CUDA
+    event at its start and at its end (timing only)."""
+    with recording() as rec:
+        for _ in range(iters):
+            run()
+    ms = rec.device_ms()
+    check(rec.names() == list(names) * iters,
+          f"one span a part of the step, in order ({names})")
+    return {n: float(np.mean(ms[n])) for n in names}
 
 
 def profile_busy(fn, calls):
@@ -1351,15 +1351,15 @@ def phase6(card):
     sync()
     step_ms = (time.perf_counter() - t0) / iters * 1e3
     peak = torch.cuda.max_memory_allocated() / 2**20
-    # its split: CUDA events queued between the step's parts
+    # its split: CUDA events around the spans of the step's parts
     split = event_split(
-        lambda mark: step(state, batch, 0, generator=gen, mark=mark),
-        ("prep", "forward", "losses", "backward", "optimizer"), iters)
+        lambda: step(state, batch, 0, generator=gen), DETECTOR_STEP_SPANS,
+        iters)
     step_rate = 2 * b * 1e3 / step_ms
     print(f"[6] {card} | train step kitti bf16 batch {b}: {step_ms:.3f} ms "
           f"a step (mean of {iters}, pipelined), {2 * b * 1e3 / step_ms:.2f} "
           f"clouds/s ({b * 1e3 / step_ms:.2f} parent samples/s); split (ms, "
-          f"CUDA events between the parts): "
+          f"CUDA events around the parts): "
           + json.dumps({k: round(v, 4) for k, v in split.items()})
           + f"; peak memory {peak:.0f} MiB", flush=True)
 
@@ -1729,7 +1729,7 @@ def phase9_step(card):
           "CPU, parameter by parameter")
 
     # the step's time (host clock over pipelined steps, one synchronize),
-    # its split (the parts one by one, CUDA events between them) and the
+    # its split (CUDA events around the spans of its parts) and the
     # device's busy time (torch.profiler)
     for _ in range(2):
         step(state, det, batch, 0, generator=gen)
@@ -1743,16 +1743,15 @@ def phase9_step(card):
     step_ms = (time.perf_counter() - t0) / iters * 1e3
     peak = torch.cuda.max_memory_allocated() / 2**20
     split = event_split(
-        lambda mark: step(state, det, batch, 0, generator=gen, mark=mark),
-        ("prep (node sampling)", "frozen detector", "ball query",
-         "descriptor forward", "losses", "backward", "optimizer"), iters)
+        lambda: step(state, det, batch, 0, generator=gen),
+        DESCRIPTOR_STEP_SPANS, iters)
     busy, ops, _ = profile_busy(lambda: step(state, det, batch, 0,
                                              generator=gen), 2)
     rate = 2 * b * 1e3 / step_ms
     print(f"[9] {card} | train step descriptor kitti bf16 batch {b}: "
           f"{step_ms:.3f} ms a step (mean of {iters}, pipelined), "
           f"{rate:.2f} clouds/s ({b * 1e3 / step_ms:.2f} pairs/s); split "
-          "(ms, CUDA events between the parts): "
+          "(ms, CUDA events around the parts): "
           + json.dumps({k: round(v, 4) for k, v in split.items()})
           + f"; peak memory {peak:.0f} MiB; torch.profiler over 2 steps: "
           f"kernels {busy:.3f} ms a step on the device ({busy / step_ms:.4f}"
@@ -2383,15 +2382,14 @@ def phase10_numerics(card, root):
     sync()
     step_ms = (time.perf_counter() - t0) / iters * 1e3
     split = event_split(
-        lambda mark: step(state, det, batch, 0, generator=gen, mark=mark),
-        ("prep (node sampling)", "frozen detector", "ball query",
-         "descriptor forward", "losses", "backward", "optimizer"), iters)
+        lambda: step(state, det, batch, 0, generator=gen),
+        DESCRIPTOR_STEP_SPANS, iters)
     busy, ops, _ = profile_busy(lambda: step(state, det, batch, 0,
                                              generator=gen), 2)
     desc_rate = 2 * b * 1e3 / step_ms
     print(f"[10] {card} | train step descriptor scenenn bf16 batch {b}: "
           f"{step_ms:.3f} ms a step (mean of {iters}, pipelined), "
-          f"{desc_rate:.2f} clouds/s; split (ms, CUDA events between the "
+          f"{desc_rate:.2f} clouds/s; split (ms, CUDA events around the "
           "parts): " + json.dumps({kk: round(v, 4) for kk, v in split.items()})
           + f"; peak memory {peak:.0f} MiB; torch.profiler over 2 steps: "
           f"kernels {busy:.3f} ms a step ({busy / step_ms:.4f} of the "
@@ -2431,8 +2429,8 @@ def phase10_numerics(card, root):
     dstep_ms = (time.perf_counter() - t0) / iters * 1e3
     dpeak = torch.cuda.max_memory_allocated() / 2**20
     dsplit = event_split(
-        lambda mark: dstep(dstate, pb, 0, generator=gen, mark=mark),
-        ("prep", "forward", "losses", "backward", "optimizer"), iters)
+        lambda: dstep(dstate, pb, 0, generator=gen), DETECTOR_STEP_SPANS,
+        iters)
     print(f"[10] {card} | train step lite detector scenenn bf16 batch {b} "
           f"({2 * b} clouds of {dcfg.data.input_pc_num} points, node kNN "
           f"{dcfg.detector.node_knn_k}): {dstep_ms:.3f} ms a step, "
@@ -2826,7 +2824,7 @@ def ox_step_run(cfg, tag, batch, state, steps, expected):
 
 
 def ox_step_time(card, cfg, tag, batch, state):
-    """The step's time (pipelined), clouds/s, its split at the marks, its
+    """The step's time (pipelined), clouds/s, its split by its spans, its
     peak memory and the profiler's operators."""
     step = make_detector_train_step(cfg)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -2843,13 +2841,13 @@ def ox_step_time(card, cfg, tag, batch, state):
     step_ms = (time.perf_counter() - t0) / iters * 1e3
     peak = torch.cuda.max_memory_allocated() / 2**20
     split = event_split(
-        lambda mark: step(state, batch, 0, generator=gen, mark=mark),
-        ("prep", "forward", "losses", "backward", "optimizer"), iters)
+        lambda: step(state, batch, 0, generator=gen), DETECTOR_STEP_SPANS,
+        iters)
     busy, ops, _ = profile_busy(lambda: step(state, batch, 0,
                                              generator=gen), 2)
     print(f"[11] {card} | train step {tag} bf16 batch {b}: {step_ms:.3f} ms "
           f"a step (mean of {iters}, pipelined), {2 * b * 1e3 / step_ms:.2f} "
-          f"clouds/s; split (ms, CUDA events between the parts): "
+          f"clouds/s; split (ms, CUDA events around the parts): "
           + json.dumps({k: round(v, 4) for k, v in split.items()})
           + f"; peak memory {peak:.0f} MiB; torch.profiler over 2 steps: "
           f"kernels {busy:.3f} ms a step ({busy / step_ms:.4f} of the "
@@ -4609,8 +4607,8 @@ def object_step(card):
     step_ms = (time.perf_counter() - t0) / iters * 1e3
     peak = torch.cuda.max_memory_allocated() / 2**20
     split = event_split(
-        lambda mark: step(state, batch, 0, generator=gen, mark=mark),
-        ("prep", "forward", "losses", "backward", "optimizer"), iters)
+        lambda: step(state, batch, 0, generator=gen), DETECTOR_STEP_SPANS,
+        iters)
     busy, ops, _ = profile_busy(lambda: step(state, batch, 0,
                                              generator=gen), 2)
     print(f"[14] {card} | train step modelnet bf16 batch {b}: {step_ms:.3f} "

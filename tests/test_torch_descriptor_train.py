@@ -10,6 +10,7 @@ usip_tpu's gradients are read from its Adam state after the step: optax's
 first moment after one step is ``0.1 g``.
 """
 
+import contextlib
 import os
 
 import jax
@@ -37,6 +38,7 @@ from usip_tpu_torch.train import (DescriptorBatch, DescriptorDraws,
 from usip_tpu_torch.train import steps
 from usip_tpu_torch.train.checkpoint import restore_checkpoint, save_checkpoint
 from usip_tpu_torch.train.descriptor_loop import DescriptorEngine
+from usip_tpu_torch.utils.logging import recording
 from usip_tpu_torch.train.loop import init_detector_state
 from usip_tpu_torch.weights import (seeded_descriptor_state_dict,
                                     seeded_state_dict, state_dict_from_jax)
@@ -263,24 +265,28 @@ def test_descriptor_steps_from_a_generator():
 @pytest.mark.parametrize("use_cgf,eval_only", [(False, False),
                                                (True, False), (False, True)])
 def test_descriptor_step_marks_its_parts(use_cgf, eval_only):
-    """``mark`` is called once after each of the step's parts (node
+    """The step's parts are spans, each opened once, in order (node
     sampling, frozen detector, ball queries, trunk, losses, then backward
-    and optimizer when it steps) and changes nothing: from the same start
-    and generator seed the step gives the same metrics and state with and
-    without it."""
+    and optimizer when it steps), and recording them changes nothing:
+    from the same start and generator seed the step gives the same
+    metrics and state with and without the record."""
     _, cfg, batch, _, _, det, desc = _setup(CGF if use_cgf else OVERRIDES)
     start = {k: v.clone() for k, v in desc.state_dict().items()}
     wire = steps.PackedPairBatch(*(_t(x) for x in pack_pair_batch(*batch)))
     step = make_descriptor_train_step(cfg, use_cgf, eval_only)
-    calls, runs = [], []
-    for mark in (None, lambda: calls.append(len(calls))):
+    runs = []
+    for record in (False, True):
         desc.load_state_dict(start)
         state = TrainState.create(desc, cfg.train.lr)
-        metrics = step(state, det, wire, 1, mark=mark,
-                       generator=torch.Generator().manual_seed(0))
+        with recording() if record else contextlib.nullcontext() as rec:
+            metrics = step(state, det, wire, 1,
+                           generator=torch.Generator().manual_seed(0))
         runs.append((metrics, {k: v.clone()
                                for k, v in desc.state_dict().items()}))
-    assert calls == list(range(5 if eval_only else 7))
+    parts = ["inputs", "detector", "group", "describe", "losses"]
+    if not eval_only:
+        parts += ["backward", "optimizer"]
+    assert rec.names() == ["usip.step." + p for p in parts]
     (m0, w0), (m1, w1) = runs
     assert m0.keys() == m1.keys()
     assert all(torch.equal(m0[k], m1[k]) for k in m0)

@@ -9,6 +9,7 @@ and draws), since JAX keys and torch generators never agree. The JAX side
 runs on the CPU (its FPS through the XLA loop), the steps jitted.
 """
 
+import contextlib
 import copy
 
 import jax
@@ -40,6 +41,7 @@ from usip_tpu_torch.ops.geometry import nearest_neighbor
 from usip_tpu_torch.train import (TrainState, lr_at_epoch, make_adam,
                                   set_learning_rate)
 from usip_tpu_torch.train import steps
+from usip_tpu_torch.utils.logging import recording
 from usip_tpu_torch.weights import seeded_state_dict, state_dict_from_jax
 
 torch.set_num_threads(1)
@@ -538,22 +540,25 @@ TOLERANCES_BF16 = {"forward": [(0, 0), (2e-3, 2e-4), (6e-3, 5e-4)],
 
 
 def test_train_step_marks_its_parts():
-    """``mark`` is called once after each of the step's five parts (inputs,
-    forward, losses, backward, optimizer) and changes nothing: from the
-    same start and generator seed the step gives the same metrics and
-    weights with and without it."""
+    """The step's five parts are spans, each opened once, in order
+    (``usip.step.inputs``, ``.forward``, ``.losses``, ``.backward``,
+    ``.optimizer``), and recording them changes nothing: from the same
+    start and generator seed the step gives the same metrics and weights
+    with and without the record."""
     _, cfg, pc, sn, _, _, det = _setup()
     start = copy.deepcopy(det.state_dict())
     step = steps.make_detector_train_step(cfg)
     batch = steps.ParentBatch(_t(pc), _t(sn))
-    calls, runs = [], []
-    for mark in (None, lambda: calls.append(len(calls))):
+    runs = []
+    for record in (False, True):
         det.load_state_dict(start)
         state = TrainState.create(det, cfg.train.lr)
-        metrics = step(state, batch, 3, mark=mark,
-                       generator=torch.Generator().manual_seed(0))
+        with recording() if record else contextlib.nullcontext() as rec:
+            metrics = step(state, batch, 3,
+                           generator=torch.Generator().manual_seed(0))
         runs.append((metrics, copy.deepcopy(det.state_dict())))
-    assert calls == [0, 1, 2, 3, 4]
+    assert rec.names() == ["usip.step." + p for p in (
+        "inputs", "forward", "losses", "backward", "optimizer")]
     (m0, w0), (m1, w1) = runs
     assert all(torch.equal(m0[k], m1[k]) for k in m0)
     assert all(torch.equal(w0[k], w1[k]) for k in w0)

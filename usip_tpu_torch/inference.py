@@ -23,6 +23,7 @@ from usip_tpu_torch.models.detector import Detector
 from usip_tpu_torch.models.fused_infer import detector_infer_fused
 from usip_tpu_torch.ops.kernels import fusion_chain_params, prepare_chain
 from usip_tpu_torch.ops.sampling import sample_nodes
+from usip_tpu_torch.utils.logging import span
 from usip_tpu_torch.weights import (detector_family, load_descriptor_weights,
                                     load_detector_weights)
 
@@ -85,9 +86,12 @@ class KeypointPipeline:
     def infer(self, pc: torch.Tensor, sn: torch.Tensor
               ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Batched forward on the device: ``pc (B, N, 3)``, ``sn (B, N, S)``
-        -> keypoints ``(B, M, 3)``, sigmas ``(B, M)``."""
-        node = sample_nodes(pc, self.cfg.data.node_num, self._eval_ratio,
-                            self.cfg.data.fps_parallel, generator=self._gen)
+        -> keypoints ``(B, M, 3)``, sigmas ``(B, M)``; the node draws are
+        the span ``usip.infer.nodes``."""
+        with span("usip.infer.nodes"):
+            node = sample_nodes(pc, self.cfg.data.node_num, self._eval_ratio,
+                                self.cfg.data.fps_parallel,
+                                generator=self._gen)
         _, kp, sig = detector_infer_fused(self.detector, pc, sn, node,
                                           self._chain)
         return kp, sig

@@ -17,6 +17,7 @@ import torch
 from usip_tpu_torch.models.detector import Detector, knn_group
 from usip_tpu_torch.ops.kernels import (FusionChain, fusion_chain,
                                         fusion_chain_params, prepare_chain)
+from usip_tpu_torch.utils.logging import span
 
 Tensor = torch.Tensor
 
@@ -28,15 +29,19 @@ def detector_infer_fused(det: Detector, pc: Tensor, sn: Tensor, node: Tensor,
     """Full detector eval forward -> ``(anchors, keypoints, sigmas)``, like
     ``det(pc, sn, node)`` in eval mode. ``chain`` is
     ``prepare_chain(*fusion_chain_params(det.knnlayer_1))``, passed in by
-    callers that fold and pack the weights once."""
+    callers that fold and pack the weights once. Its parts are the spans
+    ``usip.infer.trunk``, ``.fusion`` and ``.head``."""
     if det.training:
         raise ValueError("detector_infer_fused is the eval forward; call "
                          "det.eval() first")
-    anchors, feat = det.trunk(pc, sn, node)
-    grouped = knn_group(anchors, anchors, feat, det.cfg.node_knn_k)
-    if chain is None:
-        chain = prepare_chain(*fusion_chain_params(det.knnlayer_1))
-    knn_feature = fusion_chain(grouped.contiguous(), chain)
-    keypoints, sigmas = det.keypoint_head(
-        torch.cat([feat, knn_feature], dim=-1), anchors)
+    with span("usip.infer.trunk"):
+        anchors, feat = det.trunk(pc, sn, node)
+    with span("usip.infer.fusion"):
+        grouped = knn_group(anchors, anchors, feat, det.cfg.node_knn_k)
+        if chain is None:
+            chain = prepare_chain(*fusion_chain_params(det.knnlayer_1))
+        knn_feature = fusion_chain(grouped.contiguous(), chain)
+    with span("usip.infer.head"):
+        keypoints, sigmas = det.keypoint_head(
+            torch.cat([feat, knn_feature], dim=-1), anchors)
     return anchors, keypoints, sigmas

@@ -49,7 +49,7 @@ from usip_tpu_torch.train.steps import (DetectorBatch, ParentBatch,
                                         make_detector_eval_step,
                                         make_detector_train_step)
 from usip_tpu_torch.utils.logging import (MetricsLogger, RunningAverages,
-                                          Throughput)
+                                          Throughput, span)
 
 # the streams of draws: train steps, test sweeps, truncated test sweeps,
 # snapshots (usip_tpu's roles 0-3)
@@ -73,7 +73,8 @@ def stream_generator(device, seed: int, role: int, counter: int
 def prefetch_batches(loader, device_batch_fn, depth: int = 8):
     """Yield ``(device_batch, host_batch_size)`` with the host-to-device
     copies issued from a background thread, ``depth`` batches ahead of the
-    consumer."""
+    consumer; the consumer's wait for each is the span
+    ``usip.engine.wait_batch``."""
     q: "queue_mod.Queue" = queue_mod.Queue(maxsize=depth)
     sentinel = object()
     err = []
@@ -113,7 +114,8 @@ def prefetch_batches(loader, device_batch_fn, depth: int = 8):
     t.start()
     try:
         while True:
-            item = q.get()
+            with span("usip.engine.wait_batch"):
+                item = q.get()
             if item is sentinel:
                 break
             yield item

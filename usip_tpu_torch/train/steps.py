@@ -40,7 +40,7 @@ and the replicas stay identical.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -60,12 +60,9 @@ from usip_tpu_torch.ops.grouping import ball_priority_draws
 from usip_tpu_torch.ops.sampling import node_draws
 from usip_tpu_torch.ops.geometry import apply_se3
 from usip_tpu_torch.train.state import TrainState
+from usip_tpu_torch.utils.logging import span
 
 Tensor = torch.Tensor
-
-
-def _no_mark() -> None:
-    """The steps' default ``mark``: nothing to time."""
 
 
 class DetectorBatch(NamedTuple):
@@ -411,9 +408,10 @@ def make_detector_train_step(cfg: Config, mesh=None, *,
     metrics``: one siamese train step that updates ``state`` (the model's
     parameters and BatchNorm statistics, the Adam state, the step count) in
     place. The metrics are usip_tpu's plus ``grad_norm``, as tensors on the
-    model's device (nothing waits for the card). ``mark``, where given, is
-    called after each part (inputs, forward, losses, backward, optimizer),
-    for timing. ``_inputs`` is a private hook for checks, not for training
+    model's device (nothing waits for the card). Its five parts are spans
+    (``utils.logging.span``): ``usip.step.inputs``, ``.forward``,
+    ``.losses``, ``.backward``, ``.optimizer``, each with the step count as
+    its identifier. ``_inputs`` is a private hook for checks, not for training
     paths: the step's prepared ``(src, dst, gt)``
     (``_prepare_detector_inputs``' result, on the model's device), taken
     instead of preparing them from ``batch`` and the draws, so that one
@@ -429,36 +427,35 @@ def make_detector_train_step(cfg: Config, mesh=None, *,
     def train_step(state: TrainState, batch, epoch: int, *,
                    draws: Optional[DetectorDraws] = None,
                    generator: Optional[torch.Generator] = None,
-                   mark: Optional[Callable[[], None]] = None,
                    _inputs=None):
-        mark = mark or _no_mark
-        model, opt = state.model, state.optimizer
-        if _inputs is None:
-            draws, _ = _local_draws(
-                mesh, batch[0].shape[0], draws,
-                lambda b, given: detector_draws(
-                    cfg, b, batch[1].shape[-1], generator, True,
-                    _parent_points(batch), given))
-            _inputs = _prepare_detector_inputs(batch, cfg, True, draws)
-        src, dst, gt = _inputs
-        set_bn_process_group(model, mesh)
-        mark()
-        momentum = bn_momentum_schedule(
-            cfg.train.bn_momentum, epoch, cfg.train.bn_momentum_decay_step,
-            cfg.train.bn_momentum_decay)
-        opt.zero_grad(set_to_none=True)
-        src_out, dst_out = _siamese_apply(model, src, dst, True, momentum)
-        mark()
-        total, metrics = _detector_losses(cfg, src_out, dst_out, src[0],
-                                          src[1], dst[0], dst[1], gt, mesh)
-        mark()
-        total.backward()
-        reduce_grads(model, mesh)
-        metrics["grad_norm"] = grad_norm(model)
-        mark()
-        opt.step()
-        state.step += 1
-        mark()
+        model, opt, step = state.model, state.optimizer, state.step
+        with span("usip.step.inputs", step):
+            if _inputs is None:
+                draws, _ = _local_draws(
+                    mesh, batch[0].shape[0], draws,
+                    lambda b, given: detector_draws(
+                        cfg, b, batch[1].shape[-1], generator, True,
+                        _parent_points(batch), given))
+                _inputs = _prepare_detector_inputs(batch, cfg, True, draws)
+            src, dst, gt = _inputs
+            set_bn_process_group(model, mesh)
+        with span("usip.step.forward", step):
+            momentum = bn_momentum_schedule(
+                cfg.train.bn_momentum, epoch,
+                cfg.train.bn_momentum_decay_step, cfg.train.bn_momentum_decay)
+            opt.zero_grad(set_to_none=True)
+            src_out, dst_out = _siamese_apply(model, src, dst, True, momentum)
+        with span("usip.step.losses", step):
+            total, metrics = _detector_losses(cfg, src_out, dst_out, src[0],
+                                              src[1], dst[0], dst[1], gt,
+                                              mesh)
+        with span("usip.step.backward", step):
+            total.backward()
+            reduce_grads(model, mesh)
+            metrics["grad_norm"] = grad_norm(model)
+        with span("usip.step.optimizer", step):
+            opt.step()
+            state.step += 1
         return metrics
 
     return train_step
@@ -581,10 +578,11 @@ def make_descriptor_train_step(cfg: Config, use_cgf: bool = False,
     triplet, with ``match_acc`` among the metrics. Oxford's height scale
     (``augment.height_scale``) scales both clouds and their keypoints after
     detection, in training only; it does not commute with the CGF
-    alignment, so the two are refused together. ``mark``, where given, is
-    called after each part (node sampling, frozen detector, ball queries,
-    descriptor trunk, losses, then backward and optimizer when it steps),
-    for timing.
+    alignment, so the two are refused together. Its parts are spans
+    (``utils.logging.span``), each with the step count as its identifier:
+    ``usip.step.inputs`` (node sampling), ``.detector``, ``.group`` (the
+    ball queries), ``.describe``, ``.losses``, then ``.backward`` and
+    ``.optimizer`` when it steps.
 
     ``mesh``: data parallelism (the module's docstring): ``batch`` holds
     this rank's pairs and the global batch's ``neg_idx``; ``draws`` (where
@@ -599,102 +597,102 @@ def make_descriptor_train_step(cfg: Config, use_cgf: bool = False,
 
     def train_step(state: TrainState, detector, batch, epoch: int, *,
                    draws: Optional[DescriptorDraws] = None,
-                   generator: Optional[torch.Generator] = None,
-                   mark: Optional[Callable[[], None]] = None):
-        mark = mark or _no_mark
-        anc_pc, anc_sn, pos_pc, pos_sn, neg_idx = _as_pair(batch)
-        b = anc_pc.shape[0]
-        d, d_global = _local_draws(
-            mesh, b, draws,
-            lambda gb, given: descriptor_draws(cfg, gb, anc_pc.shape[1],
-                                               generator, use_cgf, eval_only,
-                                               given))
-        anc_node = _nodes(anc_pc, cfg, d.nodes_anc)
-        gt = None
-        if use_cgf:
-            pos_pc, pos_sn, _, gt = random_se3(
-                pos_pc, pos_sn, pos_pc.new_zeros((b, 1, 3)),
-                rot_type=aug.rot_type, draws=d.se3)
-        pos_node = _nodes(pos_pc, cfg, d.nodes_pos)
-        mark()
+                   generator: Optional[torch.Generator] = None):
+        model, opt, step = state.model, state.optimizer, state.step
+        with span("usip.step.inputs", step):
+            anc_pc, anc_sn, pos_pc, pos_sn, neg_idx = _as_pair(batch)
+            b = anc_pc.shape[0]
+            d, d_global = _local_draws(
+                mesh, b, draws,
+                lambda gb, given: descriptor_draws(
+                    cfg, gb, anc_pc.shape[1], generator, use_cgf, eval_only,
+                    given))
+            anc_node = _nodes(anc_pc, cfg, d.nodes_anc)
+            gt = None
+            if use_cgf:
+                pos_pc, pos_sn, _, gt = random_se3(
+                    pos_pc, pos_sn, pos_pc.new_zeros((b, 1, 3)),
+                    rot_type=aug.rot_type, draws=d.se3)
+            pos_node = _nodes(pos_pc, cfg, d.nodes_pos)
 
         # the frozen detector, once over both clouds (run_model_siamese)
-        detector.eval()
-        with torch.no_grad():
-            _, kp, sig = detector(torch.cat([anc_pc, pos_pc]),
-                                  torch.cat([anc_sn, pos_sn]),
-                                  torch.cat([anc_node, pos_node]))
-        anc_kp, pos_kp, anc_sig = kp[:b], kp[b:], sig[:b]
-        if aug.height_scale and not eval_only:
-            # oxford's descriptor train augmentation; the camera frame's up
-            # axis is y (oxford/train_descriptor.py:123-130)
-            anc_pc, pos_pc, anc_kp, pos_kp = random_height_scale(
-                [anc_pc, pos_pc, anc_kp, pos_kp], axis=1, scale=d.height)
-        mark()
+        with span("usip.step.detector", step):
+            detector.eval()
+            with torch.no_grad():
+                _, kp, sig = detector(torch.cat([anc_pc, pos_pc]),
+                                      torch.cat([anc_sn, pos_sn]),
+                                      torch.cat([anc_node, pos_node]))
+            anc_kp, pos_kp, anc_sig = kp[:b], kp[b:], sig[:b]
+            if aug.height_scale and not eval_only:
+                # oxford's descriptor train augmentation; the camera frame's
+                # up axis is y (oxford/train_descriptor.py:123-130)
+                anc_pc, pos_pc, anc_kp, pos_kp = random_height_scale(
+                    [anc_pc, pos_pc, anc_kp, pos_kp], axis=1, scale=d.height)
 
-        model, opt = state.model, state.optimizer
-        model.train(not eval_only)
-        set_bn_process_group(model, mesh)
-        if not eval_only:
-            set_bn_momentum(model, bn_momentum_schedule(
-                cfg.train.bn_momentum, epoch,
-                cfg.train.bn_momentum_decay_step,
-                cfg.train.bn_momentum_decay))
-            opt.zero_grad(set_to_none=True)
-        with torch.set_grad_enabled(not eval_only):
-            # the two ball queries (anchor's priorities drawn first), then
-            # the trunk twice, anchor then positive: each call normalises
-            # with its own batch statistics and updates the running ones in
-            # turn
+        # the two ball queries (anchor's priorities drawn first), then the
+        # trunk twice, anchor then positive: each call normalises with its
+        # own batch statistics and updates the running ones in turn
+        train = not eval_only
+        with span("usip.step.group", step), torch.set_grad_enabled(train):
+            model.train(train)
+            set_bn_process_group(model, mesh)
+            if train:
+                set_bn_momentum(model, bn_momentum_schedule(
+                    cfg.train.bn_momentum, epoch,
+                    cfg.train.bn_momentum_decay_step,
+                    cfg.train.bn_momentum_decay))
+                opt.zero_grad(set_to_none=True)
             anc_feats = model.group(anc_pc, anc_sn, anc_kp, d.ball_anc)
             pos_feats = model.group(pos_pc, pos_sn, pos_kp, d.ball_pos)
-            mark()
+        with span("usip.step.describe", step), torch.set_grad_enabled(train):
             anc_desc = model.describe(anc_feats)
             pos_desc = model.describe(pos_feats)
-            mark()
+        with span("usip.step.losses", step):
             extra = {}
-            anc_kp_aligned = (apply_se3(anc_kp, gt.R, gt.scale, gt.shift)
-                              if use_cgf else None)
-            if mesh is not None:
-                anc_desc, pos_desc, anc_sig = (
-                    all_gather(t, mesh) for t in (anc_desc, pos_desc,
-                                                  anc_sig))
+            with torch.set_grad_enabled(train):
+                anc_kp_aligned = (apply_se3(anc_kp, gt.R, gt.scale, gt.shift)
+                                  if use_cgf else None)
+                if mesh is not None:
+                    anc_desc, pos_desc, anc_sig = (
+                        all_gather(t, mesh) for t in (anc_desc, pos_desc,
+                                                      anc_sig))
+                    if use_cgf:
+                        anc_kp_aligned, pos_kp = (
+                            all_gather(t, mesh) for t in (anc_kp_aligned,
+                                                          pos_kp))
                 if use_cgf:
-                    anc_kp_aligned, pos_kp = (all_gather(t, mesh) for t in
-                                              (anc_kp_aligned, pos_kp))
-            if use_cgf:
-                loss_bm, active = losses.desc_cgf_loss(
-                    anc_kp_aligned, anc_desc, pos_kp, pos_desc, anc_sig,
-                    cgf_radius=loss_cfg.cgf_radius,
-                    gamma=loss_cfg.triple_loss_gamma,
-                    sigma_max=loss_cfg.sigma_max,
-                    draws=d_global.cgf)
-                with torch.no_grad():
-                    extra["match_acc"] = losses.descriptor_matching_accuracy(
-                        anc_kp_aligned, anc_desc, pos_kp, pos_desc,
-                        radius=loss_cfg.cgf_radius).mean()
-            else:
-                neg_desc = anc_desc[neg_idx.to(anc_desc.device).long()]
-                loss_bm, active = losses.desc_pair_scan_loss(
-                    anc_desc, pos_desc, neg_desc, anc_sig,
-                    gamma=loss_cfg.triple_loss_gamma,
-                    sigma_max=loss_cfg.sigma_max)
-            total = loss_bm.mean()
-        metrics = {"loss": total.detach(),
-                   "active_percentage": active.mean(),
-                   "sigma_mean": anc_sig.mean(),
-                   "sigma_std": anc_sig.std(unbiased=False),
-                   "sigma_min": anc_sig.min(), "sigma_max": anc_sig.max(),
-                   **extra}
-        mark()
-        if not eval_only:
-            total.backward()
-            sum_grads(model, mesh)
-            metrics["grad_norm"] = grad_global_norm(model)
-            mark()
-            opt.step()
-            state.step += 1
-            mark()
+                    loss_bm, active = losses.desc_cgf_loss(
+                        anc_kp_aligned, anc_desc, pos_kp, pos_desc, anc_sig,
+                        cgf_radius=loss_cfg.cgf_radius,
+                        gamma=loss_cfg.triple_loss_gamma,
+                        sigma_max=loss_cfg.sigma_max,
+                        draws=d_global.cgf)
+                    with torch.no_grad():
+                        extra["match_acc"] = (
+                            losses.descriptor_matching_accuracy(
+                                anc_kp_aligned, anc_desc, pos_kp, pos_desc,
+                                radius=loss_cfg.cgf_radius).mean())
+                else:
+                    neg_desc = anc_desc[neg_idx.to(anc_desc.device).long()]
+                    loss_bm, active = losses.desc_pair_scan_loss(
+                        anc_desc, pos_desc, neg_desc, anc_sig,
+                        gamma=loss_cfg.triple_loss_gamma,
+                        sigma_max=loss_cfg.sigma_max)
+                total = loss_bm.mean()
+            metrics = {"loss": total.detach(),
+                       "active_percentage": active.mean(),
+                       "sigma_mean": anc_sig.mean(),
+                       "sigma_std": anc_sig.std(unbiased=False),
+                       "sigma_min": anc_sig.min(),
+                       "sigma_max": anc_sig.max(), **extra}
+        if train:
+            with span("usip.step.backward", step):
+                total.backward()
+                sum_grads(model, mesh)
+                metrics["grad_norm"] = grad_global_norm(model)
+            with span("usip.step.optimizer", step):
+                opt.step()
+                state.step += 1
         return metrics
 
     return train_step

@@ -6,17 +6,24 @@ Replaces the reference's visdom-based Visualizer (util/visualizer.py): console
 printer (print_current_errors), loss curves (plot_current_errors -> metrics.jsonl,
 plottable offline), and 3D keypoint scatter payloads (display_current_results ->
 .npz snapshots of cloud/nodes/keypoints/sigmas). Under ``torch.distributed``
-only rank 0 writes and prints (usip_tpu logs from its first host only)."""
+only rank 0 writes and prints (usip_tpu logs from its first host only).
+
+``span`` names a part of the program on torch.profiler's timeline, which
+shares a clock with the device's activity, so that a trace says which part
+of the host's work left the device idle; ``recording`` keeps the spans in
+memory instead, for tests and per-part device timings."""
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import sys
 import time
-from typing import Dict
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 
 def _is_main_process() -> bool:
@@ -113,3 +120,83 @@ class Throughput:
         if dt <= 0:
             return 0.0
         return self._clouds / dt
+
+
+class SpanRecord:
+    """The spans opened under ``recording()``: ``spans`` ``[(name, start,
+    end)]`` in the order they opened, ``start`` and ``end`` the CUDA events
+    recorded at the span's edges once CUDA is initialised, else None."""
+
+    def __init__(self):
+        self.spans: List[Tuple[str, object, object]] = []
+
+    def names(self) -> List[str]:
+        return [name for name, _, _ in self.spans]
+
+    def device_ms(self) -> Dict[str, List[float]]:
+        """Each span's device milliseconds between its two events, by name
+        (waits for the device)."""
+        timed = [(n, a, b) for n, a, b in self.spans if a is not None]
+        if timed:
+            torch.cuda.synchronize()
+        out: Dict[str, List[float]] = {}
+        for name, start, end in timed:
+            out.setdefault(name, []).append(start.elapsed_time(end))
+        return out
+
+
+# the record that ``span`` appends to, while ``recording()`` runs
+_record: Optional[SpanRecord] = None
+_profiler_enabled = torch.autograd._profiler_enabled
+
+
+@contextlib.contextmanager
+def recording():
+    """Keep the spans opened inside the block in the yielded
+    ``SpanRecord``."""
+    global _record
+    outer, _record = _record, SpanRecord()
+    try:
+        yield _record
+    finally:
+        _record = outer
+
+
+class span:
+    """``with span(name, args):`` marks the block as the part ``name`` of
+    the program: a ``torch.profiler.record_function`` while the calling
+    thread is profiled (``args``, an identifier that spans of one call
+    share, made text only then), an entry of the active ``recording()``.
+    Otherwise, and while ``torch.export`` or ``torch.compile`` traces, it
+    does nothing but read three flags."""
+
+    __slots__ = ("name", "args", "_scope", "_end")
+
+    def __init__(self, name: str, args=None):
+        self.name, self.args = name, args
+        self._scope = self._end = None
+
+    def __enter__(self):
+        if torch.compiler.is_compiling() or (
+                _record is None and not _profiler_enabled()):
+            return self
+        if _profiler_enabled():
+            self._scope = torch.profiler.record_function(
+                self.name, None if self.args is None else str(self.args))
+            self._scope.__enter__()
+        if _record is not None:
+            start = None
+            if torch.cuda.is_initialized():
+                start = torch.cuda.Event(enable_timing=True)
+                self._end = torch.cuda.Event(enable_timing=True)
+                start.record()
+            _record.spans.append((self.name, start, self._end))
+        return self
+
+    def __exit__(self, *exc):
+        if self._end is not None:
+            self._end.record()
+            self._end = None
+        if self._scope is not None:
+            self._scope.__exit__(*exc)
+            self._scope = None
