@@ -841,3 +841,140 @@ def test_artifact_equals_in_process_on_the_card(tmp_path):
     torch.cuda.synchronize()
     assert launched == kernels.LAUNCHES and all(launched.values())
     assert torch.equal(kp, kp_ref) and torch.equal(sig, sig_ref)
+
+
+def _kitti_pipeline(seed, preset="kitti", **overrides):
+    from usip_tpu_torch.config import get_config
+    from usip_tpu_torch.inference import KeypointPipeline
+    from usip_tpu_torch.weights import seeded_state_dict
+    cfg = get_config(preset, **overrides)
+    sd = {k: torch.tensor(v) for k, v in
+          seeded_state_dict(cfg.detector, 0).items()}
+    return cfg, KeypointPipeline(cfg, sd, "cuda", seed=seed)
+
+
+def _kitti_clouds(rng, cfg, b, dev):
+    n, s = cfg.data.input_pc_num, cfg.detector.surface_normal_len
+    return _rand(rng, (b, n, 3), dev, 20.0), _rand(rng, (b, n, s), dev)
+
+
+def _eager_infer(pipe, pc, sn, state):
+    """The nodes, keypoints and sigmas of the eager forward on the draws
+    made from the generator ``state`` as the benchmark replays them
+    (``torch.rand`` argsorted, then ``torch.randint``), and the
+    generator's state after them."""
+    from usip_tpu_torch.models.fused_infer import detector_infer_fused
+    from usip_tpu_torch.ops.sampling import _node_shapes, sample_nodes
+    d = pipe.cfg.data
+    b, n = pc.shape[:2]
+    sub, bins = _node_shapes(n, d.node_num, pipe._eval_ratio, d.fps_parallel)
+    gen = torch.Generator(pc.device)
+    gen.set_state(state)
+    subset = torch.rand((b, n), generator=gen, device=pc.device).argsort(1)
+    first = torch.randint(0, sub // bins, (b * bins,), generator=gen,
+                          device=pc.device)
+    with torch.inference_mode():
+        node = sample_nodes(pc, d.node_num, pipe._eval_ratio,
+                            d.fps_parallel, subset_idx=subset[:, :sub],
+                            first=first.int())
+        _, kp, sig = detector_infer_fused(pipe.detector, pc, sn, node,
+                                          pipe._chain)
+    return node, kp, sig, gen.get_state()
+
+
+@pytest.mark.parametrize("b", [8, 1])
+def test_infer_replay_equals_the_eager_forward(dev, b):
+    """At the KITTI preset, over 3 calls on different clouds, ``infer``'s
+    graph gives bit for bit the nodes, keypoints and sigmas of the eager
+    forward on the draws made from the generator's state before the call,
+    and leaves the generator where those draws do; a
+    result kept from a call is not overwritten by the next; the calls are
+    1 capture and 2 replays."""
+    cfg, pipe = _kitti_pipeline(seed=7)
+    rng = np.random.default_rng(b)
+    kept = []
+    for _ in range(3):
+        pc, sn = _kitti_clouds(rng, cfg, b, dev)
+        state = pipe._gen.get_state()
+        kp, sig = pipe.infer(pc, sn)
+        (graph,) = pipe._graphs.values()
+        node = graph.outputs[0].clone()
+        node_e, kp_e, sig_e, after = _eager_infer(pipe, pc, sn, state)
+        assert torch.equal(pipe._gen.get_state(), after)
+        assert torch.equal(node, node_e)
+        # cuBLAS picks the same kernels under capture: equal bit for bit
+        assert torch.equal(kp, kp_e) and torch.equal(sig, sig_e)
+        kept.append((kp, sig, kp.clone(), sig.clone()))
+    for kp, sig, kp0, sig0 in kept:
+        assert torch.equal(kp, kp0) and torch.equal(sig, sig0)
+    assert pipe.graph_counts == {"captures": 1, "replays": 2, "eager": 0}
+
+
+@pytest.mark.parametrize("grouping", ["ball", "knn"])
+def test_infer_replay_of_the_grouped_detectors(dev, grouping):
+    """The grouped trunks (the Oxford preset's ball and knn detectors)
+    replay as their eager forward too, bit for bit."""
+    cfg, pipe = _kitti_pipeline(seed=4, preset="oxford",
+                                **{"detector.grouping": grouping})
+    rng = np.random.default_rng(9)
+    for _ in range(2):
+        pc, sn = _kitti_clouds(rng, cfg, 2, dev)
+        state = pipe._gen.get_state()
+        kp, sig = pipe.infer(pc, sn)
+        _, kp_e, sig_e, _ = _eager_infer(pipe, pc, sn, state)
+        assert torch.equal(kp, kp_e) and torch.equal(sig, sig_e)
+    assert pipe.graph_counts == {"captures": 1, "replays": 1, "eager": 0}
+
+
+def test_infer_graphs_of_two_shapes_share_one_pool(dev):
+    """Batches of 8 and of 1 in turns: one graph each in the one memory
+    pool, every call equal to its eager forward."""
+    cfg, pipe = _kitti_pipeline(seed=3)
+    rng = np.random.default_rng(0)
+    for b in (8, 1, 8, 1, 8):
+        pc, sn = _kitti_clouds(rng, cfg, b, dev)
+        state = pipe._gen.get_state()
+        kp, sig = pipe.infer(pc, sn)
+        _, kp_e, sig_e, _ = _eager_infer(pipe, pc, sn, state)
+        assert torch.equal(kp, kp_e) and torch.equal(sig, sig_e)
+    assert len(pipe._graphs) == 2
+    assert pipe.graph_counts == {"captures": 2, "replays": 3, "eager": 0}
+
+
+def test_infer_replays_count_the_graphs_launches(dev):
+    """``LAUNCHES`` after N replays is N x an eager forward's launches; the
+    first call counts its warm-up runs and its replay, the capture none."""
+    cfg, pipe = _kitti_pipeline(seed=1)
+    pc, sn = _kitti_clouds(np.random.default_rng(4), cfg, 8, dev)
+    kernels.reset_launch_counts()
+    _eager_infer(pipe, pc, sn, pipe._gen.get_state())
+    eager = dict(kernels.LAUNCHES)
+    assert eager["fps"] == 1 and eager["fusion_chain"] == 1
+    kernels.reset_launch_counts()
+    pipe.infer(pc, sn)
+    (graph,) = pipe._graphs.values()
+    assert graph.launches == eager
+    assert kernels.LAUNCHES == {k: 4 * v for k, v in eager.items()}
+    kernels.reset_launch_counts()
+    for _ in range(5):
+        pipe.infer(pc, sn)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES == {k: 5 * v for k, v in eager.items()}
+    assert pipe.graph_counts == {"captures": 1, "replays": 5, "eager": 0}
+
+
+def test_recording_spans_across_a_capture(dev):
+    """Under ``recording()`` a capture's spans keep no CUDA events and the
+    record's device times read: each replay's span has its own."""
+    from usip_tpu_torch.utils.logging import recording
+    cfg, pipe = _kitti_pipeline(seed=2)
+    pc, sn = _kitti_clouds(np.random.default_rng(6), cfg, 1, dev)
+    with recording() as rec:
+        for _ in range(3):
+            pipe.infer(pc, sn)
+    ms = rec.device_ms()
+    assert len(ms["usip.infer.replay"]) == 3
+    assert len(ms["usip.infer.nodes"]) == 3
+    # the warm-up runs' spans are timed, the capture's are not
+    assert rec.names().count("usip.infer.trunk") == 4
+    assert len(ms["usip.infer.trunk"]) == 3

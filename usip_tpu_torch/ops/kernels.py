@@ -101,6 +101,23 @@ def reset_launch_counts() -> None:
         LAUNCHES[name] = 0
 
 
+def take_launches(counts: dict, before: dict) -> dict:
+    """The launches ``counts`` gained since its copy ``before``, by kernel;
+    ``counts`` is set back to ``before``. A CUDA graph's capture records
+    launches without running them: its counts are taken off this way and
+    given back by ``add_launches`` at each replay."""
+    made = {name: counts[name] - before[name] for name in counts}
+    counts.update(before)
+    return made
+
+
+def add_launches(counts: dict, made: dict) -> None:
+    """Raise ``counts`` by the launches ``made`` (a replay of a graph whose
+    capture ``take_launches`` counted)."""
+    for name, n in made.items():
+        counts[name] += n
+
+
 def _kernel_fn(name: str):
     """The ctypes entry point of one kernel, built and loaded at first use."""
     if name not in _FNS:

@@ -1,10 +1,11 @@
 """Point sampling: random subsets and farthest point sampling (port of
 ``usip_tpu/ops/sampling.py``).
 
-The random draws are optional inputs: the subset indices ``(B, sub)`` and the
-FPS seed rows ``first``. When they are absent they are drawn from the given
-``torch.Generator`` (on the generator's device); tests pass in the reference
-package's own draws instead, since JAX keys and torch generators never agree.
+The random draws are inputs: the subset indices ``(B, sub)`` and the FPS seed
+rows ``first``. ``sample_nodes`` draws both from a ``torch.Generator`` (on the
+generator's device, ``node_draws``) where neither is given; tests pass in the
+reference package's own draws instead, since JAX keys and torch generators
+never agree.
 """
 
 from __future__ import annotations
@@ -26,19 +27,8 @@ def _fps_single(points: Tensor, k: int, first: Tensor) -> Tuple[Tensor, Tensor]:
     return points[idx.long()], idx
 
 
-def _draw_first(b: int, n: int, generator: Optional[torch.Generator],
-                device: torch.device) -> Tensor:
-    if generator is None:
-        raise ValueError("pass the seed rows `first` or a torch.Generator")
-    first = torch.randint(0, n, (b,), generator=generator,
-                          device=generator.device)
-    return first.to(device=device, dtype=torch.int32)
-
-
 def farthest_point_sampling(points: Tensor, k: int, parallel: int = 1, *,
-                            first: Optional[Tensor] = None,
-                            generator: Optional[torch.Generator] = None
-                            ) -> Tuple[Tensor, Tensor]:
+                            first: Tensor) -> Tuple[Tensor, Tensor]:
     """Batched FPS: ``points (B, N, 3)`` -> samples ``(B, k, 3)``, indices
     ``(B, k)`` int32.
 
@@ -54,41 +44,22 @@ def farthest_point_sampling(points: Tensor, k: int, parallel: int = 1, *,
             raise ValueError(f"parallel={parallel} must divide N={n} and k={k}")
         nc, kc = n // parallel, k // parallel
         chunks = points.float().reshape(b * parallel, nc, 3).contiguous()
-        if first is None:
-            first = _draw_first(b * parallel, nc, generator, points.device)
         idx = kernels.fps(chunks, first.to(points.device, torch.int32)
                           .contiguous(), kc)
         offs = (torch.arange(b * parallel, device=points.device,
                              dtype=torch.int32) % parallel) * nc
         idx = (idx + offs[:, None]).reshape(b, k)
     else:
-        if first is None:
-            first = _draw_first(b, n, generator, points.device)
         idx = kernels.fps(points.float().contiguous(),
                           first.to(points.device, torch.int32).contiguous(),
                           k)
     return gather_points(points, idx), idx
 
 
-def _subset_rows(b: int, n: int, k: int, generator: torch.Generator
-                 ) -> Tensor:
-    """k distinct random rows of ``[0, n)`` for each of ``b`` clouds, in
-    random order ``(B, k)``, on the generator's device."""
-    keys = torch.rand((b, n), generator=generator, device=generator.device)
-    return keys.argsort(dim=1)[:, :k]
-
-
-def random_subset(points: Tensor, k: int, *, idx: Optional[Tensor] = None,
-                  generator: Optional[torch.Generator] = None) -> Tensor:
+def random_subset(points: Tensor, k: int, *, idx: Tensor) -> Tensor:
     """k distinct random rows of each batch element, in random order:
     ``points (B, N, C)`` -> ``(B, k, C)``. ``idx (B, k)`` (on any device)
     gives the rows."""
-    if idx is None:
-        if generator is None:
-            raise ValueError("pass the subset indices `idx` or a "
-                             "torch.Generator")
-        b, n, _ = points.shape
-        idx = _subset_rows(b, n, k, generator)
     return gather_points(points, idx.to(points.device))
 
 
@@ -108,11 +79,39 @@ def node_draws(b: int, n: int, node_num: int, subsample_ratio: int = 4,
     """The draws of ``sample_nodes`` for ``b`` clouds of ``n`` points, in
     its order, on the generator's device: the subset rows ``(B, sub)``,
     then the FPS seed rows ``(B * parallel,)`` int32."""
-    sub, parallel = _node_shapes(n, node_num, subsample_ratio, parallel)
-    subset = _subset_rows(b, n, sub, generator)
-    first = _draw_first(b * parallel, sub // parallel, generator,
-                        generator.device)
-    return subset, first
+    _, parallel = _node_shapes(n, node_num, subsample_ratio, parallel)
+    dev = generator.device
+    keys = torch.empty((b, n), device=dev)
+    first = torch.empty((b * parallel,), dtype=torch.int64, device=dev)
+    draw_node_uniforms(keys, first, node_num, subsample_ratio, parallel,
+                       generator=generator)
+    return draws_from_uniforms(keys, first, node_num, subsample_ratio,
+                               parallel)
+
+
+def draw_node_uniforms(keys: Tensor, first: Tensor, node_num: int,
+                       subsample_ratio: int = 4, parallel: int = 1, *,
+                       generator: torch.Generator) -> None:
+    """The random numbers of ``node_draws``, written in place, in its
+    order: the subset's sort keys ``keys (B, N)`` (``torch.rand``'s
+    uniforms) and the FPS seed rows ``first (B * parallel,)`` int64
+    (``torch.randint``'s). ``torch.rand`` and ``torch.randint`` are these
+    fills of a new tensor, so they take the same numbers from
+    ``generator``."""
+    sub, parallel = _node_shapes(keys.shape[1], node_num, subsample_ratio,
+                                 parallel)
+    keys.uniform_(generator=generator)
+    first.random_(0, sub // parallel, generator=generator)
+
+
+def draws_from_uniforms(keys: Tensor, first: Tensor, node_num: int,
+                        subsample_ratio: int = 4, parallel: int = 1
+                        ) -> Tuple[Tensor, Tensor]:
+    """``node_draws``' subset rows ``(B, sub)`` and int32 FPS seed rows
+    from ``draw_node_uniforms``' numbers: the first ``sub`` rows of the
+    keys' ascending order."""
+    sub, _ = _node_shapes(keys.shape[1], node_num, subsample_ratio, parallel)
+    return keys.argsort(dim=1)[:, :sub], first.int()
 
 
 def sample_nodes(points: Tensor, node_num: int, subsample_ratio: int = 4,
@@ -122,14 +121,16 @@ def sample_nodes(points: Tensor, node_num: int, subsample_ratio: int = 4,
     """Nodes ``(B, node_num, 3)``: FPS over a random subset of
     ``max(node_num, N // subsample_ratio)`` rows. The subset's rows are in
     random order, so ``parallel`` bucketing is a random partition; it falls
-    back to exact FPS when the factor does not divide the shapes. Draws
-    not given come from ``generator`` (``node_draws``)."""
+    back to exact FPS when the factor does not divide the shapes. Where
+    neither draw is given, both come from ``generator`` (``node_draws``)."""
     b, n = points.shape[:2]
     if subset_idx is None and first is None and generator is not None:
         subset_idx, first = node_draws(b, n, node_num, subsample_ratio,
                                        parallel, generator=generator)
+    if subset_idx is None or first is None:
+        raise ValueError("pass both draws `subset_idx` and `first`, or "
+                         "neither and a torch.Generator")
     sub, parallel = _node_shapes(n, node_num, subsample_ratio, parallel)
-    subset = random_subset(points, sub, idx=subset_idx, generator=generator)
-    nodes, _ = farthest_point_sampling(subset, node_num, parallel, first=first,
-                                       generator=generator)
+    subset = random_subset(points, sub, idx=subset_idx)
+    nodes, _ = farthest_point_sampling(subset, node_num, parallel, first=first)
     return nodes

@@ -125,7 +125,8 @@ class Throughput:
 class SpanRecord:
     """The spans opened under ``recording()``: ``spans`` ``[(name, start,
     end)]`` in the order they opened, ``start`` and ``end`` the CUDA events
-    recorded at the span's edges once CUDA is initialised, else None."""
+    recorded at the span's edges once CUDA is initialised, else None (also
+    for a span inside a CUDA graph's capture)."""
 
     def __init__(self):
         self.spans: List[Tuple[str, object, object]] = []
@@ -186,7 +187,9 @@ class span:
             self._scope.__enter__()
         if _record is not None:
             start = None
-            if torch.cuda.is_initialized():
+            # a span captured into a CUDA graph has no device time of its own
+            if (torch.cuda.is_initialized()
+                    and not torch.cuda.is_current_stream_capturing()):
                 start = torch.cuda.Event(enable_timing=True)
                 self._end = torch.cuda.Event(enable_timing=True)
                 start.record()
