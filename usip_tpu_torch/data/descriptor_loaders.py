@@ -1,6 +1,8 @@
 """Descriptor (anchor/positive) dataset loaders and in-batch negative mining
 (counterpart of ``usip_tpu/data/descriptor_loaders.py``; the port keeps its
-own copy, held equal to usip_tpu's by ``tests/test_torch_host.py``).
+own copy, held equal to usip_tpu's by ``tests/test_torch_host.py``, and
+adds a native pair batch path to the KITTI loader, whose draws are its
+own).
 
 Reference semantics:
   * oxford: positive = random scan from the anchor's pos_list; negatives mined
@@ -19,7 +21,7 @@ from __future__ import annotations
 
 import os
 import pickle
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -27,7 +29,8 @@ from usip_tpu_torch.config import DataConfig
 from usip_tpu_torch.data.augment import coordinate_enu_to_cam
 from usip_tpu_torch.data.common import (relative_translation_norm,
                                         split_pc_sn, subsample_fixed)
-from usip_tpu_torch.data.loaders import KittiDataset, parse_relative_txt
+from usip_tpu_torch.data.loaders import (KittiDataset, SiameseDetectorDataset,
+                                         parse_relative_txt)
 
 
 class OxfordDescriptorDataset:
@@ -103,14 +106,52 @@ class OxfordDescriptorDataset:
 
 
 class KittiDescriptorDataset:
-    """Anchor + nearby positive (pose search); pose-distance negative mining."""
+    """Anchor + nearby positive (pose search); pose-distance negative mining.
+
+    The split's poses are read once, at construction: ``poses`` ``(len, 4,
+    4)`` as stored, and ``seqs`` ``(len,)``, the sequence of each index.
+    The positive search and the items read them there.
+
+    Two paths, as the detector datasets have (``data/loaders.py``). By
+    default ``get_batch`` assembles a whole pair batch: the positives are
+    searched on the host with the dataset's Generator, in batch order, then
+    the Generator draws one seed for the anchors and one for the positives
+    (``_item_seed``), and two calls of the native library's thread pool load,
+    subsample and split the clouds, item b drawing from ``seed + b * 7919``,
+    encoded to the wire there. usip_tpu has no such pair path, so these
+    batches are the port's own draws. Where the library is not built, or the
+    scans are radius-cropped, ``get_batch`` returns None and the loader
+    fetches items through ``__getitem__``, every draw from the dataset's
+    Generator in usip_tpu's order: item for item usip_tpu's.
+
+    The loader's producer thread makes those draws while the main thread
+    mines the negatives, so the miner draws from a Generator of its own
+    (``_miner_rng``, seeded from ``seed``) where usip_tpu's shares the
+    dataset's: a seed then gives the same batches and negatives however the
+    two threads interleave.
+
+    ``counts``: ``native_batches`` (batches ``get_batch`` assembled),
+    ``numpy_items`` (items ``__getitem__`` assembled) and
+    ``positive_fallbacks`` (searches that found no scan within
+    ``positive_radius`` and paired the anchor with itself).
+    """
+
+    _item_seed = SiameseDetectorDataset._item_seed
+    _wire_numpy_dtype = SiameseDetectorDataset._wire_numpy_dtype
 
     def __init__(self, cfg: DataConfig, mode: str, sn_len: int = 4, seed: int = 0):
         self.cfg = cfg
         self.sn_len = sn_len
         self._rng = np.random.default_rng(seed)
+        self._miner_rng = np.random.default_rng((seed, 1))
         # reuse the detector dataset's sequence indexing + loading
         self.base = KittiDataset(cfg, mode, sn_len=sn_len, seed=seed)
+        table = [self.base.load_pose(i) for i in range(len(self.base))]
+        self.seqs = np.array([seq for seq, _ in table], np.int64)
+        self.poses = (np.stack([pose for _, pose in table]) if table
+                      else np.zeros((0, 4, 4)))
+        self.counts = {"native_batches": 0, "numpy_items": 0,
+                       "positive_fallbacks": 0}
 
     def __len__(self):
         return len(self.base)
@@ -119,14 +160,14 @@ class KittiDescriptorDataset:
         """Bounded random search for a scan within positive_radius
         (kitti_descriptor_loader.py:154-190), deadlock-guarded."""
         i, seq, in_seq = self.base.locate(index)
-        _, pose = self.base.load_pose(index)
+        pose = self.poses[index]
         interval = int(self.cfg.positive_radius / 0.8 * 2)
         lo = max(in_seq - interval, 0)
         hi = min(in_seq + interval, self.base.counts[i] - 1)
         start = 0 if i == 0 else self.base.cum[i - 1]
         for _ in range(interval * 3):
             cand = int(rng.integers(lo, hi + 1))
-            _, cand_pose = self.base.load_pose(start + cand)
+            cand_pose = self.poses[start + cand]
             distance = float(np.linalg.norm((cand_pose - pose)[0:3, 3]))
             if distance < self.cfg.positive_radius:
                 return start + cand
@@ -134,6 +175,7 @@ class KittiDescriptorDataset:
                 lo = cand + 1
             else:
                 hi = cand - 1
+        self.counts["positive_fallbacks"] += 1
         return index  # fall back to self
 
     def __getitem__(self, index: int) -> Dict[str, np.ndarray]:
@@ -141,18 +183,48 @@ class KittiDescriptorDataset:
         anc_pc, anc_sn = self.base.sample_instance(rng, index)
         pos_index = self._find_positive(rng, index)
         pos_pc, pos_sn = self.base.sample_instance(rng, pos_index)
-        seq, pose = self.base.load_pose(index)
+        self.counts["numpy_items"] += 1
         return {"anc_pc": anc_pc, "anc_sn": anc_sn,
                 "pos_pc": pos_pc, "pos_sn": pos_sn,
-                "seq": np.int64(seq), "pose": pose.astype(np.float32),
+                "seq": self.seqs[index],
+                "pose": self.poses[index].astype(np.float32),
                 "index": np.int64(index)}
+
+    def get_batch(self, indices: Sequence[int], offset: int = 0
+                  ) -> Optional[Dict[str, np.ndarray]]:
+        """The pair batch of ``indices`` through the native library, with
+        the keys, shapes and metadata of the collated ``__getitem__`` items
+        and the clouds in the wire's dtype; None where the library is not
+        built or the scans are cropped. ``indices`` sit at ``offset`` in the
+        global batch."""
+        from usip_tpu_torch import native
+        if not native.available():
+            return None
+        anchors = [int(i) for i in indices]
+        anc_paths = [self.base.item_path(i) for i in anchors]
+        if any(p is None for p in anc_paths):
+            return None
+        positives = [self._find_positive(self._rng, i) for i in anchors]
+        pos_paths = [self.base.item_path(i) for i in positives]
+        n, dt = self.cfg.input_pc_num, self._wire_numpy_dtype()
+        anc_pc, anc_sn = native.batch_load_subsample(
+            anc_paths, n, self.sn_len, seed=self._item_seed(offset), dtype=dt)
+        pos_pc, pos_sn = native.batch_load_subsample(
+            pos_paths, n, self.sn_len, seed=self._item_seed(offset), dtype=dt)
+        self.counts["native_batches"] += 1
+        return {"anc_pc": anc_pc, "anc_sn": anc_sn,
+                "pos_pc": pos_pc, "pos_sn": pos_sn,
+                "seq": self.seqs[anchors],
+                "pose": self.poses[anchors].astype(np.float32),
+                "index": np.array(anchors, np.int64)}
 
     def mine_negative_indices(self, seqs: np.ndarray, poses: np.ndarray,
                               rng: Optional[np.random.Generator] = None
                               ) -> np.ndarray:
         """In-batch negatives: different sequence, or pose distance beyond
-        negative_radius (kitti_descriptor_loader.py:278-317)."""
-        rng = rng or self._rng
+        negative_radius (kitti_descriptor_loader.py:278-317); without
+        ``rng`` the miner's own Generator."""
+        rng = rng or self._miner_rng
         b = len(seqs)
         neg = np.zeros(b, np.int64)
         for i in range(b):

@@ -59,7 +59,9 @@ class ForwardGraph:
     runs on one stream and its caller copies the outputs it keeps before the
     next: the inputs live outside the pool, so nothing of the pool outlives a
     replay. The graph's kernel launches (``kernels.LAUNCHES``) count once a
-    replay and never at the capture, which runs nothing."""
+    replay and never at the capture, which runs nothing. The capture leaves
+    other threads free to work on the device meanwhile (``torch.cuda.graph``'s
+    ``'thread_local'`` mode), as a train loader's copies do."""
 
     def __init__(self, forward: Callable, inputs: Tuple[torch.Tensor, ...],
                  pool):
@@ -76,7 +78,8 @@ class ForwardGraph:
             stream.wait_stream(side)
             before = dict(kernels.LAUNCHES)
             self.graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(self.graph, pool=pool):
+            with torch.cuda.graph(self.graph, pool=pool,
+                                  capture_error_mode="thread_local"):
                 self.outputs = forward(*self.inputs)
             self.launches = kernels.take_launches(kernels.LAUNCHES, before)
 

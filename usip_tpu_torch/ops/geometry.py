@@ -76,11 +76,13 @@ def gather_points(points: Tensor, idx: Tensor) -> Tensor:
 
 def safe_sqrt(x: Tensor, eps: float = 1e-12) -> Tensor:
     """``sqrt(max(x, eps))`` for ``x > 0`` and 0 for ``x <= 0``, with a zero
-    (not NaN) gradient at 0: usip_tpu's ``safe_sqrt``."""
+    (not NaN) gradient at 0: usip_tpu's ``safe_sqrt``. ``eps`` is filled
+    on the device (no copy from the host, which a CUDA graph's capture
+    refuses)."""
     is_zero = x <= 0.0
     masked = torch.where(is_zero, torch.ones_like(x), x)
     return torch.where(is_zero, torch.zeros_like(x),
-                       torch.sqrt(torch.maximum(masked, x.new_tensor(eps))))
+                       torch.sqrt(torch.maximum(masked, x.new_full((), eps))))
 
 
 def pairwise_dist(a: Tensor, b: Tensor) -> Tensor:

@@ -11,6 +11,11 @@ descriptor's from ``train.seed + 7``, the steps' draws from ``train.seed +
 13`` (``loop.stream_generator``, one generator a step), the fallback
 negatives from ``train.seed + 21``.
 
+On one card the train step's device part replays as a CUDA graph
+(``make_descriptor_train_step``'s ``graph``), and one prefetch of the train
+batches runs from epoch to epoch (``_train_pass``), so that neither the
+host's launches nor a loader starting anew each epoch hold the card back.
+
 Data parallelism (``train.num_devices > 1``) as in ``loop.py``: each rank's
 loader yields its rows, and the negatives index the global batch: the
 miner runs on every rank over the global batch's metadata (gathered from
@@ -76,6 +81,23 @@ class _SyntheticPairDataset:
                 "index": np.int64(index)}
 
 
+_PASS_END = "_pass_end"
+
+
+class _Passes:
+    """A loader's batches pass after pass, each pass closed by a marker
+    batch ``{_PASS_END: empty}`` (a batch of 0 items to
+    ``prefetch_batches``)."""
+
+    def __init__(self, loader):
+        self.loader = loader
+
+    def __iter__(self):
+        while True:
+            yield from self.loader
+            yield {_PASS_END: np.zeros(0)}
+
+
 class DescriptorEngine:
     """Descriptor training on one device, or data-parallel over the ranks
     of ``train.num_devices`` (the reference's train_descriptor.py
@@ -135,8 +157,10 @@ class DescriptorEngine:
         if self.mesh is not None:
             from usip_tpu_torch.parallel.mesh import replicate
             replicate(self.mesh, self.state.model)
-        self.step_fn = make_descriptor_train_step(cfg, self.use_cgf,
-                                                  mesh=self.mesh)
+        # on one card the step's device part replays as a CUDA graph
+        self.step_fn = make_descriptor_train_step(
+            cfg, self.use_cgf, mesh=self.mesh,
+            graph=self.device.type == "cuda")
         # the same objective without the step: the reference's per-epoch
         # descriptor test sweep
         self.eval_fn = make_descriptor_train_step(cfg, self.use_cgf,
@@ -152,6 +176,9 @@ class DescriptorEngine:
         # abort after consecutive non-finite losses, as DetectorEngine does
         self.max_nonfinite = 5
         self._nonfinite_streak = 0
+        # the train batches' prefetch, kept from one epoch to the next
+        self._train_stream = None
+        self._mid_pass = False
 
     def resume(self, path: str) -> int:
         """Exact resume of the descriptor's state (the frozen detector comes
@@ -175,7 +202,10 @@ class DescriptorEngine:
         """The host pair batch packed into one buffer in the wire dtype
         (``pack_pair_batch``) and put on the device, and the batch's other
         fields (the miner's input); the negatives come after
-        (``_with_negatives``), on the main thread."""
+        (``_with_negatives``), on the main thread. A pass's end marker
+        gives None."""
+        if _PASS_END in raw:
+            return None
         packed = pack_pair_batch(raw["anc_pc"], raw["anc_sn"], raw["pos_pc"],
                                  raw["pos_sn"], np.zeros(0, np.int32),
                                  wire=self.cfg.data.wire_dtype)
@@ -210,10 +240,40 @@ class DescriptorEngine:
             neg_idx = ((np.arange(b) + 1 + self._np_rng.integers(0, b - 1))
                        % b if b > 1 else np.zeros(b, np.int64))
         neg = torch.as_tensor(np.asarray(neg_idx), dtype=torch.long)
+        if self.device.type == "cuda":
+            # queued from pinned memory: the host does not wait for the
+            # device's earlier steps
+            neg = neg.pin_memory().to(self.device, non_blocking=True)
         return PackedPairBatch(x, neg.to(self.device))
 
     def _generator(self, role: int, counter: int) -> torch.Generator:
         return stream_generator(self.device, self._seed, role, counter)
+
+    def _train_pass(self):
+        """One pass of the train loader as ``(device batch, size)``. The
+        prefetch runs on into the next pass while this one's last steps
+        run, so an epoch starts on batches already on the device; the
+        batches and their draws are those of one prefetch a pass, in the
+        same order. Where the last pass was left before its end, the
+        prefetch starts anew."""
+        if self._mid_pass:
+            self.close()
+        if self._train_stream is None:
+            self._train_stream = prefetch_batches(_Passes(self.train_loader),
+                                                  self._device_batch)
+        self._mid_pass = True
+        for item, batch_size in self._train_stream:
+            if item is None:
+                self._mid_pass = False
+                return
+            yield item, batch_size
+
+    def close(self) -> None:
+        """Stop the train batches' prefetch (``fit`` does at its end)."""
+        self._mid_pass = False
+        if self._train_stream is not None:
+            stream, self._train_stream = self._train_stream, None
+            stream.close()
 
     def train_epoch(self, epoch: int) -> Dict[str, float]:
         cfg = self.cfg
@@ -223,8 +283,7 @@ class DescriptorEngine:
         averages = RunningAverages()
         self.throughput.reset()
         pending = []
-        for i, (item, batch_size) in enumerate(
-                prefetch_batches(self.train_loader, self._device_batch)):
+        for i, (item, batch_size) in enumerate(self._train_pass()):
             batch = self._with_negatives(item)
             gen = self._generator(ROLE_TRAIN,
                                   cfg.train.seed + 1_000_000 * epoch + i)
@@ -291,6 +350,12 @@ class DescriptorEngine:
 
     def fit(self, epochs: Optional[int] = None):
         epochs = epochs or self.cfg.train.epochs
+        try:
+            return self._fit(epochs)
+        finally:
+            self.close()
+
+    def _fit(self, epochs: int):
         for epoch in range(self.start_epoch, epochs):
             avg = self.train_epoch(epoch)
             self.logger.log(self.state.step, epoch, avg, prefix="desc_epoch")

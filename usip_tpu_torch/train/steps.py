@@ -51,13 +51,15 @@ from usip_tpu_torch.data.augment import (SE3, AugmentDraws, SE3Draws,
                                          augment_draws, height_scale_draws,
                                          random_height_scale, random_se3,
                                          se3_draws, shared_augment)
+from usip_tpu_torch.inference import ForwardGraph
 from usip_tpu_torch.nn.layers import (bn_momentum_schedule, set_bn_momentum,
                                       set_bn_process_group)
 from usip_tpu_torch.losses import CGFDraws
 from usip_tpu_torch.parallel.collectives import all_gather, all_reduce_grads
 from usip_tpu_torch.ops import gather_points, sample_nodes
 from usip_tpu_torch.ops.grouping import ball_priority_draws
-from usip_tpu_torch.ops.sampling import node_draws
+from usip_tpu_torch.ops.sampling import (_node_shapes, draw_node_uniforms,
+                                         draws_from_uniforms, node_draws)
 from usip_tpu_torch.ops.geometry import apply_se3
 from usip_tpu_torch.train.state import TrainState
 from usip_tpu_torch.utils.logging import span
@@ -528,12 +530,14 @@ def pack_pair_batch(anc_pc, anc_sn, pos_pc, pos_sn, neg_idx,
     """Host-side (numpy) encode of the packed pair wire: fp32 for
     ``wire='float32'``, fp16 for anything else (usip_tpu's rule)."""
     dt = np.float32 if wire == "float32" else np.float16
-    anc = np.concatenate([np.asarray(anc_pc, dt), np.asarray(anc_sn, dt)],
-                         axis=-1)
-    pos = np.concatenate([np.asarray(pos_pc, dt), np.asarray(pos_sn, dt)],
-                         axis=-1)
-    return PackedPairBatch(x=np.stack([anc, pos], axis=1),
-                           neg_idx=np.asarray(neg_idx, np.int32))
+    anc_pc, anc_sn = np.asarray(anc_pc), np.asarray(anc_sn)
+    b, n = anc_pc.shape[:2]
+    # one pass over the clouds: each written once into its place, cast to
+    # the wire where it is not in it already
+    x = np.empty((b, 2, n, 3 + anc_sn.shape[-1]), dt)
+    x[:, 0, :, :3], x[:, 0, :, 3:] = anc_pc, anc_sn
+    x[:, 1, :, :3], x[:, 1, :, 3:] = pos_pc, pos_sn
+    return PackedPairBatch(x=x, neg_idx=np.asarray(neg_idx, np.int32))
 
 
 def _as_pair(batch):
@@ -563,8 +567,13 @@ class DescriptorDraws(NamedTuple):
     cgf: Optional[CGFDraws] = None
 
 
+_DESCRIPTOR_METRICS = ("loss", "active_percentage", "sigma_mean",
+                       "sigma_std", "sigma_min", "sigma_max", "grad_norm")
+
+
 def make_descriptor_train_step(cfg: Config, use_cgf: bool = False,
-                               eval_only: bool = False, mesh=None):
+                               eval_only: bool = False, mesh=None,
+                               graph: bool = False):
     """``step(state, detector, batch, epoch, *, draws=None,
     generator=None) -> metrics``: one descriptor train step that updates
     ``state`` (the descriptor, its Adam, the step count) in place; with
@@ -584,6 +593,17 @@ def make_descriptor_train_step(cfg: Config, use_cgf: bool = False,
     ball queries), ``.describe``, ``.losses``, then ``.backward`` and
     ``.optimizer`` when it steps.
 
+    ``graph``: a scan-triplet train step on CUDA, without a mesh or a
+    height scale, that draws from ``generator`` (``draws`` None) replays
+    its device part, from the node sampling to the gradients and their
+    norm, as one CUDA graph (``inference.ForwardGraph``) for each shape of
+    the packed batch and BatchNorm momentum. The step then makes its draws
+    eagerly, in the order and with the numbers of ``descriptor_draws``,
+    straight into the graph's inputs, copies the batch there, replays, and
+    runs Adam eagerly on the graph's gradients: the same step, in three
+    spans, ``usip.step.inputs``, ``.replay`` and ``.optimizer``. A step
+    handed its draws, or any other, runs eagerly.
+
     ``mesh``: data parallelism (the module's docstring): ``batch`` holds
     this rank's pairs and the global batch's ``neg_idx``; ``draws`` (where
     given) are the global batch's. The descriptors, sigmas and keypoints
@@ -593,27 +613,30 @@ def make_descriptor_train_step(cfg: Config, use_cgf: bool = False,
         raise NotImplementedError(
             "use_cgf with augment.height_scale: the post-detection height "
             "scale does not commute with the CGF GT alignment; disable one")
-    aug, loss_cfg = cfg.augment, cfg.loss
+    aug, loss_cfg, data = cfg.augment, cfg.loss, cfg.data
+    train = not eval_only
 
-    def train_step(state: TrainState, detector, batch, epoch: int, *,
-                   draws: Optional[DescriptorDraws] = None,
-                   generator: Optional[torch.Generator] = None):
+    def prepare(batch, d):
+        """The pair in fp32, both clouds' nodes and the CGF path's GT
+        transform (None on the scan path)."""
+        anc_pc, anc_sn, pos_pc, pos_sn, neg_idx = _as_pair(batch)
+        b = anc_pc.shape[0]
+        anc_node = _nodes(anc_pc, cfg, d.nodes_anc)
+        gt = None
+        if use_cgf:
+            pos_pc, pos_sn, _, gt = random_se3(
+                pos_pc, pos_sn, pos_pc.new_zeros((b, 1, 3)),
+                rot_type=aug.rot_type, draws=d.se3)
+        pos_node = _nodes(pos_pc, cfg, d.nodes_pos)
+        return anc_pc, anc_sn, pos_pc, pos_sn, neg_idx, anc_node, pos_node, gt
+
+    def objective(state, detector, inputs, d, d_global, epoch):
+        """The frozen detector, the ball queries, the descriptor, the loss
+        and, in training, the gradients and their norm: the metrics."""
         model, opt, step = state.model, state.optimizer, state.step
-        with span("usip.step.inputs", step):
-            anc_pc, anc_sn, pos_pc, pos_sn, neg_idx = _as_pair(batch)
-            b = anc_pc.shape[0]
-            d, d_global = _local_draws(
-                mesh, b, draws,
-                lambda gb, given: descriptor_draws(
-                    cfg, gb, anc_pc.shape[1], generator, use_cgf, eval_only,
-                    given))
-            anc_node = _nodes(anc_pc, cfg, d.nodes_anc)
-            gt = None
-            if use_cgf:
-                pos_pc, pos_sn, _, gt = random_se3(
-                    pos_pc, pos_sn, pos_pc.new_zeros((b, 1, 3)),
-                    rot_type=aug.rot_type, draws=d.se3)
-            pos_node = _nodes(pos_pc, cfg, d.nodes_pos)
+        anc_pc, anc_sn, pos_pc, pos_sn, neg_idx, anc_node, pos_node, gt = (
+            inputs)
+        b = anc_pc.shape[0]
 
         # the frozen detector, once over both clouds (run_model_siamese)
         with span("usip.step.detector", step):
@@ -632,7 +655,6 @@ def make_descriptor_train_step(cfg: Config, use_cgf: bool = False,
         # the two ball queries (anchor's priorities drawn first), then the
         # trunk twice, anchor then positive: each call normalises with its
         # own batch statistics and updates the running ones in turn
-        train = not eval_only
         with span("usip.step.group", step), torch.set_grad_enabled(train):
             model.train(train)
             set_bn_process_group(model, mesh)
@@ -690,9 +712,134 @@ def make_descriptor_train_step(cfg: Config, use_cgf: bool = False,
                 total.backward()
                 sum_grads(model, mesh)
                 metrics["grad_norm"] = grad_global_norm(model)
+        return metrics
+
+    graphs: Dict[tuple, "_DescriptorStepGraph"] = {}
+    graph = (graph and train and mesh is None and not use_cgf
+             and not aug.height_scale)
+
+    def replayed(state, detector, batch, epoch, generator):
+        """The step's device part as a replay of its graph (``graph``)."""
+        model, step = state.model, state.step
+        momentum = bn_momentum_schedule(
+            cfg.train.bn_momentum, epoch, cfg.train.bn_momentum_decay_step,
+            cfg.train.bn_momentum_decay)
+        key = (id(model), id(detector), tuple(batch.x.shape), batch.x.dtype,
+               tuple(batch.neg_idx.shape), momentum)
+        with span("usip.step.inputs", step):
+            g = graphs.get(key)
+            if g is None:
+                g = graphs[key] = _DescriptorStepGraph(
+                    cfg, state, detector, batch, generator,
+                    lambda d, inputs: objective(
+                        state, detector, prepare(inputs, d), d, d, epoch))
+            else:
+                g.stage(batch, generator)
+        with span("usip.step.replay", step):
+            return g.replay(model)
+
+    def train_step(state: TrainState, detector, batch, epoch: int, *,
+                   draws: Optional[DescriptorDraws] = None,
+                   generator: Optional[torch.Generator] = None):
+        opt, step = state.optimizer, state.step
+        if (graph and draws is None and generator is not None
+                and isinstance(batch, PackedPairBatch) and batch.x.is_cuda):
+            metrics = replayed(state, detector, batch, epoch, generator)
+        else:
+            with span("usip.step.inputs", step):
+                x = batch.x if isinstance(batch, PackedPairBatch) else None
+                b, n = ((x.shape[0], x.shape[2]) if x is not None
+                        else batch.anc_pc.shape[:2])
+                d, d_global = _local_draws(
+                    mesh, b, draws,
+                    lambda gb, given: descriptor_draws(
+                        cfg, gb, n, generator, use_cgf, eval_only, given))
+                inputs = prepare(batch, d)
+            metrics = objective(state, detector, inputs, d, d_global, epoch)
+        if train:
             with span("usip.step.optimizer", step):
                 opt.step()
                 state.step += 1
         return metrics
 
     return train_step
+
+
+class _DescriptorStepGraph:
+    """The device part of a scan-triplet descriptor train step as one CUDA
+    graph (``make_descriptor_train_step``'s ``graph``), for one shape of
+    the packed batch.
+
+    Its inputs: the packed pair ``x``, ``neg_idx``, the node draws'
+    uniforms of both clouds (``draw_node_uniforms``: sort keys ``(B, N)``
+    and FPS seed rows) and the ball priorities ``(B, N)``; its output, the
+    metrics stacked. The node draws' argsort runs inside it, as
+    ``draws_from_uniforms``. The backward sets the descriptor's gradients
+    anew in the graph's memory, where ``replay`` points ``.grad`` back at
+    them for Adam. ``ForwardGraph`` runs the step 3 times before the
+    capture, so the descriptor's BatchNorm statistics are put back after
+    it."""
+
+    def __init__(self, cfg: Config, state: TrainState, detector,
+                 batch: "PackedPairBatch", generator: torch.Generator,
+                 objective):
+        data = cfg.data
+        self.node_args = (data.node_num, data.fps_subsample_ratio,
+                          data.fps_parallel)
+        b, n = batch.x.shape[0], batch.x.shape[2]
+        _, parallel = _node_shapes(n, *self.node_args)
+        dev = batch.x.device
+        draws = []
+        for _ in range(2):
+            draws += [torch.empty((b, n), device=dev),
+                      torch.empty((b * parallel,), dtype=torch.int64,
+                                  device=dev)]
+        draws += [torch.empty((b, n), device=dev) for _ in range(2)]
+        self._draw(draws, generator)
+
+        def device_step(x, neg_idx, keys_anc, first_anc, keys_pos, first_pos,
+                        ball_anc, ball_pos):
+            d = DescriptorDraws(
+                nodes_anc=NodeDraws(*draws_from_uniforms(
+                    keys_anc, first_anc, *self.node_args)),
+                nodes_pos=NodeDraws(*draws_from_uniforms(
+                    keys_pos, first_pos, *self.node_args)),
+                ball_anc=ball_anc, ball_pos=ball_pos)
+            metrics = objective(d, PackedPairBatch(x, neg_idx))
+            return torch.stack([metrics[k].float()
+                                for k in _DESCRIPTOR_METRICS])
+
+        model = state.model
+        kept = [t.detach().clone() for t in model.buffers()]
+        self.graph = ForwardGraph(device_step,
+                                  (batch.x, batch.neg_idx, *draws), None)
+        with torch.no_grad():
+            for t, k in zip(model.buffers(), kept):
+                t.copy_(k)
+        self.grads = [p.grad for p in model.parameters()]
+
+    def _draw(self, draws, generator: torch.Generator) -> None:
+        """``descriptor_draws``' numbers, in its order, into ``draws``."""
+        keys_anc, first_anc, keys_pos, first_pos, ball_anc, ball_pos = draws
+        draw_node_uniforms(keys_anc, first_anc, *self.node_args,
+                           generator=generator)
+        draw_node_uniforms(keys_pos, first_pos, *self.node_args,
+                           generator=generator)
+        ball_anc.uniform_(generator=generator)
+        ball_pos.uniform_(generator=generator)
+
+    def stage(self, batch: "PackedPairBatch",
+              generator: torch.Generator) -> None:
+        """Write the batch and the step's draws into the graph's inputs."""
+        x, neg_idx, *draws = self.graph.inputs
+        x.copy_(batch.x)
+        neg_idx.copy_(batch.neg_idx)
+        self._draw(draws, generator)
+
+    def replay(self, model) -> Dict[str, Tensor]:
+        """The step on the staged inputs: its metrics (copies), and the
+        descriptor's ``.grad`` on the new gradients."""
+        values = self.graph.replay().clone()
+        for p, g in zip(model.parameters(), self.grads):
+            p.grad = g
+        return {k: values[i] for i, k in enumerate(_DESCRIPTOR_METRICS)}
