@@ -199,7 +199,10 @@ class DetectorEngine:
         self.state = init_detector_state(cfg, cfg.train.seed, self.device)
         if self.mesh is not None:
             replicate(self.mesh, self.state.model)
-        self.train_step = make_detector_train_step(cfg, self.mesh)
+        # on one card the step's device part replays as a CUDA graph
+        self.train_step = make_detector_train_step(
+            cfg, self.mesh,
+            graph=self.device.type == "cuda" and self.mesh is None)
         self.eval_step = make_detector_eval_step(cfg, self.mesh)
         # clouds a step: every rank's rows, both siamese copies
         self._ranks = 1 if self.mesh is None else self.mesh.size

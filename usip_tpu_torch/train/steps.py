@@ -6,9 +6,10 @@ dropout, height scale, FPS node sampling, shared augmentation, the GT
 transform of the dst copy), one forward over both copies concatenated
 (keypoint_detector.py:141-156), the chamfer and keypoint-on-cloud losses,
 the backward, Adam. usip_tpu compiles it into one XLA program; the port runs
-it eagerly on the card, its kernels being FPS (K1), min/argmin (K2: the
-assignment, keypoint -> cloud and the keypoint chamfer), smallest-k (K4,
-the node kNN) and scatter-max (K5, forward).
+it eagerly, on one card its device part replayed as one CUDA graph
+(``make_detector_train_step``'s ``graph``). Its kernels: FPS (K1),
+min/argmin (K2: the assignment, keypoint -> cloud and the keypoint
+chamfer), smallest-k (K4, the node kNN) and scatter-max (K5, forward).
 
 The descriptor's step (``make_descriptor_train_step``): the frozen
 detector's eval forward once over both clouds, then the descriptor twice in
@@ -403,9 +404,14 @@ def grad_global_norm(model) -> Tensor:
     return global_norm(p.grad for p in model.parameters())
 
 
+_DETECTOR_METRICS = ("loss", "chamfer", "chamfer_pure", "chamfer_weighted",
+                     "keypoint_on_pc", "sigma_mean", "sigma_min", "sigma_max",
+                     "grad_norm")
+
+
 def make_detector_train_step(cfg: Config, mesh=None, *,
                              reduce_grads=sum_grads,
-                             grad_norm=grad_global_norm):
+                             grad_norm=grad_global_norm, graph: bool = False):
     """``step(state, batch, epoch, *, draws=None, generator=None) ->
     metrics``: one siamese train step that updates ``state`` (the model's
     parameters and BatchNorm statistics, the Adam state, the step count) in
@@ -424,27 +430,46 @@ def make_detector_train_step(cfg: Config, mesh=None, *,
     ``reduce_grads(model, mesh)`` and ``grad_norm(model)`` reduce the
     gradients after the backward and give the metric (a model whose
     parameters are cut over ranks passes its own:
-    ``tensor_parallel.make_tp_train_step``)."""
+    ``tensor_parallel.make_tp_train_step``).
 
-    def train_step(state: TrainState, batch, epoch: int, *,
-                   draws: Optional[DetectorDraws] = None,
-                   generator: Optional[torch.Generator] = None,
-                   _inputs=None):
+    ``graph``: a step on a CUDA batch, without a mesh, ``_inputs`` or
+    gradient hooks of its own, replays its device part, from the input
+    preparation to the gradients and their norm, as one CUDA graph
+    (``_DetectorStepGraph`` on ``inference.ForwardGraph``) for each batch
+    type, shape and dtype of the batch and of the completed draws, and
+    BatchNorm momentum. The step completes its draws eagerly, as the eager
+    step does (from ``generator``, or handed in as ``draws``), copies them
+    and the batch into the graph's inputs, replays, and runs Adam eagerly
+    on the graph's gradients: the same step, in three spans,
+    ``usip.step.inputs``, ``.replay`` and ``.optimizer``. Any other step
+    runs eagerly. The step's ``graph_counts`` (``captures``, ``replays``,
+    ``eager``) counts each kind of call."""
+    graphs: Dict[tuple, _DetectorStepGraph] = {}
+    counts = {"captures": 0, "replays": 0, "eager": 0}
+    graph = (graph and mesh is None and reduce_grads is sum_grads
+             and grad_norm is grad_global_norm)
+
+    def momentum_at(epoch: int) -> float:
+        return bn_momentum_schedule(
+            cfg.train.bn_momentum, epoch, cfg.train.bn_momentum_decay_step,
+            cfg.train.bn_momentum_decay)
+
+    def completed(batch, draws, generator) -> DetectorDraws:
+        """This rank's rows of the step's draws: ``draws`` completed from
+        ``generator`` at the global batch."""
+        return _local_draws(
+            mesh, batch[0].shape[0], draws,
+            lambda b, given: detector_draws(
+                cfg, b, batch[1].shape[-1], generator, True,
+                _parent_points(batch), given))[0]
+
+    def objective(state: TrainState, inputs, momentum: float
+                  ) -> Dict[str, Tensor]:
+        """The forward, losses and backward from the prepared inputs: the
+        metrics, the gradients' norm among them."""
         model, opt, step = state.model, state.optimizer, state.step
-        with span("usip.step.inputs", step):
-            if _inputs is None:
-                draws, _ = _local_draws(
-                    mesh, batch[0].shape[0], draws,
-                    lambda b, given: detector_draws(
-                        cfg, b, batch[1].shape[-1], generator, True,
-                        _parent_points(batch), given))
-                _inputs = _prepare_detector_inputs(batch, cfg, True, draws)
-            src, dst, gt = _inputs
-            set_bn_process_group(model, mesh)
+        src, dst, gt = inputs
         with span("usip.step.forward", step):
-            momentum = bn_momentum_schedule(
-                cfg.train.bn_momentum, epoch,
-                cfg.train.bn_momentum_decay_step, cfg.train.bn_momentum_decay)
             opt.zero_grad(set_to_none=True)
             src_out, dst_out = _siamese_apply(model, src, dst, True, momentum)
         with span("usip.step.losses", step):
@@ -455,12 +480,127 @@ def make_detector_train_step(cfg: Config, mesh=None, *,
             total.backward()
             reduce_grads(model, mesh)
             metrics["grad_norm"] = grad_norm(model)
+        return metrics
+
+    def replayed(state: TrainState, batch, epoch: int, draws, generator):
+        """The step's device part as a replay of its graph (``graph``)."""
+        model, step = state.model, state.step
+        momentum = momentum_at(epoch)
+        with span("usip.step.inputs", step):
+            draws = completed(batch, draws, generator)
+            set_bn_process_group(model, None)
+            key = (id(model), type(batch),
+                   tuple((t.shape, t.dtype) for t in batch),
+                   _draws_key(draws), momentum)
+            g = graphs.get(key)
+            if g is None:
+                g = graphs[key] = _DetectorStepGraph(
+                    model, batch, draws,
+                    lambda b, d: objective(
+                        state, _prepare_detector_inputs(b, cfg, True, d),
+                        momentum))
+                counts["captures"] += 1
+            else:
+                g.stage(batch, draws)
+                counts["replays"] += 1
+        with span("usip.step.replay", step):
+            return g.replay(model)
+
+    def train_step(state: TrainState, batch, epoch: int, *,
+                   draws: Optional[DetectorDraws] = None,
+                   generator: Optional[torch.Generator] = None,
+                   _inputs=None):
+        model, opt, step = state.model, state.optimizer, state.step
+        if graph and _inputs is None and batch[0].is_cuda:
+            metrics = replayed(state, batch, epoch, draws, generator)
+        else:
+            counts["eager"] += 1
+            with span("usip.step.inputs", step):
+                if _inputs is None:
+                    _inputs = _prepare_detector_inputs(
+                        batch, cfg, True, completed(batch, draws, generator))
+                set_bn_process_group(model, mesh)
+            metrics = objective(state, _inputs, momentum_at(epoch))
         with span("usip.step.optimizer", step):
             opt.step()
             state.step += 1
         return metrics
 
+    train_step.graph_counts = counts
     return train_step
+
+
+def _draws_key(x):
+    """The structure of a draws record with each tensor's shape and dtype:
+    what a step's CUDA graph is captured for."""
+    if x is None or torch.is_tensor(x):
+        return x if x is None else (tuple(x.shape), x.dtype)
+    return type(x), tuple(_draws_key(v) for v in x)
+
+
+def _draws_tensors(x) -> list:
+    """The tensors of a draws record, in the order of its fields."""
+    if x is None or torch.is_tensor(x):
+        return [] if x is None else [x]
+    return [t for v in x for t in _draws_tensors(v)]
+
+
+def _draws_like(like, tensors):
+    """The draws record of ``like``'s structure with its tensors taken in
+    order from the iterator ``tensors``."""
+    if like is None or torch.is_tensor(like):
+        return like if like is None else next(tensors)
+    parts = [_draws_like(v, tensors) for v in like]
+    return type(like)(*parts) if hasattr(like, "_fields") else type(like)(parts)
+
+
+class _DetectorStepGraph:
+    """The device part of a detector train step as one CUDA graph
+    (``make_detector_train_step``'s ``graph``), for one key: the batch's
+    type, shapes and dtypes, the completed draws' structure, shapes and
+    dtypes, and the BatchNorm momentum.
+
+    Its inputs: the batch's tensors and every tensor of the step's
+    completed ``DetectorDraws``, so that draws made from a generator and
+    draws handed in replay alike; its output, the metrics stacked. The
+    backward sets the model's gradients anew in the graph's memory, where
+    ``replay`` points ``.grad`` back at them for Adam. ``ForwardGraph``
+    runs the step 3 times before the capture, so the model's BatchNorm
+    statistics are put back after it."""
+
+    def __init__(self, model, batch, draws: DetectorDraws, objective):
+        dev = batch[0].device
+        fields = len(batch)
+
+        def device_step(*inputs):
+            metrics = objective(
+                type(batch)(*inputs[:fields]),
+                _draws_like(draws, iter(inputs[fields:])))
+            return torch.stack([metrics[k].float()
+                                for k in _DETECTOR_METRICS])
+
+        kept = [t.detach().clone() for t in model.buffers()]
+        self.graph = ForwardGraph(
+            device_step,
+            (*batch, *(t.to(dev) for t in _draws_tensors(draws))), None)
+        with torch.no_grad():
+            for t, k in zip(model.buffers(), kept):
+                t.copy_(k)
+        self.grads = [p.grad for p in model.parameters()]
+
+    def stage(self, batch, draws: DetectorDraws) -> None:
+        """Write the batch and the step's draws into the graph's inputs."""
+        for dst, src in zip(self.graph.inputs,
+                            (*batch, *_draws_tensors(draws))):
+            dst.copy_(src)
+
+    def replay(self, model) -> Dict[str, Tensor]:
+        """The step on the staged inputs: its metrics (copies), and the
+        model's ``.grad`` on the new gradients."""
+        values = self.graph.replay().clone()
+        for p, g in zip(model.parameters(), self.grads):
+            p.grad = g
+        return {k: values[i] for i, k in enumerate(_DETECTOR_METRICS)}
 
 
 def make_detector_loss_fn(cfg: Config, model):
