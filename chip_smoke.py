@@ -44,7 +44,8 @@ script exits nonzero without the final ``ok`` line:
    the bench protocol (bf16 presets) and the ball path's peak memory;
 6. trains the KITTI SOM detector at full width (batch 8: 16 clouds of
    16384 points, bf16 trunk): five steps of
-   ``usip_tpu_torch.train.make_detector_train_step`` on seeded synthetic
+   ``usip_tpu_torch.train.make_detector_train_step`` on its eager route
+   (``eager_detector``; the engine's step replays it) on seeded synthetic
    parent clouds with the launch counts reset before and read after (the
    train path must launch FPS, min/argmin, smallest-k and scatter-max),
    every loss and gradient norm finite; one fp32 step (batch 2) on the
@@ -72,8 +73,9 @@ script exits nonzero without the final ``ok`` line:
 9. the descriptor at the KITTI descriptor preset's full width (8 pairs of
    16384-point clouds, 256 keypoints a cloud, balls of 64 in radius 2, bf16
    trunk and balls, a frozen seeded KITTI SOM detector): five steps of
-   ``make_descriptor_train_step`` with the launch counts reset before and
-   read after (FPS, min/argmin, smallest-k and scatter-max must launch),
+   ``make_descriptor_train_step`` on its eager route (``eager_descriptor``)
+   with the launch counts reset before and read after (FPS, min/argmin,
+   smallest-k and scatter-max must launch),
    every loss and gradient norm finite; one fp32 step (batch 2) on the card
    against the CPU under deterministic algorithms, both describing the CPU
    detector's keypoints (``KeypointsFrom``); the step's time, clouds/s,
@@ -261,7 +263,7 @@ from usip_tpu_torch.train.checkpoint import (find_checkpoint,  # noqa: E402
 from usip_tpu_torch.train.loop import (DetectorEngine,  # noqa: E402
                                        init_detector_state)
 from usip_tpu_torch.data.synthetic import build_synthetic_kitti_tree  # noqa: E402
-from usip_tpu_torch.utils.logging import recording  # noqa: E402
+from usip_tpu_torch.utils.logging import recording, span  # noqa: E402
 from usip_tpu_torch.weights import (seeded_descriptor_state_dict,  # noqa: E402
                                     seeded_state_dict)
 from oxford_tree import build_oxford_tree  # noqa: E402
@@ -1200,26 +1202,57 @@ def parent_batch(rng, cfg, b, device):
                        torch.from_numpy(sn).to(device))
 
 
-# the spans of the train steps' parts (``train/steps.py``), in order
+# the spans of the eager train steps' parts (``train/steps.py``), in
+# order; a step on its eager route on the card (``eager_detector``,
+# ``eager_descriptor``) opens ``usip.step.inputs`` twice: around the
+# route's own draws, then the step's
 DETECTOR_STEP_SPANS = tuple("usip.step." + p for p in (
     "inputs", "forward", "losses", "backward", "optimizer"))
 DESCRIPTOR_STEP_SPANS = tuple("usip.step." + p for p in (
     "inputs", "detector", "group", "describe", "losses", "backward",
     "optimizer"))
+EAGER_ROUTE_SPANS = ("usip.step.inputs",)
+
+
+def eager_detector(step, cfg):
+    """The one-rank detector train ``step`` on its eager route (on a CUDA
+    batch the step otherwise replays its CUDA graph), called as the step
+    is: the inputs prepared from ``draws`` completed from ``generator`` as
+    the step prepares them, in a ``usip.step.inputs`` span, and handed in
+    as ``_inputs``."""
+    def run(state, batch, epoch, *, draws=None, generator=None):
+        with span("usip.step.inputs", state.step):
+            inputs = train_steps._prepare_detector_inputs(
+                batch, cfg, True, draws, generator)
+        return step(state, batch, epoch, _inputs=inputs)
+    return run
+
+
+def eager_descriptor(step, cfg):
+    """The scan-triplet descriptor train ``step`` on its eager route,
+    called as the step is: the draws ``descriptor_draws`` makes from
+    ``generator``, made in a ``usip.step.inputs`` span and handed in."""
+    def run(state, detector, batch, epoch, *, generator):
+        b, _, n, _ = batch.x.shape
+        with span("usip.step.inputs", state.step):
+            draws = train_steps.descriptor_draws(cfg, b, n, generator)
+        return step(state, detector, batch, epoch, draws=draws)
+    return run
 
 
 def event_split(run, names, iters):
     """The mean device time (ms) of each part of a step, by its span's
     name, over ``iters`` steps: ``run()`` runs one step, whose parts are
-    the spans ``names``; under ``recording()`` each span records a CUDA
-    event at its start and at its end (timing only)."""
+    the spans ``names`` (a name that comes twice adds up its times); under
+    ``recording()`` each span records a CUDA event at its start and at its
+    end (timing only)."""
     with recording() as rec:
         for _ in range(iters):
             run()
     ms = rec.device_ms()
     check(rec.names() == list(names) * iters,
           f"one span a part of the step, in order ({names})")
-    return {n: float(np.mean(ms[n])) for n in names}
+    return {n: float(np.sum(ms[n])) / iters for n in dict.fromkeys(names)}
 
 
 def profile_busy(fn, calls):
@@ -1283,7 +1316,7 @@ def phase6(card):
     b = cfg.train.batch_size
     batch = parent_batch(rng, cfg, b, dev)
     state = train_state(cfg, dev)
-    step = make_detector_train_step(cfg)
+    step = eager_detector(make_detector_train_step(cfg), cfg)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     kernels.reset_launch_counts()
     history = [step(state, batch, 0, generator=gen)
@@ -1317,7 +1350,8 @@ def phase6(card):
         # the deterministic algorithms make the card's step repeatable
         torch.use_deterministic_algorithms(True, warn_only=True)
         try:
-            res[device] = make_detector_train_step(cfg32)(
+            res[device] = eager_detector(
+                make_detector_train_step(cfg32), cfg32)(
                 st, ParentBatch(*(t.to(device) for t in batch2)), 0,
                 generator=torch.Generator().manual_seed(SEED + 1))
         finally:
@@ -1364,8 +1398,8 @@ def phase6(card):
     peak = torch.cuda.max_memory_allocated() / 2**20
     # its split: CUDA events around the spans of the step's parts
     split = event_split(
-        lambda: step(state, batch, 0, generator=gen), DETECTOR_STEP_SPANS,
-        iters)
+        lambda: step(state, batch, 0, generator=gen),
+        EAGER_ROUTE_SPANS + DETECTOR_STEP_SPANS, iters)
     step_rate = 2 * b * 1e3 / step_ms
     print(f"[6] {card} | train step kitti bf16 batch {b}: {step_ms:.3f} ms "
           f"a step (mean of {iters}, pipelined), {2 * b * 1e3 / step_ms:.2f} "
@@ -1665,7 +1699,7 @@ def phase9_step(card):
     batch = pair_batch(rng, b, n, dev, cfg.data.wire_dtype)
     det = seeded_detector(cfg, dev, head_init=True).requires_grad_(False)
     state = TrainState.create(seeded_descriptor(cfg, dev), cfg.train.lr)
-    step = make_descriptor_train_step(cfg)
+    step = eager_descriptor(make_descriptor_train_step(cfg), cfg)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     kernels.reset_launch_counts()
     history = [step(state, det, batch, 0, generator=gen)
@@ -1755,7 +1789,7 @@ def phase9_step(card):
     peak = torch.cuda.max_memory_allocated() / 2**20
     split = event_split(
         lambda: step(state, det, batch, 0, generator=gen),
-        DESCRIPTOR_STEP_SPANS, iters)
+        EAGER_ROUTE_SPANS + DESCRIPTOR_STEP_SPANS, iters)
     busy, ops, _ = profile_busy(lambda: step(state, det, batch, 0,
                                              generator=gen), 2)
     rate = 2 * b * 1e3 / step_ms
@@ -2422,7 +2456,7 @@ def phase10_numerics(card, root):
     pb = ParentBatch(parents, sn_p)
     dstate = TrainState.create(seeded_detector(dcfg, dev, head_init=True),
                                dcfg.train.lr)
-    dstep = make_detector_train_step(dcfg)
+    dstep = eager_detector(make_detector_train_step(dcfg), dcfg)
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
     hist = [dstep(dstate, pb, 0, generator=gen) for _ in range(INDOOR_STEPS)]
@@ -2440,8 +2474,8 @@ def phase10_numerics(card, root):
     dstep_ms = (time.perf_counter() - t0) / iters * 1e3
     dpeak = torch.cuda.max_memory_allocated() / 2**20
     dsplit = event_split(
-        lambda: dstep(dstate, pb, 0, generator=gen), DETECTOR_STEP_SPANS,
-        iters)
+        lambda: dstep(dstate, pb, 0, generator=gen),
+        EAGER_ROUTE_SPANS + DETECTOR_STEP_SPANS, iters)
     print(f"[10] {card} | train step lite detector scenenn bf16 batch {b} "
           f"({2 * b} clouds of {dcfg.data.input_pc_num} points, node kNN "
           f"{dcfg.detector.node_knn_k}): {dstep_ms:.3f} ms a step, "
@@ -2812,8 +2846,8 @@ def oxford_kernel_checks(card, rng):
 def ox_step_run(cfg, tag, batch, state, steps, expected):
     """``steps`` train steps with the launch counts reset before and read
     after, each count checked against ``expected`` a step; every metric
-    finite. Returns the launches."""
-    step = make_detector_train_step(cfg)
+    finite. Returns the launches (the eager route)."""
+    step = eager_detector(make_detector_train_step(cfg), cfg)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     step(state, batch, 0, generator=gen)  # warm-up, not counted
     sync()
@@ -2836,8 +2870,8 @@ def ox_step_run(cfg, tag, batch, state, steps, expected):
 
 def ox_step_time(card, cfg, tag, batch, state):
     """The step's time (pipelined), clouds/s, its split by its spans, its
-    peak memory and the profiler's operators."""
-    step = make_detector_train_step(cfg)
+    peak memory and the profiler's operators (the eager route)."""
+    step = eager_detector(make_detector_train_step(cfg), cfg)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     b = cfg.train.batch_size
     for _ in range(2):
@@ -2852,8 +2886,8 @@ def ox_step_time(card, cfg, tag, batch, state):
     step_ms = (time.perf_counter() - t0) / iters * 1e3
     peak = torch.cuda.max_memory_allocated() / 2**20
     split = event_split(
-        lambda: step(state, batch, 0, generator=gen), DETECTOR_STEP_SPANS,
-        iters)
+        lambda: step(state, batch, 0, generator=gen),
+        EAGER_ROUTE_SPANS + DETECTOR_STEP_SPANS, iters)
     busy, ops, _ = profile_busy(lambda: step(state, batch, 0,
                                              generator=gen), 2)
     print(f"[11] {card} | train step {tag} bf16 batch {b}: {step_ms:.3f} ms "
@@ -2977,7 +3011,7 @@ def _ox_learns(card, rng):
     state = init_detector_state(cfg, SEED, dev)
     batch = oxford_parents(rng, cfg.train.batch_size,
                            cfg.data.parent_pc_num, dev)
-    step = make_detector_train_step(cfg)
+    step = eager_detector(make_detector_train_step(cfg), cfg)
     evaluate = train_steps.make_detector_eval_step(cfg)
 
     def draw(j):
@@ -3506,8 +3540,10 @@ def ranks_work(rank, world, arg):
     try:
         out["dp_detector_checks"], h = _dp_step_case(
             rank, world, mesh,
-            lambda m: make_detector_train_step(cfg32, m), state, local, full,
-            det_draws, DP_CHECK_STEPS)
+            lambda m: (make_detector_train_step(cfg32, m) if m is not None
+                       else eager_detector(make_detector_train_step(cfg32),
+                                           cfg32)),
+            state, local, full, det_draws, DP_CHECK_STEPS)
     finally:
         torch.use_deterministic_algorithms(False)
     out["dp_detector_hash"] = h
@@ -4557,7 +4593,7 @@ def object_step(card):
           "the modelnet preset at full width")
     batch = object_batch(cfg, b, dev, 31)
     state = train_state(cfg, dev)
-    step = make_detector_train_step(cfg)
+    step = eager_detector(make_detector_train_step(cfg), cfg)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     kernels.reset_launch_counts()
     history = [step(state, batch, 0, generator=gen)
@@ -4582,7 +4618,8 @@ def object_step(card):
         st = train_state(cfg32, device)
         torch.use_deterministic_algorithms(True, warn_only=True)
         try:
-            res[device] = make_detector_train_step(cfg32)(
+            res[device] = eager_detector(
+                make_detector_train_step(cfg32), cfg32)(
                 st, DetectorBatch(*(t.to(device) for t in batch2)), 0,
                 generator=torch.Generator().manual_seed(SEED + 1))
         finally:
@@ -4618,8 +4655,8 @@ def object_step(card):
     step_ms = (time.perf_counter() - t0) / iters * 1e3
     peak = torch.cuda.max_memory_allocated() / 2**20
     split = event_split(
-        lambda: step(state, batch, 0, generator=gen), DETECTOR_STEP_SPANS,
-        iters)
+        lambda: step(state, batch, 0, generator=gen),
+        EAGER_ROUTE_SPANS + DETECTOR_STEP_SPANS, iters)
     busy, ops, _ = profile_busy(lambda: step(state, batch, 0,
                                              generator=gen), 2)
     print(f"[14] {card} | train step modelnet bf16 batch {b}: {step_ms:.3f} "

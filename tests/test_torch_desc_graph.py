@@ -1,14 +1,16 @@
 """The descriptor's train step with its device part replayed as a CUDA graph
-(``make_descriptor_train_step(..., graph=True)``, the engine's step on one
-card), and the span readers of the ``kitti-desc.train`` cell.
+(``make_descriptor_train_step`` on a packed CUDA batch drawn from a CUDA
+generator, the engine's step on one card), and the span readers of the
+``kitti-desc.train`` cell.
 
-On the CPU: the option leaves the step eager (the same spans, metrics and
-state as without it), the engine asks for it only on CUDA, and the
-readers. On the card (the ``cuda`` marker; they skip elsewhere; on a GPU
-host, where jax is absent, run them without the suite's conftest:
-``python -m pytest --noconftest -m cuda tests/test_torch_desc_graph.py``):
-the replayed step against the eager one from the same state, batches and
-generator seeds, and an engine epoch through it.
+On the CPU: the step runs eagerly (the same spans, metrics and state as its
+eager route, handed the draws ``descriptor_draws`` makes from the same
+generator), and the readers. On the card (the ``cuda`` marker; they skip
+elsewhere; on a GPU host, where jax is absent, run them without the suite's
+conftest: ``python -m pytest --noconftest -m cuda
+tests/test_torch_desc_graph.py``): the replayed step against the eager route
+from the same state, batches and generator seeds, and an engine epoch
+through it.
 """
 
 import contextlib
@@ -25,7 +27,7 @@ from usip_tpu_torch.models.detector import Detector
 from usip_tpu_torch.ops import kernels
 from usip_tpu_torch.train import descriptor_loop
 from usip_tpu_torch.train.state import TrainState
-from usip_tpu_torch.train.steps import (PackedPairBatch,
+from usip_tpu_torch.train.steps import (PackedPairBatch, descriptor_draws,
                                         make_descriptor_train_step,
                                         pack_pair_batch)
 from usip_tpu_torch.utils.logging import recording
@@ -75,19 +77,27 @@ def _batches(cfg, device, count, seed=5):
     return out
 
 
-def _run(cfg, det, start, batches, graph, device, record=False):
+def _run(cfg, det, start, batches, device, eager=False, record=False):
     """The steps over ``batches``, step i drawing from a generator seeded
-    100 + i: each step's metrics and span names, the first step's
-    gradients, and the descriptor's state and Adam moments after."""
+    100 + i; with ``eager`` through the step's eager route, handed the
+    draws ``descriptor_draws`` makes from that generator: each step's
+    metrics and span names, the first step's gradients, the descriptor's
+    state and Adam moments after, the step count and the step's
+    ``graph_counts``."""
     desc = Descriptor(cfg.descriptor)
     desc.load_state_dict(start)
     state = TrainState.create(desc.to(device), cfg.train.lr)
-    step = make_descriptor_train_step(cfg, graph=graph)
+    step = make_descriptor_train_step(cfg)
     metrics, names, grads = [], [], None
     for i, batch in enumerate(batches):
         gen = torch.Generator(device=device).manual_seed(100 + i)
+        b, _, n, _ = batch.x.shape
         with recording() if record else contextlib.nullcontext() as rec:
-            metrics.append(step(state, det, batch, 1, generator=gen))
+            if eager:
+                metrics.append(step(state, det, batch, 1, draws=(
+                    descriptor_draws(cfg, b, n, gen))))
+            else:
+                metrics.append(step(state, det, batch, 1, generator=gen))
         names.append(rec.names() if record else None)
         if i == 0:
             grads = {n: p.grad.detach().clone()
@@ -96,47 +106,27 @@ def _run(cfg, det, start, batches, graph, device, record=False):
                for n, p in desc.named_parameters()}
     return (metrics, names, grads,
             {k: v.detach().clone() for k, v in desc.state_dict().items()},
-            moments, state.step)
+            moments, state.step, dict(step.graph_counts))
 
 
 def test_graph_option_is_eager_on_the_cpu():
-    """On the CPU ``graph=True`` is the eager step: the same spans, and the
-    same metrics, state and moments bit for bit."""
+    """On the CPU the step runs eagerly: the spans of its eager route
+    (handed draws, which the card tests hold the replay against), and its
+    metrics, state and moments bit for bit; ``graph_counts`` counts its
+    calls as eager."""
     cfg = get_config("kitti", role="descriptor", **SMALL)
     det, start = _models(cfg, "cpu")
     batches = _batches(cfg, "cpu", 2)
-    eager = _run(cfg, det, start, batches, False, "cpu", record=True)
-    graph = _run(cfg, det, start, batches, True, "cpu", record=True)
-    assert graph[1] == eager[1] == [["usip.step." + p for p in EAGER]] * 2
-    for m0, m1 in zip(eager[0], graph[0]):
+    eager = _run(cfg, det, start, batches, "cpu", eager=True, record=True)
+    plain = _run(cfg, det, start, batches, "cpu", record=True)
+    assert plain[1] == eager[1] == [["usip.step." + p for p in EAGER]] * 2
+    for m0, m1 in zip(eager[0], plain[0]):
         assert m0.keys() == m1.keys()
         assert all(torch.equal(m0[k], m1[k]) for k in m0)
-    for a, b in ((eager[3], graph[3]), (eager[4], graph[4])):
+    for a, b in ((eager[3], plain[3]), (eager[4], plain[4])):
         assert all(torch.equal(a[k], b[k]) for k in a)
-    assert eager[5] == graph[5] == 2
-
-
-def test_engine_asks_for_the_graph_only_on_cuda(monkeypatch, tmp_path):
-    """``DescriptorEngine`` builds its train step with ``graph`` on CUDA
-    devices only, and its test sweep's step without it."""
-    asked = []
-
-    def spy(cfg, use_cgf=False, eval_only=False, mesh=None, graph=False):
-        asked.append((eval_only, graph))
-        return make_descriptor_train_step(cfg, use_cgf, eval_only, mesh,
-                                          graph)
-
-    monkeypatch.setattr(descriptor_loop, "make_descriptor_train_step", spy)
-    cfg = get_config("kitti", role="descriptor",
-                     **{**SMALL, "data.parent_pc_num": 320,
-                        "train.log_every": 1000})
-    from usip_tpu_torch.train.checkpoint import save_checkpoint
-    from usip_tpu_torch.train.loop import init_detector_state
-    ckpt = str(tmp_path / "det.pt")
-    save_checkpoint(ckpt, init_detector_state(cfg, 0))
-    descriptor_loop.DescriptorEngine(cfg, ckpt, synthetic=True, device="cpu",
-                                     out_dir=str(tmp_path / "e"))
-    assert asked == [(False, False), (True, False)]
+    assert eager[5] == plain[5] == 2
+    assert eager[6] == plain[6] == {"captures": 0, "replays": 0, "eager": 2}
 
 
 def _window(gaps):
@@ -194,8 +184,8 @@ def dev():
 def test_replayed_step_is_the_eager_step(dev, n):
     """The KITTI descriptor preset (bf16 balls and trunk, 256 keypoints,
     balls of 64 in 2 m) at 4 pairs of ``n`` points, 4 steps from one start
-    with or without the graph: the replayed steps open the inputs, replay
-    and optimizer spans; a replay counts the eager step's launches; the first
+    on the eager route and replayed: the replayed steps open the inputs,
+    replay and optimizer spans and capture once; a replay counts the eager step's launches; the first
     step's loss and metrics are the same to fp32 rounding and its
     gradients within 1e-4 of their largest (the backward's atomics sum in
     another order); every step's loss within 1e-3; the BatchNorm
@@ -207,15 +197,18 @@ def test_replayed_step_is_the_eager_step(dev, n):
     batches = _batches(cfg, dev, 4)
     launches = []
     runs = []
-    for graph in (False, True):
+    for eager in (True, False):
         kernels.reset_launch_counts()
-        runs.append(_run(cfg, det, start, batches, graph, dev, record=True))
+        runs.append(_run(cfg, det, start, batches, dev, eager, record=True))
         torch.cuda.synchronize()
         launches.append(dict(kernels.LAUNCHES))
-    (m0, names0, g0, s0, _, steps0), (m1, names1, g1, s1, _, steps1) = runs
+    ((m0, names0, g0, s0, _, steps0, counts0),
+     (m1, names1, g1, s1, _, steps1, counts1)) = runs
     assert names0 == [["usip.step." + p for p in EAGER]] * 4
     assert names1[1:] == [["usip.step." + p for p in
                            ("inputs", "replay", "optimizer")]] * 3
+    assert counts0 == {"captures": 0, "replays": 0, "eager": 4}
+    assert counts1 == {"captures": 1, "replays": 3, "eager": 0}
     # the capture's three warm-up runs count as the eager steps they are
     assert {k: 4 * v for k, v in launches[1].items()} == {
         k: 7 * v for k, v in launches[0].items()}
@@ -238,9 +231,8 @@ def test_replayed_step_is_the_eager_step(dev, n):
 
 @pytest.mark.cuda
 def test_a_step_handed_its_draws_runs_eagerly(dev):
-    """With ``graph`` a step handed its draws (the benchmark's captured
-    steps) opens the eager spans, and the replayed steps after it go on."""
-    from usip_tpu_torch.train.steps import descriptor_draws
+    """On the card a step handed its draws (the benchmark's captured steps)
+    opens the eager spans, and the replayed steps after it go on."""
     cfg = get_config("kitti", role="descriptor",
                      **{"data.input_pc_num": 4096, "train.batch_size": 4})
     det, start = _models(cfg, dev)
@@ -248,7 +240,7 @@ def test_a_step_handed_its_draws_runs_eagerly(dev):
     desc = Descriptor(cfg.descriptor)
     desc.load_state_dict(start)
     state = TrainState.create(desc.to(dev), cfg.train.lr)
-    step = make_descriptor_train_step(cfg, graph=True)
+    step = make_descriptor_train_step(cfg)
     gen = torch.Generator(device=dev).manual_seed(7)
     with recording() as rec:
         step(state, det, batches[0], 0,
@@ -260,6 +252,7 @@ def test_a_step_handed_its_draws_runs_eagerly(dev):
         assert "usip.step.replay" in rec.names()
         assert all(bool(torch.isfinite(v)) for v in m.values())
     assert state.step == 3
+    assert step.graph_counts == {"captures": 1, "replays": 1, "eager": 1}
 
 
 @pytest.mark.cuda
@@ -283,3 +276,6 @@ def test_engine_epochs_replay_their_step(dev, tmp_path):
     steps = 2 * len(eng.train_loader)
     assert eng.state.step == steps
     assert rec.names().count("usip.step.replay") == steps
+    counts = eng.step_fn.graph_counts
+    assert counts["eager"] == 0
+    assert counts["captures"] + counts["replays"] == steps

@@ -1,19 +1,19 @@
 """The detector's train step with its device part replayed as a CUDA graph
-(``make_detector_train_step(..., graph=True)``, the engine's step on one
-card), and the replay's span reader of the ``kitti-som.train`` cell.
+(``make_detector_train_step`` on a CUDA batch, the engine's step on one
+card), the graph cache that each replayed site keeps, and the replay's span
+reader of the ``kitti-som.train`` cell.
 
-On the CPU: the option leaves the step eager (the same spans, metrics and
-state as without it), the engine asks for it only on CUDA without a mesh,
-and the reader. On the card (the ``cuda`` marker; they skip elsewhere; on a
-GPU host, where jax is absent, run them without the suite's conftest:
-``python -m pytest --noconftest -m cuda tests/test_torch_det_graph.py``):
-the replayed step against the eager one from the same state, batches and
-generator seeds, a step handed its draws, and an engine epoch through it.
+On the CPU: the step runs eagerly (the same spans, metrics and state as its
+eager route, ``_inputs``), the cache's bookkeeping, and the reader. On the
+card (the ``cuda`` marker; they skip elsewhere; on a GPU host, where jax is
+absent, run them without the suite's conftest: ``python -m pytest
+--noconftest -m cuda tests/test_torch_det_graph.py``): the replayed step
+against the eager route from the same state, batches and generator seeds, a
+step handed its draws, and an engine epoch through it.
 """
 
 import contextlib
 import copy
-import types
 
 import numpy as np
 import pytest
@@ -22,9 +22,12 @@ import torch
 from benchmark import harness
 from benchmark.harness import BREAKDOWN_TOP, Window
 from usip_tpu_torch.config import get_config
+from usip_tpu_torch.device import GraphCache
 from usip_tpu_torch.train import loop
 from usip_tpu_torch.train.loop import init_detector_state
-from usip_tpu_torch.train.steps import (ParentBatch, detector_draws,
+from usip_tpu_torch.train.steps import (ParentBatch,
+                                        _prepare_detector_inputs,
+                                        detector_draws,
                                         make_detector_train_step)
 from usip_tpu_torch.utils.logging import recording
 
@@ -46,20 +49,31 @@ def _batches(cfg, device, count, seed=5):
         for _ in range(count)]
 
 
-def _run(cfg, start, batches, graph, device, record=False, draws=None):
+def _call(cfg, step, state, batch, gen, draws, eager):
+    """One step from ``gen`` (or handed ``draws``); with ``eager`` through
+    the step's eager route: its inputs prepared as the step prepares them
+    and handed in as ``_inputs``."""
+    if eager:
+        return step(state, batch, 1, _inputs=_prepare_detector_inputs(
+            batch, cfg, True, draws, gen))
+    return step(state, batch, 1, generator=gen, draws=draws)
+
+
+def _run(cfg, start, batches, device, eager=False, record=False,
+         draws=None):
     """The steps over ``batches``, step i drawing from a generator seeded
-    100 + i (or handed ``draws[i]``): each step's metrics and span names,
-    the first and last steps' gradients, the model's state after, the
-    step count and the step's ``graph_counts``."""
+    100 + i (or handed ``draws[i]``), through ``_call``: each step's metrics
+    and span names, the first and last steps' gradients, the model's state
+    after, the step count and the step's ``graph_counts``."""
     state = init_detector_state(cfg, 0, device)
     state.model.load_state_dict(start)
-    step = make_detector_train_step(cfg, graph=graph)
+    step = make_detector_train_step(cfg)
     metrics, names, grads = [], [], []
     for i, batch in enumerate(batches):
         gen = torch.Generator(device=device).manual_seed(100 + i)
         with recording() if record else contextlib.nullcontext() as rec:
-            metrics.append(step(state, batch, 1, generator=gen,
-                                draws=None if draws is None else draws[i]))
+            metrics.append(_call(cfg, step, state, batch, gen,
+                                 None if draws is None else draws[i], eager))
         names.append(rec.names() if record else None)
         if i in (0, len(batches) - 1):
             grads.append({n: p.grad.detach().clone()
@@ -71,49 +85,44 @@ def _run(cfg, start, batches, graph, device, record=False, draws=None):
 
 
 def test_graph_option_is_eager_on_the_cpu():
-    """On the CPU ``graph=True`` is the eager step: the same spans, and the
-    same metrics, gradients, parameters and BatchNorm statistics bit for
-    bit; ``graph_counts`` counts its calls as eager."""
+    """On the CPU the step runs eagerly: the spans of its eager route
+    (``_inputs``, which the card tests hold the replay against), and its
+    metrics, gradients, parameters and BatchNorm statistics bit for bit;
+    ``graph_counts`` counts its calls as eager."""
     cfg = get_config("kitti", **SMALL)
     start = init_detector_state(cfg, 3).model.state_dict()
     batches = _batches(cfg, "cpu", 2)
-    eager = _run(cfg, start, batches, False, "cpu", record=True)
-    graph = _run(cfg, start, batches, True, "cpu", record=True)
-    assert graph[1] == eager[1] == [["usip.step." + p for p in EAGER]] * 2
-    for m0, m1 in zip(eager[0], graph[0]):
+    eager = _run(cfg, start, batches, "cpu", eager=True, record=True)
+    plain = _run(cfg, start, batches, "cpu", record=True)
+    assert plain[1] == eager[1] == [["usip.step." + p for p in EAGER]] * 2
+    for m0, m1 in zip(eager[0], plain[0]):
         assert m0.keys() == m1.keys()
         assert all(torch.equal(m0[k], m1[k]) for k in m0)
-    for g0, g1 in zip(eager[2], graph[2]):
+    for g0, g1 in zip(eager[2], plain[2]):
         assert all(torch.equal(g0[k], g1[k]) for k in g0)
-    assert all(torch.equal(eager[3][k], graph[3][k]) for k in eager[3])
-    assert eager[4] == graph[4] == 2
-    assert eager[5] == graph[5] == {"captures": 0, "replays": 0, "eager": 2}
+    assert all(torch.equal(eager[3][k], plain[3][k]) for k in eager[3])
+    assert eager[4] == plain[4] == 2
+    assert eager[5] == plain[5] == {"captures": 0, "replays": 0, "eager": 2}
 
 
-@pytest.mark.parametrize("device,mesh,graph", [
-    ("cpu", False, False), ("cuda", False, True), ("cuda", True, False)])
-def test_engine_asks_for_the_graph_only_on_cuda(monkeypatch, tmp_path,
-                                                device, mesh, graph):
-    """``DetectorEngine`` builds its train step with ``graph`` on a CUDA
-    device without a data mesh only (the device and mesh stand in: the
-    model stays on the CPU)."""
-    asked = []
+def test_graph_cache_captures_once_a_key():
+    """The cache that ``KeypointPipeline`` and both train steps keep, with a
+    stub graph factory: one capture a key, the key's graph again on a
+    repeated key, and the counts of each kind of call."""
+    cache, made = GraphCache(), []
 
-    def spy(cfg, mesh=None, **kw):
-        asked.append(kw.get("graph"))
-        return make_detector_train_step(cfg, mesh, **kw)
+    def capture(key):
+        made.append(key)
+        return object()
 
-    fake = types.SimpleNamespace(device=torch.device(device), size=2, rank=0)
-    monkeypatch.setattr(loop, "make_detector_train_step", spy)
-    monkeypatch.setattr(loop, "resolve_device", torch.device)
-    monkeypatch.setattr(loop, "engine_mesh",
-                        lambda cfg, dev: fake if mesh else None)
-    monkeypatch.setattr(loop, "replicate", lambda m, model: None)
-    monkeypatch.setattr(loop, "init_detector_state",
-                        lambda cfg, seed, dev: init_detector_state(cfg, seed))
-    cfg = get_config("kitti", **SMALL)
-    loop.DetectorEngine(cfg, [], device=device, out_dir=str(tmp_path))
-    assert asked == [graph]
+    first = cache.graph(("a", 1), lambda: capture("a"))
+    assert cache.graph(("a", 1), lambda: capture("again")) is first
+    second = cache.graph(("b", 1), lambda: capture("b"))
+    assert cache.graph(("a", 1), lambda: capture("again")) is first
+    cache.eager()
+    assert made == ["a", "b"] and second is not first
+    assert dict(cache) == {("a", 1): first, ("b", 1): second}
+    assert cache.graph_counts == {"captures": 2, "replays": 2, "eager": 1}
 
 
 def _window(gaps):
@@ -176,18 +185,18 @@ def _largest(tensors) -> float:
 
 
 def _paired_steps(cfg, start, batches, dev, draws=None):
-    """Each step of ``batches`` twice from one state: eager, then replayed
-    on a second model that takes the eager side's parameters, BatchNorm
-    statistics, Adam state and step count first; step i draws from a
-    generator seeded 100 + i (or is handed ``draws[i]``). Checks each pair
-    (``_assert_same_step``); returns the replayed steps' span names and the
-    replayed step's ``graph_counts``."""
+    """Each step of ``batches`` twice from one state: on the eager route
+    (``_call``), then replayed on a second model that takes the eager side's
+    parameters, BatchNorm statistics, Adam state and step count first; step
+    i draws from a generator seeded 100 + i (or is handed ``draws[i]``).
+    Checks each pair (``_assert_same_step``); returns the replayed steps'
+    span names and the replayed step's ``graph_counts``."""
     states = []
     for _ in range(2):
         state = init_detector_state(cfg, 0, dev)
         state.model.load_state_dict(start)
         states.append(state)
-    steps = [make_detector_train_step(cfg, graph=g) for g in (False, True)]
+    steps = [make_detector_train_step(cfg) for _ in range(2)]
     names = []
     for i, batch in enumerate(batches):
         eager, replayed = states
@@ -197,11 +206,11 @@ def _paired_steps(cfg, start, batches, dev, draws=None):
             copy.deepcopy(eager.optimizer.state_dict()))
         replayed.step = eager.step
         runs = []
-        for state, step in zip(states, steps):
+        for state, step, eager in zip(states, steps, (True, False)):
             gen = torch.Generator(device=dev).manual_seed(100 + i)
             with recording() as rec:
-                metrics = step(state, batch, 1, generator=gen,
-                               draws=None if draws is None else draws[i])
+                metrics = _call(cfg, step, state, batch, gen,
+                                None if draws is None else draws[i], eager)
             runs.append((metrics, state))
         names.append(rec.names())
         _assert_same_step(cfg, *runs)

@@ -171,7 +171,7 @@ PORT_MODULES = (
     "parallel.sharded_descriptor", "parallel.tensor_parallel",
     "parallel.pipeline_parallel", "model_artifact", "fullscale", "ops.som",
     "eval.render", "utils.vis", "utils.html", "native", "prepare_kitti",
-    "train.reference_runtime")
+    "train.reference_runtime", "device")
 
 
 def test_port_imports_nothing_of_usip_tpu():
@@ -199,6 +199,22 @@ def test_port_imports_nothing_of_usip_tpu():
         "        if m.split('.')[0] in ('usip_tpu', 'jax', 'flax', 'msgpack')]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("module", ["train.steps", "train.loop",
+                                    "train.descriptor_loop", "ops.som"])
+def test_training_and_ops_do_not_load_serving(module):
+    """Training and the ops sit below serving: a fresh interpreter that
+    imports ``module`` has not loaded ``usip_tpu_torch.inference`` (the
+    CUDA graphs and ``resolve_device`` live in ``usip_tpu_torch.device``)."""
+    code = ("import importlib, sys\n"
+            f"importlib.import_module('usip_tpu_torch.{module}')\n"
+            "assert 'usip_tpu_torch.device' in sys.modules\n"
+            "sys.exit(int('usip_tpu_torch.inference' in sys.modules))\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)

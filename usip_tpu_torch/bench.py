@@ -22,7 +22,8 @@ import numpy as np
 import torch
 
 from usip_tpu_torch.config import get_config
-from usip_tpu_torch.inference import KeypointPipeline, resolve_device
+from usip_tpu_torch.device import resolve_device
+from usip_tpu_torch.inference import KeypointPipeline
 
 METRIC = "kitti_16k_detection_clouds_per_sec_per_chip"
 # bench.py's yardstick: USIP-era PyTorch on a GTX 1080 Ti-class GPU at this

@@ -38,7 +38,7 @@ from usip_tpu_torch.data.pipeline import BatchLoader
 from usip_tpu_torch.eval.baselines import baseline_keypoints
 from usip_tpu_torch.eval.export import (ensure_keypoint_number,
                                         select_keypoints, write_keypoints_bin)
-from usip_tpu_torch.inference import resolve_device
+from usip_tpu_torch.device import resolve_device
 from usip_tpu_torch.models import Descriptor
 from usip_tpu_torch.models.fused_infer import detector_infer_fused
 from usip_tpu_torch.ops import sample_nodes

@@ -8,87 +8,35 @@ exactly like the export tool. With a descriptor checkpoint the selected
 keypoints are then described on the device (``detect_and_describe``).
 
 On a CUDA device the batch's forward after its node draws is one CUDA graph
-for each input shape (``ForwardGraph``): captured at the shape's first call and
-replayed after, so the host makes a few copies and one launch a batch in
-place of the forward's ~150 small launches. The node draws stay eager,
-from the pipeline's own generator as on the CPU, written straight into the
-graph's inputs.
+for each input shape (``device.ForwardGraph``, kept in a ``device.GraphCache``
+whose ``graph_counts`` the pipeline shows): captured at the shape's first
+call and replayed after, so the host makes a few copies and one launch a
+batch in place of the forward's ~150 small launches. The node draws stay
+eager, from the pipeline's own generator as on the CPU, written straight
+into the graph's inputs.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from usip_tpu_torch.config import Config
 from usip_tpu_torch.data.common import subsample_fixed
+from usip_tpu_torch.device import ForwardGraph, GraphCache, resolve_device
 from usip_tpu_torch.eval.export import select_keypoints
 from usip_tpu_torch.models.descriptor import Descriptor
 from usip_tpu_torch.models.detector import Detector
 from usip_tpu_torch.models.fused_infer import detector_infer_fused
-from usip_tpu_torch.ops import kernels
 from usip_tpu_torch.ops.kernels import fusion_chain_params, prepare_chain
-from usip_tpu_torch.ops.sampling import (_node_shapes, draw_node_uniforms,
-                                         draws_from_uniforms, sample_nodes)
+from usip_tpu_torch.ops.sampling import (draw_node_uniforms,
+                                         draws_from_uniforms,
+                                         node_uniform_buffers, sample_nodes)
 from usip_tpu_torch.utils.logging import span
 from usip_tpu_torch.weights import (detector_family, load_descriptor_weights,
                                     load_detector_weights)
-
-
-def resolve_device(device) -> torch.device:
-    """The torch device named by ``device``; a CUDA device raises when CUDA is
-    absent rather than carrying on on the CPU."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {device!r} requested but CUDA is not "
-                           "available")
-    return dev
-
-
-class ForwardGraph:
-    """``forward(*inputs) -> outputs`` on CUDA tensors as a CUDA graph:
-    captured once over the static ``inputs`` (copies of the example
-    inputs), replayed after the caller writes new values into them.
-
-    The capture follows the recipe of torch's CUDA-graph notes (whole-network
-    capture): 3 eager calls on a side stream, then ``torch.cuda.graph`` into
-    the memory ``pool``. The static ``outputs`` hold a replay's results until
-    the next replay. Several graphs may share one pool where every replay
-    runs on one stream and its caller copies the outputs it keeps before the
-    next: the inputs live outside the pool, so nothing of the pool outlives a
-    replay. The graph's kernel launches (``kernels.LAUNCHES``) count once a
-    replay and never at the capture, which runs nothing. The capture leaves
-    other threads free to work on the device meanwhile (``torch.cuda.graph``'s
-    ``'thread_local'`` mode), as a train loader's copies do."""
-
-    def __init__(self, forward: Callable, inputs: Tuple[torch.Tensor, ...],
-                 pool):
-        self.device = inputs[0].device
-        self.inputs = tuple(t.clone(memory_format=torch.contiguous_format)
-                            for t in inputs)
-        with torch.cuda.device(self.device):
-            stream = torch.cuda.current_stream()
-            side = torch.cuda.Stream()
-            side.wait_stream(stream)
-            with torch.cuda.stream(side):
-                for _ in range(3):
-                    forward(*self.inputs)
-            stream.wait_stream(side)
-            before = dict(kernels.LAUNCHES)
-            self.graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(self.graph, pool=pool,
-                                  capture_error_mode="thread_local"):
-                self.outputs = forward(*self.inputs)
-            self.launches = kernels.take_launches(kernels.LAUNCHES, before)
-
-    def replay(self) -> Tuple[torch.Tensor, ...]:
-        """``forward`` on the values in ``inputs``: the static outputs."""
-        with torch.cuda.device(self.device):
-            self.graph.replay()
-        kernels.add_launches(kernels.LAUNCHES, self.launches)
-        return self.outputs
 
 
 class KeypointPipeline:
@@ -127,9 +75,9 @@ class KeypointPipeline:
         self._eval_ratio = (cfg.data.eval_fps_subsample_ratio
                             or cfg.data.fps_subsample_ratio)
         # on CUDA, one ForwardGraph a shape of (pc, sn), in one memory pool
-        self._graphs: Dict[tuple, ForwardGraph] = {}
+        self._graphs = GraphCache()
         self._pool = None
-        self.graph_counts = {"captures": 0, "replays": 0, "eager": 0}
+        self.graph_counts = self._graphs.graph_counts
         self.descriptor = None
         if descriptor_checkpoint is not None:
             desc = Descriptor(cfg.descriptor)
@@ -141,14 +89,11 @@ class KeypointPipeline:
 
     def _draw_buffers(self, pc: torch.Tensor
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Zeroed tensors for ``draw_node_uniforms``' numbers at the shape
-        of ``pc``: the subset's keys and the FPS seed rows."""
+        """``node_uniform_buffers`` at the shape of ``pc``."""
         d = self.cfg.data
-        _, parallel = _node_shapes(pc.shape[1], d.node_num, self._eval_ratio,
-                                   d.fps_parallel)
-        return (torch.zeros(pc.shape[:2], device=pc.device),
-                torch.zeros((pc.shape[0] * parallel,), dtype=torch.int64,
-                            device=pc.device))
+        return node_uniform_buffers(*pc.shape[:2], d.node_num,
+                                    self._eval_ratio, d.fps_parallel,
+                                    device=pc.device)
 
     def _forward(self, pc: torch.Tensor, sn: torch.Tensor,
                  keys: torch.Tensor, first: torch.Tensor
@@ -165,21 +110,14 @@ class KeypointPipeline:
                                           self._chain)
         return node, kp, sig
 
-    def _graph(self, pc: torch.Tensor, sn: torch.Tensor) -> ForwardGraph:
-        """The graph of ``_forward`` at the shapes of ``pc`` and ``sn``;
-        captured at the first call of the shapes, on zeroed draws, so that
+    def _capture(self, pc: torch.Tensor, sn: torch.Tensor) -> ForwardGraph:
+        """The graph of ``_forward`` at the shapes of ``pc`` and ``sn``, in
+        the pipeline's one memory pool; captured on zeroed draws, so that
         nothing is drawn from the pipeline's generator."""
-        key = (pc.shape, pc.dtype, sn.shape, sn.dtype)
-        graph = self._graphs.get(key)
-        if graph is not None:
-            self.graph_counts["replays"] += 1
-            return graph
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
-        graph = self._graphs[key] = ForwardGraph(
-            self._forward, (pc, sn) + self._draw_buffers(pc), self._pool)
-        self.graph_counts["captures"] += 1
-        return graph
+        return ForwardGraph(self._forward, (pc, sn) + self._draw_buffers(pc),
+                            self._pool)
 
     @torch.inference_mode()
     def infer(self, pc: torch.Tensor, sn: torch.Tensor
@@ -193,11 +131,13 @@ class KeypointPipeline:
         each kind of call). Calls run one at a time, on the current stream:
         a shape's calls share its graph's inputs and outputs."""
         if self.device.type == "cuda":
-            graph = self._graph(pc, sn)
+            graph = self._graphs.graph(
+                (pc.shape, pc.dtype, sn.shape, sn.dtype),
+                lambda: self._capture(pc, sn))
             inputs = graph.inputs
         else:
             graph, inputs = None, (pc, sn) + self._draw_buffers(pc)
-            self.graph_counts["eager"] += 1
+            self._graphs.eager()
         d = self.cfg.data
         with span("usip.infer.nodes"):
             draw_node_uniforms(*inputs[2:], d.node_num, self._eval_ratio,

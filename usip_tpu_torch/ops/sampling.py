@@ -104,6 +104,18 @@ def draw_node_uniforms(keys: Tensor, first: Tensor, node_num: int,
     first.random_(0, sub // parallel, generator=generator)
 
 
+def node_uniform_buffers(b: int, n: int, node_num: int,
+                         subsample_ratio: int = 4, parallel: int = 1, *,
+                         device) -> Tuple[Tensor, Tensor]:
+    """Zeroed tensors for ``draw_node_uniforms``' numbers over ``b`` clouds
+    of ``n`` points: the sort keys ``(B, N)`` and the FPS seed rows
+    ``(B * parallel,)`` int64; zeros are valid draws, so a graph may be
+    captured on them."""
+    _, parallel = _node_shapes(n, node_num, subsample_ratio, parallel)
+    return (torch.zeros((b, n), device=device),
+            torch.zeros((b * parallel,), dtype=torch.int64, device=device))
+
+
 def draws_from_uniforms(keys: Tensor, first: Tensor, node_num: int,
                         subsample_ratio: int = 4, parallel: int = 1
                         ) -> Tuple[Tensor, Tensor]:

@@ -20,7 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from usip_tpu_torch.inference import resolve_device
+from usip_tpu_torch.device import resolve_device
 
 
 def potential_field_init(node_num: int, dim: int = 3, iterations: int = 100,

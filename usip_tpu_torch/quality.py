@@ -140,7 +140,7 @@ def run_descriptor(root: str, device="cuda", *, points, nodes, c1, c2,
     matching accuracies and the phases' seconds."""
     import torch
 
-    from usip_tpu_torch.inference import resolve_device
+    from usip_tpu_torch.device import resolve_device
 
     dev = resolve_device(device)
     # fixed seeds give one answer only with deterministic algorithms: on the
@@ -308,7 +308,7 @@ def run_object(root: str, device="cuda", epochs: int = 30, *, points, nodes,
     from usip_tpu_torch.data.synthetic import SyntheticDataset
     from usip_tpu_torch.eval.export import select_keypoints
     from usip_tpu_torch.eval.repeatability import pair_repeatability
-    from usip_tpu_torch.inference import resolve_device
+    from usip_tpu_torch.device import resolve_device
     from usip_tpu_torch.ops import sample_nodes
     from usip_tpu_torch.train.loop import DetectorEngine
 
@@ -399,7 +399,7 @@ def run(root: str, epochs: int = 16, factor: float = 2.0, device="cuda",
     from usip_tpu_torch.config import get_config
     from usip_tpu_torch.data.synthetic import build_synthetic_kitti_tree
     from usip_tpu_torch.eval.eval_runner import load_kitti_gt_table
-    from usip_tpu_torch.inference import resolve_device
+    from usip_tpu_torch.device import resolve_device
     from usip_tpu_torch.train.checkpoint import find_checkpoint
 
     resolve_device(device)  # fail before the tree is built

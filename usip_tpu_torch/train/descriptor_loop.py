@@ -11,8 +11,8 @@ descriptor's from ``train.seed + 7``, the steps' draws from ``train.seed +
 13`` (``loop.stream_generator``, one generator a step), the fallback
 negatives from ``train.seed + 21``.
 
-On one card the train step's device part replays as a CUDA graph
-(``make_descriptor_train_step``'s ``graph``), and one prefetch of the train
+On one card the train step's device part replays as a CUDA graph (the
+step's own choice, ``device.StepGraph``), and one prefetch of the train
 batches runs from epoch to epoch (``_train_pass``), so that neither the
 host's launches nor a loader starting anew each epoch hold the card back.
 
@@ -33,7 +33,7 @@ import torch
 
 from usip_tpu_torch.config import Config
 from usip_tpu_torch.data.pipeline import BatchLoader
-from usip_tpu_torch.inference import resolve_device
+from usip_tpu_torch.device import resolve_device
 from usip_tpu_torch.models import Descriptor
 from usip_tpu_torch.train.checkpoint import restore_checkpoint, save_checkpoint
 from usip_tpu_torch.parallel.mesh import (all_gather_object,
@@ -158,9 +158,8 @@ class DescriptorEngine:
             from usip_tpu_torch.parallel.mesh import replicate
             replicate(self.mesh, self.state.model)
         # on one card the step's device part replays as a CUDA graph
-        self.step_fn = make_descriptor_train_step(
-            cfg, self.use_cgf, mesh=self.mesh,
-            graph=self.device.type == "cuda")
+        self.step_fn = make_descriptor_train_step(cfg, self.use_cgf,
+                                                  mesh=self.mesh)
         # the same objective without the step: the reference's per-epoch
         # descriptor test sweep
         self.eval_fn = make_descriptor_train_step(cfg, self.use_cgf,

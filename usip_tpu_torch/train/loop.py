@@ -37,7 +37,7 @@ import numpy as np
 import torch
 
 from usip_tpu_torch.config import Config
-from usip_tpu_torch.inference import resolve_device
+from usip_tpu_torch.device import resolve_device
 from usip_tpu_torch.models import Detector
 from usip_tpu_torch.ops import sample_nodes
 from usip_tpu_torch.parallel.mesh import (Mesh, is_main_process, make_mesh,
@@ -200,9 +200,7 @@ class DetectorEngine:
         if self.mesh is not None:
             replicate(self.mesh, self.state.model)
         # on one card the step's device part replays as a CUDA graph
-        self.train_step = make_detector_train_step(
-            cfg, self.mesh,
-            graph=self.device.type == "cuda" and self.mesh is None)
+        self.train_step = make_detector_train_step(cfg, self.mesh)
         self.eval_step = make_detector_eval_step(cfg, self.mesh)
         # clouds a step: every rank's rows, both siamese copies
         self._ranks = 1 if self.mesh is None else self.mesh.size

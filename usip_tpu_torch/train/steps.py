@@ -7,9 +7,10 @@ transform of the dst copy), one forward over both copies concatenated
 (keypoint_detector.py:141-156), the chamfer and keypoint-on-cloud losses,
 the backward, Adam. usip_tpu compiles it into one XLA program; the port runs
 it eagerly, on one card its device part replayed as one CUDA graph
-(``make_detector_train_step``'s ``graph``). Its kernels: FPS (K1),
-min/argmin (K2: the assignment, keypoint -> cloud and the keypoint
-chamfer), smallest-k (K4, the node kNN) and scatter-max (K5, forward).
+(``device.StepGraph``; the step decides from its inputs, with no option).
+Its kernels: FPS (K1), min/argmin (K2: the assignment, keypoint -> cloud
+and the keypoint chamfer), smallest-k (K4, the node kNN) and scatter-max
+(K5, forward).
 
 The descriptor's step (``make_descriptor_train_step``): the frozen
 detector's eval forward once over both clouds, then the descriptor twice in
@@ -52,15 +53,16 @@ from usip_tpu_torch.data.augment import (SE3, AugmentDraws, SE3Draws,
                                          augment_draws, height_scale_draws,
                                          random_height_scale, random_se3,
                                          se3_draws, shared_augment)
-from usip_tpu_torch.inference import ForwardGraph
+from usip_tpu_torch.device import GraphCache, StepGraph
 from usip_tpu_torch.nn.layers import (bn_momentum_schedule, set_bn_momentum,
                                       set_bn_process_group)
 from usip_tpu_torch.losses import CGFDraws
 from usip_tpu_torch.parallel.collectives import all_gather, all_reduce_grads
 from usip_tpu_torch.ops import gather_points, sample_nodes
 from usip_tpu_torch.ops.grouping import ball_priority_draws
-from usip_tpu_torch.ops.sampling import (_node_shapes, draw_node_uniforms,
-                                         draws_from_uniforms, node_draws)
+from usip_tpu_torch.ops.sampling import (draw_node_uniforms,
+                                         draws_from_uniforms, node_draws,
+                                         node_uniform_buffers)
 from usip_tpu_torch.ops.geometry import apply_se3
 from usip_tpu_torch.train.state import TrainState
 from usip_tpu_torch.utils.logging import span
@@ -404,14 +406,9 @@ def grad_global_norm(model) -> Tensor:
     return global_norm(p.grad for p in model.parameters())
 
 
-_DETECTOR_METRICS = ("loss", "chamfer", "chamfer_pure", "chamfer_weighted",
-                     "keypoint_on_pc", "sigma_mean", "sigma_min", "sigma_max",
-                     "grad_norm")
-
-
 def make_detector_train_step(cfg: Config, mesh=None, *,
                              reduce_grads=sum_grads,
-                             grad_norm=grad_global_norm, graph: bool = False):
+                             grad_norm=grad_global_norm):
     """``step(state, batch, epoch, *, draws=None, generator=None) ->
     metrics``: one siamese train step that updates ``state`` (the model's
     parameters and BatchNorm statistics, the Adam state, the step count) in
@@ -432,22 +429,20 @@ def make_detector_train_step(cfg: Config, mesh=None, *,
     parameters are cut over ranks passes its own:
     ``tensor_parallel.make_tp_train_step``).
 
-    ``graph``: a step on a CUDA batch, without a mesh, ``_inputs`` or
-    gradient hooks of its own, replays its device part, from the input
-    preparation to the gradients and their norm, as one CUDA graph
-    (``_DetectorStepGraph`` on ``inference.ForwardGraph``) for each batch
-    type, shape and dtype of the batch and of the completed draws, and
-    BatchNorm momentum. The step completes its draws eagerly, as the eager
-    step does (from ``generator``, or handed in as ``draws``), copies them
-    and the batch into the graph's inputs, replays, and runs Adam eagerly
-    on the graph's gradients: the same step, in three spans,
+    A step on a CUDA batch, without a mesh, ``_inputs`` or gradient hooks
+    of its own, replays its device part, from the input preparation to the
+    gradients and their norm, as one CUDA graph (``device.StepGraph``) for
+    each batch type, shape and dtype of the batch and of the completed
+    draws, and BatchNorm momentum. The step completes its draws eagerly, as
+    the eager step does (from ``generator``, or handed in as ``draws``),
+    copies them and the batch into the graph's inputs, replays, and runs
+    Adam eagerly on the graph's gradients: the same step, in three spans,
     ``usip.step.inputs``, ``.replay`` and ``.optimizer``. Any other step
     runs eagerly. The step's ``graph_counts`` (``captures``, ``replays``,
     ``eager``) counts each kind of call."""
-    graphs: Dict[tuple, _DetectorStepGraph] = {}
-    counts = {"captures": 0, "replays": 0, "eager": 0}
-    graph = (graph and mesh is None and reduce_grads is sum_grads
-             and grad_norm is grad_global_norm)
+    graphs = GraphCache()
+    graphable = (mesh is None and reduce_grads is sum_grads
+                 and grad_norm is grad_global_norm)
 
     def momentum_at(epoch: int) -> float:
         return bn_momentum_schedule(
@@ -483,38 +478,38 @@ def make_detector_train_step(cfg: Config, mesh=None, *,
         return metrics
 
     def replayed(state: TrainState, batch, epoch: int, draws, generator):
-        """The step's device part as a replay of its graph (``graph``)."""
+        """The step's device part as a replay of its graph, whose inputs are
+        the tensors of the batch and of the completed draws: draws made
+        from a generator and draws handed in replay alike."""
         model, step = state.model, state.step
         momentum = momentum_at(epoch)
+
+        def device_step(*tensors):
+            b, d = _tree_like(record, iter(tensors))
+            return objective(state, _prepare_detector_inputs(b, cfg, True, d),
+                             momentum)
+
         with span("usip.step.inputs", step):
-            draws = completed(batch, draws, generator)
+            record = (batch, completed(batch, draws, generator))
             set_bn_process_group(model, None)
-            key = (id(model), type(batch),
-                   tuple((t.shape, t.dtype) for t in batch),
-                   _draws_key(draws), momentum)
-            g = graphs.get(key)
-            if g is None:
-                g = graphs[key] = _DetectorStepGraph(
-                    model, batch, draws,
-                    lambda b, d: objective(
-                        state, _prepare_detector_inputs(b, cfg, True, d),
-                        momentum))
-                counts["captures"] += 1
-            else:
-                g.stage(batch, draws)
-                counts["replays"] += 1
+            g = graphs.graph((id(model), _tree_key(record), momentum),
+                             lambda: StepGraph(model, device_step, tuple(
+                                 t.to(batch[0].device)
+                                 for t in _tree_tensors(record))))
+            for dst, src in zip(g.inputs, _tree_tensors(record)):
+                dst.copy_(src)
         with span("usip.step.replay", step):
-            return g.replay(model)
+            return g.replay()
 
     def train_step(state: TrainState, batch, epoch: int, *,
                    draws: Optional[DetectorDraws] = None,
                    generator: Optional[torch.Generator] = None,
                    _inputs=None):
         model, opt, step = state.model, state.optimizer, state.step
-        if graph and _inputs is None and batch[0].is_cuda:
+        if graphable and _inputs is None and batch[0].is_cuda:
             metrics = replayed(state, batch, epoch, draws, generator)
         else:
-            counts["eager"] += 1
+            graphs.eager()
             with span("usip.step.inputs", step):
                 if _inputs is None:
                     _inputs = _prepare_detector_inputs(
@@ -526,81 +521,33 @@ def make_detector_train_step(cfg: Config, mesh=None, *,
             state.step += 1
         return metrics
 
-    train_step.graph_counts = counts
+    train_step.graph_counts = graphs.graph_counts
     return train_step
 
 
-def _draws_key(x):
-    """The structure of a draws record with each tensor's shape and dtype:
-    what a step's CUDA graph is captured for."""
+def _tree_key(x):
+    """The structure of nested tuples of tensors (a batch, a draws record)
+    with each tensor's shape and dtype: what a step's CUDA graph is
+    captured for."""
     if x is None or torch.is_tensor(x):
         return x if x is None else (tuple(x.shape), x.dtype)
-    return type(x), tuple(_draws_key(v) for v in x)
+    return type(x), tuple(_tree_key(v) for v in x)
 
 
-def _draws_tensors(x) -> list:
-    """The tensors of a draws record, in the order of its fields."""
+def _tree_tensors(x) -> list:
+    """The tensors of nested tuples, in the order of their fields."""
     if x is None or torch.is_tensor(x):
         return [] if x is None else [x]
-    return [t for v in x for t in _draws_tensors(v)]
+    return [t for v in x for t in _tree_tensors(v)]
 
 
-def _draws_like(like, tensors):
-    """The draws record of ``like``'s structure with its tensors taken in
+def _tree_like(like, tensors):
+    """Nested tuples of ``like``'s structure with their tensors taken in
     order from the iterator ``tensors``."""
     if like is None or torch.is_tensor(like):
         return like if like is None else next(tensors)
-    parts = [_draws_like(v, tensors) for v in like]
+    parts = [_tree_like(v, tensors) for v in like]
     return type(like)(*parts) if hasattr(like, "_fields") else type(like)(parts)
-
-
-class _DetectorStepGraph:
-    """The device part of a detector train step as one CUDA graph
-    (``make_detector_train_step``'s ``graph``), for one key: the batch's
-    type, shapes and dtypes, the completed draws' structure, shapes and
-    dtypes, and the BatchNorm momentum.
-
-    Its inputs: the batch's tensors and every tensor of the step's
-    completed ``DetectorDraws``, so that draws made from a generator and
-    draws handed in replay alike; its output, the metrics stacked. The
-    backward sets the model's gradients anew in the graph's memory, where
-    ``replay`` points ``.grad`` back at them for Adam. ``ForwardGraph``
-    runs the step 3 times before the capture, so the model's BatchNorm
-    statistics are put back after it."""
-
-    def __init__(self, model, batch, draws: DetectorDraws, objective):
-        dev = batch[0].device
-        fields = len(batch)
-
-        def device_step(*inputs):
-            metrics = objective(
-                type(batch)(*inputs[:fields]),
-                _draws_like(draws, iter(inputs[fields:])))
-            return torch.stack([metrics[k].float()
-                                for k in _DETECTOR_METRICS])
-
-        kept = [t.detach().clone() for t in model.buffers()]
-        self.graph = ForwardGraph(
-            device_step,
-            (*batch, *(t.to(dev) for t in _draws_tensors(draws))), None)
-        with torch.no_grad():
-            for t, k in zip(model.buffers(), kept):
-                t.copy_(k)
-        self.grads = [p.grad for p in model.parameters()]
-
-    def stage(self, batch, draws: DetectorDraws) -> None:
-        """Write the batch and the step's draws into the graph's inputs."""
-        for dst, src in zip(self.graph.inputs,
-                            (*batch, *_draws_tensors(draws))):
-            dst.copy_(src)
-
-    def replay(self, model) -> Dict[str, Tensor]:
-        """The step on the staged inputs: its metrics (copies), and the
-        model's ``.grad`` on the new gradients."""
-        values = self.graph.replay().clone()
-        for p, g in zip(model.parameters(), self.grads):
-            p.grad = g
-        return {k: values[i] for i, k in enumerate(_DETECTOR_METRICS)}
 
 
 def make_detector_loss_fn(cfg: Config, model):
@@ -707,13 +654,8 @@ class DescriptorDraws(NamedTuple):
     cgf: Optional[CGFDraws] = None
 
 
-_DESCRIPTOR_METRICS = ("loss", "active_percentage", "sigma_mean",
-                       "sigma_std", "sigma_min", "sigma_max", "grad_norm")
-
-
 def make_descriptor_train_step(cfg: Config, use_cgf: bool = False,
-                               eval_only: bool = False, mesh=None,
-                               graph: bool = False):
+                               eval_only: bool = False, mesh=None):
     """``step(state, detector, batch, epoch, *, draws=None,
     generator=None) -> metrics``: one descriptor train step that updates
     ``state`` (the descriptor, its Adam, the step count) in place; with
@@ -733,16 +675,18 @@ def make_descriptor_train_step(cfg: Config, use_cgf: bool = False,
     ball queries), ``.describe``, ``.losses``, then ``.backward`` and
     ``.optimizer`` when it steps.
 
-    ``graph``: a scan-triplet train step on CUDA, without a mesh or a
-    height scale, that draws from ``generator`` (``draws`` None) replays
-    its device part, from the node sampling to the gradients and their
-    norm, as one CUDA graph (``inference.ForwardGraph``) for each shape of
-    the packed batch and BatchNorm momentum. The step then makes its draws
+    A scan-triplet train step on a packed CUDA batch, without a mesh or a
+    height scale, that draws from a CUDA ``generator`` (``draws`` None)
+    replays its device part, from the node sampling to the gradients and
+    their norm, as one CUDA graph (``device.StepGraph``) for each shape of
+    the packed batch and BatchNorm momentum. The step makes its draws
     eagerly, in the order and with the numbers of ``descriptor_draws``,
     straight into the graph's inputs, copies the batch there, replays, and
     runs Adam eagerly on the graph's gradients: the same step, in three
     spans, ``usip.step.inputs``, ``.replay`` and ``.optimizer``. A step
-    handed its draws, or any other, runs eagerly.
+    handed its draws, or any other, runs eagerly. The step's
+    ``graph_counts`` (``captures``, ``replays``, ``eager``) counts each
+    kind of call.
 
     ``mesh``: data parallelism (the module's docstring): ``batch`` holds
     this rank's pairs and the global batch's ``neg_idx``; ``draws`` (where
@@ -854,38 +798,61 @@ def make_descriptor_train_step(cfg: Config, use_cgf: bool = False,
                 metrics["grad_norm"] = grad_global_norm(model)
         return metrics
 
-    graphs: Dict[tuple, "_DescriptorStepGraph"] = {}
-    graph = (graph and train and mesh is None and not use_cgf
-             and not aug.height_scale)
+    graphs = GraphCache()
+    graphable = (train and mesh is None and not use_cgf
+                 and not aug.height_scale)
+    node_args = (data.node_num, data.fps_subsample_ratio, data.fps_parallel)
 
     def replayed(state, detector, batch, epoch, generator):
-        """The step's device part as a replay of its graph (``graph``)."""
-        model, step = state.model, state.step
+        """The step's device part as a replay of its graph, captured on
+        zeroed draws: its inputs the packed pair, ``neg_idx``, both clouds'
+        node uniforms (``draw_node_uniforms``, argsorted inside the graph
+        as ``draws_from_uniforms``) and ball priorities."""
+        model, step, x = state.model, state.step, batch.x
+        b, n = x.shape[0], x.shape[2]
         momentum = bn_momentum_schedule(
             cfg.train.bn_momentum, epoch, cfg.train.bn_momentum_decay_step,
             cfg.train.bn_momentum_decay)
-        key = (id(model), id(detector), tuple(batch.x.shape), batch.x.dtype,
+
+        def device_step(pair, neg, *u):
+            d = DescriptorDraws(
+                nodes_anc=NodeDraws(*draws_from_uniforms(*u[:2], *node_args)),
+                nodes_pos=NodeDraws(*draws_from_uniforms(*u[2:4],
+                                                         *node_args)),
+                ball_anc=u[4], ball_pos=u[5])
+            return objective(state, detector,
+                             prepare(PackedPairBatch(pair, neg), d), d, d,
+                             epoch)
+
+        key = (id(model), id(detector), tuple(x.shape), x.dtype,
                tuple(batch.neg_idx.shape), momentum)
         with span("usip.step.inputs", step):
-            g = graphs.get(key)
-            if g is None:
-                g = graphs[key] = _DescriptorStepGraph(
-                    cfg, state, detector, batch, generator,
-                    lambda d, inputs: objective(
-                        state, detector, prepare(inputs, d), d, d, epoch))
-            else:
-                g.stage(batch, generator)
+            g = graphs.graph(key, lambda: StepGraph(model, device_step, (
+                x, batch.neg_idx,
+                *node_uniform_buffers(b, n, *node_args, device=x.device) * 2,
+                *torch.zeros((2, b, n), device=x.device))))
+            x_in, neg_in, *u = g.inputs
+            x_in.copy_(x)
+            neg_in.copy_(batch.neg_idx)
+            # descriptor_draws' numbers, in its order
+            for keys, first in (u[:2], u[2:4]):
+                draw_node_uniforms(keys, first, *node_args,
+                                   generator=generator)
+            for priority in u[4:]:
+                priority.uniform_(generator=generator)
         with span("usip.step.replay", step):
-            return g.replay(model)
+            return g.replay()
 
     def train_step(state: TrainState, detector, batch, epoch: int, *,
                    draws: Optional[DescriptorDraws] = None,
                    generator: Optional[torch.Generator] = None):
         opt, step = state.optimizer, state.step
-        if (graph and draws is None and generator is not None
-                and isinstance(batch, PackedPairBatch) and batch.x.is_cuda):
+        if (graphable and draws is None and generator is not None
+                and isinstance(batch, PackedPairBatch) and batch.x.is_cuda
+                and generator.device.type == "cuda"):
             metrics = replayed(state, detector, batch, epoch, generator)
         else:
+            graphs.eager()
             with span("usip.step.inputs", step):
                 x = batch.x if isinstance(batch, PackedPairBatch) else None
                 b, n = ((x.shape[0], x.shape[2]) if x is not None
@@ -902,84 +869,5 @@ def make_descriptor_train_step(cfg: Config, use_cgf: bool = False,
                 state.step += 1
         return metrics
 
+    train_step.graph_counts = graphs.graph_counts
     return train_step
-
-
-class _DescriptorStepGraph:
-    """The device part of a scan-triplet descriptor train step as one CUDA
-    graph (``make_descriptor_train_step``'s ``graph``), for one shape of
-    the packed batch.
-
-    Its inputs: the packed pair ``x``, ``neg_idx``, the node draws'
-    uniforms of both clouds (``draw_node_uniforms``: sort keys ``(B, N)``
-    and FPS seed rows) and the ball priorities ``(B, N)``; its output, the
-    metrics stacked. The node draws' argsort runs inside it, as
-    ``draws_from_uniforms``. The backward sets the descriptor's gradients
-    anew in the graph's memory, where ``replay`` points ``.grad`` back at
-    them for Adam. ``ForwardGraph`` runs the step 3 times before the
-    capture, so the descriptor's BatchNorm statistics are put back after
-    it."""
-
-    def __init__(self, cfg: Config, state: TrainState, detector,
-                 batch: "PackedPairBatch", generator: torch.Generator,
-                 objective):
-        data = cfg.data
-        self.node_args = (data.node_num, data.fps_subsample_ratio,
-                          data.fps_parallel)
-        b, n = batch.x.shape[0], batch.x.shape[2]
-        _, parallel = _node_shapes(n, *self.node_args)
-        dev = batch.x.device
-        draws = []
-        for _ in range(2):
-            draws += [torch.empty((b, n), device=dev),
-                      torch.empty((b * parallel,), dtype=torch.int64,
-                                  device=dev)]
-        draws += [torch.empty((b, n), device=dev) for _ in range(2)]
-        self._draw(draws, generator)
-
-        def device_step(x, neg_idx, keys_anc, first_anc, keys_pos, first_pos,
-                        ball_anc, ball_pos):
-            d = DescriptorDraws(
-                nodes_anc=NodeDraws(*draws_from_uniforms(
-                    keys_anc, first_anc, *self.node_args)),
-                nodes_pos=NodeDraws(*draws_from_uniforms(
-                    keys_pos, first_pos, *self.node_args)),
-                ball_anc=ball_anc, ball_pos=ball_pos)
-            metrics = objective(d, PackedPairBatch(x, neg_idx))
-            return torch.stack([metrics[k].float()
-                                for k in _DESCRIPTOR_METRICS])
-
-        model = state.model
-        kept = [t.detach().clone() for t in model.buffers()]
-        self.graph = ForwardGraph(device_step,
-                                  (batch.x, batch.neg_idx, *draws), None)
-        with torch.no_grad():
-            for t, k in zip(model.buffers(), kept):
-                t.copy_(k)
-        self.grads = [p.grad for p in model.parameters()]
-
-    def _draw(self, draws, generator: torch.Generator) -> None:
-        """``descriptor_draws``' numbers, in its order, into ``draws``."""
-        keys_anc, first_anc, keys_pos, first_pos, ball_anc, ball_pos = draws
-        draw_node_uniforms(keys_anc, first_anc, *self.node_args,
-                           generator=generator)
-        draw_node_uniforms(keys_pos, first_pos, *self.node_args,
-                           generator=generator)
-        ball_anc.uniform_(generator=generator)
-        ball_pos.uniform_(generator=generator)
-
-    def stage(self, batch: "PackedPairBatch",
-              generator: torch.Generator) -> None:
-        """Write the batch and the step's draws into the graph's inputs."""
-        x, neg_idx, *draws = self.graph.inputs
-        x.copy_(batch.x)
-        neg_idx.copy_(batch.neg_idx)
-        self._draw(draws, generator)
-
-    def replay(self, model) -> Dict[str, Tensor]:
-        """The step on the staged inputs: its metrics (copies), and the
-        descriptor's ``.grad`` on the new gradients."""
-        values = self.graph.replay().clone()
-        for p, g in zip(model.parameters(), self.grads):
-            p.grad = g
-        return {k: values[i] for i, k in enumerate(_DESCRIPTOR_METRICS)}
