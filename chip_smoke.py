@@ -7,9 +7,10 @@ script exits nonzero without the final ``ok`` line:
 
 0. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
    refuses to run without CUDA;
-1. builds the five CUDA kernels from ``usip_tpu_torch/csrc`` into a clean
-   build directory, one nvcc each, and the host data-path library
-   (``csrc/host/usip_native.cpp``, g++), side by side;
+1. builds the CUDA kernels from ``usip_tpu_torch/csrc`` (the five ported
+   kernels and train-mode BatchNorm) into a clean build directory, one nvcc
+   each, and the host data-path library (``csrc/host/usip_native.cpp``,
+   g++), side by side;
 2. holds each kernel against its plain PyTorch version on the card at the
    main paths' shapes (FPS, min/argmin, smallest-k and scatter-max
    exactly, the fused chain within a stated tolerance): FPS on LiDAR-like
@@ -48,12 +49,18 @@ script exits nonzero without the final ``ok`` line:
    (``eager_detector``; the engine's step replays it) on seeded synthetic
    parent clouds with the launch counts reset before and read after (the
    train path must launch FPS, min/argmin, smallest-k and scatter-max),
-   every loss and gradient norm finite; one fp32 step (batch 2) on the
+   every loss and gradient norm finite, train-mode BatchNorm's kernels 7
+   launches a layer a step; one fp32 step (batch 2) on the
    card against the same step on the CPU (loss within 1e-4, gradient norm
    within 1e-3, relative; each parameter's gradient within ``GRAD_TOL``);
    then the step time, train clouds/s and the step's split into its spans
    (``usip.step.inputs``, ``.forward``, ``.losses``, ``.backward``,
-   ``.optimizer``; CUDA events around each);
+   ``.optimizer``; CUDA events around each), the replayed step's time and
+   launches (the engine's route); then train-mode BatchNorm's kernels at
+   the detector and descriptor steps' shapes against their plain stages,
+   timed (CUDA-graph replay) beside their byte bound, the plain layer
+   (PyTorch's passes, the CPU's path) and ``F.batch_norm`` (a yardstick the
+   port never calls);
 7. trains at full KITTI width through the entry points: builds a synthetic
    KITTI tree of 20480-point scans (``build_synthetic_kitti_tree``), runs
    ``python -m usip_tpu_torch.cli train-detector --device cuda`` for 2
@@ -112,12 +119,15 @@ script exits nonzero without the final ``ok`` line:
    512, 512) k=16, the SOM k=2 assignment (16, 16384, 512) k=2) identical
    to its plain version and timed beside its bound and ``torch.topk``;
    five ball and five knn steps with each kernel's launches a step checked
-   (K1 2, K2 4, K3 0, K4 2, K5 0), their time, split, peak memory and
+   (K1 2, K2 4, K3 0, K4 2, K5 0, BatchNorm 84), their time, split, peak
+   memory and
    operators; one fp32 ball step (batch 2) card against CPU under
    ``GRAD_TOL`` (from the CPU's prepared clouds; each device's own prep
    printed beside it); usip_tpu's learning check (the fixed-draw eval loss
-   of a fresh ball detector falls over 80 steps on one batch); three SOM
-   k=2 steps with their launches (K1 2, K2 4, K4 2, K5 2) and the fp32 SOM
+   of a fresh ball detector falls over 80 steps on one batch; a failure
+   fails the script after phase 15, which still runs); three SOM
+   k=2 steps with their launches (K1 2, K2 4, K4 2, K5 2, BatchNorm 70)
+   and the fp32 SOM
    k=2 forward card against CPU; then on a synthetic Oxford tree
    (``tests/oxford_tree.py``: 24 train and 9 test scans of 20480 points)
    ``train-detector --dataset oxford --override detector.grouping=ball``
@@ -179,7 +189,8 @@ script exits nonzero without the final ``ok`` line:
    library call; the modelnet preset's train step at full width (batch 8
    pairs of 5000-point shapes, 512 nodes, c1 128, c2 512, k=32, bf16,
    rot_3d): five steps with each kernel's launches a step checked (K1 2,
-   K2 5, K3 0, K4 1, K5 2), one fp32 step (batch 2) card against CPU under
+   K2 5, K3 0, K4 1, K5 2, BatchNorm 70), one fp32 step (batch 2) card
+   against CPU under
    deterministic algorithms (phase 6's tolerances), the step's time,
    split, peak memory and busy share; ``train-detector --dataset shrec
    --synthetic --epochs 1`` and ``--dataset modelnet`` in process with
@@ -201,7 +212,8 @@ script exits nonzero without the final ``ok`` line:
    row of its file (each once: the scans are 20480 rows); then one
    ``DetectorEngine`` epoch on phase 7's tree on the native path and one on
    the numpy path (``native.available`` off), each with its clouds/s, idle
-   share (phase 7's method), launches a step (K1 2, K2 5, K3 0, K4 1, K5 2)
+   share (phase 7's method), launches a step (K1 2, K2 5, K3 0, K4 1, K5 2,
+   BatchNorm 70)
    and how many batches ``get_batch`` served (all on the native epoch, none
    on the numpy one).
 
@@ -241,6 +253,7 @@ from usip_tpu_torch.inference import KeypointPipeline  # noqa: E402
 from usip_tpu_torch.models import Descriptor, Detector  # noqa: E402
 from usip_tpu_torch.models.detector import knn_group  # noqa: E402
 from usip_tpu_torch.models.fused_infer import detector_infer_fused  # noqa: E402
+from usip_tpu_torch.nn.layers import BatchNorm, batch_norm_plain  # noqa: E402
 from usip_tpu_torch.ops import (assign_points_to_nodes, kernels,  # noqa: E402
                                 pairwise_sqdist, sample_nodes)
 from usip_tpu_torch.ops.grouping import (ball_query, ball_scores,  # noqa: E402
@@ -350,17 +363,24 @@ PATH_KERNELS = {
     "som": ("fps", "min_argmin", "scatter_max", "fusion_chain", "smallest_k"),
     "ball": ("fps", "smallest_k", "fusion_chain"),
     "knn": ("fps", "smallest_k", "fusion_chain"),
-    "train": ("fps", "min_argmin", "scatter_max", "smallest_k"),
-    "engine": ("fps", "min_argmin", "scatter_max", "smallest_k"),
+    "train": ("fps", "min_argmin", "scatter_max", "smallest_k",
+             "batch_norm"),
+    "engine": ("fps", "min_argmin", "scatter_max", "smallest_k",
+              "batch_norm"),
     "export": ("fps", "min_argmin", "scatter_max", "fusion_chain",
                "smallest_k"),
-    "descriptor": ("fps", "min_argmin", "scatter_max", "smallest_k"),
-    "descriptor_engine": ("fps", "min_argmin", "scatter_max", "smallest_k"),
+    "descriptor": ("fps", "min_argmin", "scatter_max", "smallest_k",
+                  "batch_norm"),
+    "descriptor_engine": ("fps", "min_argmin", "scatter_max", "smallest_k",
+                         "batch_norm"),
     "descriptor_export": ("fps", "min_argmin", "scatter_max", "fusion_chain",
                           "smallest_k"),
-    "indoor_detector": ("fps", "min_argmin", "scatter_max", "smallest_k"),
-    "indoor_descriptor": ("fps", "min_argmin", "scatter_max", "smallest_k"),
-    "indoor_engine": ("fps", "min_argmin", "scatter_max", "smallest_k"),
+    "indoor_detector": ("fps", "min_argmin", "scatter_max", "smallest_k",
+                       "batch_norm"),
+    "indoor_descriptor": ("fps", "min_argmin", "scatter_max", "smallest_k",
+                         "batch_norm"),
+    "indoor_engine": ("fps", "min_argmin", "scatter_max", "smallest_k",
+                     "batch_norm"),
     "fragment_export": ("fps", "min_argmin", "scatter_max", "fusion_chain",
                         "smallest_k"),
 }
@@ -1335,6 +1355,8 @@ def phase6(card):
     for name in PATH_KERNELS["train"]:
         check(launches[name] > 0, f"kernel {name} launched on the train "
               "path")
+    check(launches["batch_norm"] == bn_launches(state.model) * TRAIN_STEPS,
+          "train-mode BatchNorm's kernels: 7 launches a layer a step")
 
     # one fp32 step, batch 2, on the card and on the CPU (plain versions)
     # from the same weights, parents and draws (a CPU generator on both):
@@ -1419,7 +1441,185 @@ def phase6(card):
           "[name, ms a step, calls a step]: "
           + json.dumps([[k, round(t, 4), c] for t, c, k in ops[:15]]),
           flush=True)
+    replayed_ms(card, "[6]", f"train step kitti bf16 batch {b}",
+                make_detector_train_step(cfg),
+                lambda run: run(state, batch, 0, generator=gen), 2 * b)
     return launches, step_rate
+
+
+def bn_launches(model):
+    """Train-mode BatchNorm's launches a step of ``model``: 7 a layer
+    (statistics 2, finalise 1, apply 1; backward sums 2, dx 1)."""
+    return 7 * sum(isinstance(m, BatchNorm) for m in model.modules())
+
+
+def replayed_ms(card, tag, what, step, run, clouds, iters=10):
+    """A train ``step`` on its replayed route (a CUDA graph a key after its
+    first call, as the engines run it; ``run(step)`` calls it once): the
+    time a step (host clock over pipelined steps, one synchronize), clouds/s
+    and the launches a step, printed."""
+    run(step)
+    sync()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        run(step)
+    sync()
+    ms = (time.perf_counter() - t0) / iters * 1e3
+    check(step.graph_counts["replays"] >= iters, f"{what}: replayed")
+    print(f"{tag} {card} | {what}, replayed (CUDA graph): {ms:.3f} ms a "
+          f"step (mean of {iters}, pipelined), {clouds * 1e3 / ms:.2f} "
+          "clouds/s; launches a step "
+          + json.dumps({k: v / iters for k, v in kernels.LAUNCHES.items()}),
+          flush=True)
+    return ms
+
+
+# train-mode BatchNorm's shapes on the train steps' main paths: (rows, C,
+# dtype, calls a step). The KITTI detector step (16 clouds of 16384
+# points; 512 nodes of 16 neighbours; the head over 16 x 512 nodes in fp32)
+# and the KITTI descriptor step (256 balls of 64 in each of 8 clouds, the
+# anchors' and then the positives')
+BN_SHAPES = {
+    "detector first_pointnet (262144, 64) bf16":
+        (262144, 64, torch.bfloat16, 2),
+    "detector second_pointnet (262144, 128) bf16":
+        (262144, 128, torch.bfloat16, 1),
+    "detector fusion before (131072, 256) bf16":
+        (131072, 256, torch.bfloat16, 3),
+    "detector fusion after (131072, 512) bf16":
+        (131072, 512, torch.bfloat16, 2),
+    "detector head mlp1 (8192, 512) fp32": (8192, 512, torch.float32, 1),
+    "detector head mlp2 (8192, 256) fp32": (8192, 256, torch.float32, 1),
+    "descriptor conv1 (131072, 32) bf16": (131072, 32, torch.bfloat16, 2),
+    "descriptor conv2 (131072, 64) bf16": (131072, 64, torch.bfloat16, 2),
+    "descriptor conv3, conv4 (131072, 128) bf16":
+        (131072, 128, torch.bfloat16, 4),
+}
+# bytes an element of each stage, in element sizes: statistics (read x),
+# finalise (vectors only), apply (read x, write y), backward sums (read dy
+# and x), dx (read dy and x, write dx)
+BN_STAGE_PASSES = {"stats": 1, "finalise": 0, "apply": 2,
+                   "backward_reduce": 2, "backward_apply": 3}
+
+
+def batch_norm_kernels(card):
+    """Train-mode BatchNorm's kernels at ``BN_SHAPES`` (ReLU fused, as the
+    layers run them): against their plain stages on the card (the apply bit
+    for bit from the same mean and 1/std; the sums and statistics, the
+    finalise's mean, 1/std and running statistics from the same totals
+    within 1e-5 of their largest; the batch count exactly; dx within one
+    rounding of its dtype), then each
+    stage's CUDA-graph time, the layer's forward and backward beside their
+    byte bound (``BN_STAGE_PASSES`` at 3.35 TB/s), the plain layer
+    (autograd of ``batch_norm_plain``, PyTorch's passes) and
+    ``F.batch_norm`` with its backward (a yardstick the port never calls);
+    each step's sum over its layers."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(21)
+    out, steps = {}, {}
+    for label, (rows, c, dtype, calls) in BN_SHAPES.items():
+        x = (2 * torch.randn((rows, c), generator=gen, device=dev)
+             + 0.5).to(dtype)
+        dy = torch.randn((rows, c), generator=gen, device=dev).to(dtype)
+        bn = BatchNorm(c).to(dev).train()
+        with torch.no_grad():
+            bn.weight.uniform_(0.5, 1.5, generator=gen)
+            bn.bias.normal_(0.0, 0.1, generator=gen)
+        w, b = bn.weight.detach(), bn.bias.detach()
+        rm, rv = bn.running_mean.clone(), bn.running_var.clone()
+        nb = bn.num_batches_tracked.clone()
+        ref_run = (rm.clone(), rv.clone(), nb.clone())
+        totals = kernels.batch_norm_stats(x)
+        mean, rstd = kernels.batch_norm_finalise(totals, rm, rv, nb, 0.1,
+                                                 1e-5)
+        ref_mean, ref_rstd = kernels.batch_norm_finalise_plain(
+            totals, *ref_run, 0.1, 1e-5)
+        count = totals[-1:]
+        y = kernels.batch_norm_apply(x, mean, rstd, w, b, True)
+        sg, sgx = kernels.batch_norm_backward_reduce(dy, x, mean, rstd, w, b,
+                                                     True)
+        dx = kernels.batch_norm_backward_apply(dy, x, mean, rstd, w, b, sg,
+                                               sgx, count, True)
+        sync()
+        ref_totals = kernels.batch_norm_stats_plain(x)
+        ref_sg, ref_sgx = kernels.batch_norm_backward_reduce_plain(
+            dy, x, mean, rstd, w, b, True)
+        ref_dx = kernels.batch_norm_backward_apply_plain(
+            dy, x, mean, rstd, w, b, sg, sgx, count, True)
+
+        def gap(got, ref):
+            return float((got.float() - ref.float()).abs().max()) / max(
+                float(ref.float().abs().max()), 1e-30)
+
+        errs = {"totals": gap(totals, ref_totals), "mean": gap(mean, ref_mean),
+                "rstd": gap(rstd, ref_rstd),
+                "running_mean": gap(rm, ref_run[0]),
+                "running_var": gap(rv, ref_run[1]), "sum_g": gap(sg, ref_sg),
+                "sum_gx": gap(sgx, ref_sgx), "dx": gap(dx, ref_dx)}
+        check(torch.equal(y, kernels.batch_norm_apply_plain(
+            x, mean, rstd, w, b, True)), f"BatchNorm {label}: apply equals "
+            "its plain stage")
+        check(torch.equal(nb, ref_run[2]) and int(nb) == 1,
+              f"BatchNorm {label}: the finalise counts one batch")
+        check(max(v for k, v in errs.items() if k != "dx") <= 1e-5
+              and errs["dx"] <= (2.0 ** -8 if dtype == torch.bfloat16
+                                 else 1e-6),
+              f"BatchNorm {label}: stages within tolerance of plain {errs}")
+
+        iters = 20
+        stages = {
+            "stats": lambda: kernels.batch_norm_stats(x),
+            "finalise": lambda: kernels.batch_norm_finalise(
+                totals, rm, rv, nb, 0.1, 1e-5),
+            "apply": lambda: kernels.batch_norm_apply(x, mean, rstd, w, b,
+                                                      True),
+            "backward_reduce": lambda: kernels.batch_norm_backward_reduce(
+                dy, x, mean, rstd, w, b, True),
+            "backward_apply": lambda: kernels.batch_norm_backward_apply(
+                dy, x, mean, rstd, w, b, sg, sgx, count, True)}
+        stage_ms = {k: graph_ms(fn, iters) for k, fn in stages.items()}
+        size = x.element_size()
+        stage_bound = {k: BN_STAGE_PASSES[k] * rows * c * size / HBM_BPS
+                       * 1e3 for k in stages}
+        xg = x.clone().requires_grad_(True)
+
+        def plain():
+            torch.relu(batch_norm_plain(bn, xg)).backward(dy)
+
+        def library():
+            torch.relu(torch.nn.functional.batch_norm(
+                xg, rm, rv, bn.weight, bn.bias, True, 0.1, 1e-5)
+            ).backward(dy)
+
+        plain_ms = graph_ms(plain, iters)
+        try:
+            library_ms = graph_ms(library, iters)
+        except RuntimeError as err:  # a dtype mix the library refuses
+            library_ms = f"not run: {str(err).splitlines()[0][:120]}"
+        ms = sum(stage_ms.values())
+        bound_ms = sum(stage_bound.values())
+        out[label] = {"calls_a_step": calls, "ms": ms,
+                      "stages_ms": stage_ms, "bound_ms": bound_ms,
+                      "stages_bound_ms": stage_bound,
+                      "roofline_share": bound_ms / ms, "plain_ms": plain_ms,
+                      "library_ms": library_ms, "max_rel_err": errs}
+        step = label.split()[0]
+        tot = steps.setdefault(step, {"ms": 0.0, "bound_ms": 0.0,
+                                      "plain_ms": 0.0})
+        tot["ms"] += calls * ms
+        tot["bound_ms"] += calls * bound_ms
+        tot["plain_ms"] += calls * plain_ms
+        print(f"[6] {card} | BatchNorm {label}, forward + backward "
+              f"(CUDA-graph replay, ms): kernels {ms:.4f} (bound "
+              f"{bound_ms:.4f}, bytes; share {bound_ms / ms:.3f}), plain "
+              f"{plain_ms:.4f}, F.batch_norm {library_ms}; stages "
+              + json.dumps({k: round(v, 4) for k, v in stage_ms.items()})
+              + f"; gaps to plain {json.dumps(errs)}", flush=True)
+        del x, dy, xg, y, dx
+    print(json.dumps({"batch_norm": out, "batch_norm_steps": steps}),
+          flush=True)
+    return out
 
 
 def run_module(tag, args, timeout=900):
@@ -1732,6 +1932,10 @@ def phase9_step(card):
     for name in PATH_KERNELS["descriptor"]:
         check(launches[name] > 0, f"kernel {name} launched on the "
               "descriptor train path")
+    # the step describes the anchors' balls, then the positives'
+    check(launches["batch_norm"] == 2 * bn_launches(state.model)
+          * DESC_STEPS, "train-mode BatchNorm's kernels: 7 launches a "
+          "descriptor layer a describe, two describes a step")
 
     # one fp32 step, batch 2, on the card and on the CPU from the same
     # weights, pairs and draws (a CPU generator on both), the CPU detector's
@@ -1803,6 +2007,9 @@ def phase9_step(card):
           " of the unprofiled step); by operator [name, ms a step, calls a "
           "step]: " + json.dumps([[k, round(t, 4), c] for t, c, k in ops[:15]]),
           flush=True)
+    replayed_ms(card, "[9]", f"train step descriptor kitti bf16 batch {b}",
+                make_descriptor_train_step(cfg),
+                lambda run: run(state, det, batch, 0, generator=gen), 2 * b)
     return launches, rate
 
 
@@ -2701,13 +2908,14 @@ def phase10(card, tmp):
 # grouped trunk does not scatter)
 OX_STEPS = 5
 OX_STEP_LAUNCHES = {"fps": 2, "min_argmin": 4, "fusion_chain": 0,
-                    "smallest_k": 2, "scatter_max": 0}
+                    "smallest_k": 2, "scatter_max": 0,
+                    "batch_norm": 7 * 12}
 # the SOM trunk with k=2 nodes a point at the KITTI preset's width: the
 # assignment selects on K4 (k > 1), both scatter-maxes run over 2N points
 SOM_K = 2
 SOM_K_STEPS = 3
 SOM_K_LAUNCHES = {"fps": 2, "min_argmin": 4, "fusion_chain": 0,
-                  "smallest_k": 2, "scatter_max": 2}
+                  "smallest_k": 2, "scatter_max": 2, "batch_norm": 7 * 10}
 # the learning check: train steps on one fixed batch from a fresh init. At
 # the Oxford preset's full width the fixed-draw eval loss (running
 # BatchNorm statistics) first rises while the statistics catch up with the
@@ -2715,6 +2923,9 @@ SOM_K_LAUNCHES = {"fps": 2, "min_argmin": 4, "fusion_chain": 0,
 # at 80, while the same draws' train-mode loss falls from the start (1.868,
 # 1.760, 1.529)
 LEARN_STEPS = 80
+# checks that failed without stopping the phases after them (the learning
+# check), raised at the end of ``main``
+DEFERRED = []
 # the synthetic Oxford tree of phase 11 (tests/oxford_tree.py): full-size
 # 20480-point scans, 24 to train (3 steps of batch 8 an epoch), 9 test scans
 # (8 ground-truth pairs: one test batch)
@@ -2996,11 +3207,20 @@ def ox_learns(card, rng):
     order, and the bf16 run's eval loss after 80 steps moved from run to
     run (1.53851 and 1.69716 against 1.69502 at the start, on an H100
     80GB HBM3 at 700 W); deterministic, it is 1.67469 on every run
-    there."""
+    there, and 1.69923 with train-mode BatchNorm's kernels. One trajectory
+    is chance: over 21 batches the plain layer with its batch statistics
+    taken in float64 moves the loss after 80 steps by as much as the
+    kernels do (gaps to the plain layer up to 0.46 and 0.36, IQR 0.22 and
+    0.23, each side of zero about as often), so a failure is kept in
+    ``DEFERRED`` and fails the script after the last phase, which still
+    runs."""
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
         _ox_learns(card, rng)
+    except RuntimeError as err:
+        print(f"[11] {card} | {err}; the script fails at its end", flush=True)
+        DEFERRED.append(str(err).removeprefix("check failed: "))
     finally:
         torch.use_deterministic_algorithms(False)
 
@@ -3339,8 +3559,11 @@ def _reordered(batch, b):
 def _float64_casts():
     """The port's ``.float()`` and ``.to(float32)`` kept in float64, and
     float64 the default dtype, for the block: a float64 run of fp32 code
-    (``tests/group_step_probe.py``'s arbiter)."""
+    (``tests/group_step_probe.py``'s arbiter). Train-mode BatchNorm runs
+    ``batch_norm_plain`` there, its float64 math as on the CPU: the CUDA
+    kernels take bf16 and fp32 rows only."""
     orig_float, orig_to = torch.Tensor.float, torch.Tensor.to
+    orig_bn = BatchNorm.forward
 
     def to(self, *a, **k):
         a = tuple(torch.float64 if x is torch.float32 else x for x in a)
@@ -3348,14 +3571,20 @@ def _float64_casts():
             k["dtype"] = torch.float64
         return orig_to(self, *a, **k)
 
+    def plain_bn(self, x, relu=False):
+        y = batch_norm_plain(self, x)
+        return torch.relu(y) if relu else y
+
     default = torch.get_default_dtype()
     torch.set_default_dtype(torch.float64)
     torch.Tensor.float = lambda self: self.double()
     torch.Tensor.to = to
+    BatchNorm.forward = plain_bn
     try:
         yield
     finally:
         torch.Tensor.float, torch.Tensor.to = orig_float, orig_to
+        BatchNorm.forward = orig_bn
         torch.set_default_dtype(default)
 
 
@@ -4407,7 +4636,8 @@ def phase13(card, tmp):
 # chain at (8, 512, 32, 131) -> 512 and K1, K2, K4, K5 at batch 8)
 OBJECT_STEPS = 5
 OBJECT_STEP_LAUNCHES = {"fps": 2, "min_argmin": 5, "fusion_chain": 0,
-                        "smallest_k": 1, "scatter_max": 2}
+                        "smallest_k": 1, "scatter_max": 2,
+                        "batch_norm": 7 * 10}
 OBJECT_SHAPES = {
     "fps (8, 1250) -> 512": ("fps", (8, 1250)),
     "min_argmin (16, 5000) x 512 bf16": ("min_argmin", (16, 5000, 512, True)),
@@ -4471,7 +4701,7 @@ def object_kernels(card, rng):
     nodes = torch.from_numpy(np.stack([p[rng.choice(5000, 512,
                                                     replace=False)]
                                        for p in pc_np])).to(dev)
-    errs = {k: 0.0 for k in kernels.LAUNCHES}
+    errs = {name: 0.0 for name, _ in OBJECT_SHAPES.values()}
     out = {}
     for label, (name, arg) in OBJECT_SHAPES.items():
         lib = None
@@ -4914,7 +5144,8 @@ def phase14(card, tmp, root, ckpt):
 # the kernels a KITTI engine step launches
 NATIVE_BATCH = 8
 ENGINE_STEP_LAUNCHES = {"fps": 2, "min_argmin": 5, "fusion_chain": 0,
-                        "smallest_k": 1, "scatter_max": 2}
+                        "smallest_k": 1, "scatter_max": 2,
+                        "batch_norm": 7 * 10}
 
 
 @contextlib.contextmanager
@@ -5085,6 +5316,8 @@ def main():
         lap("5 timing")
         launches["train"], step_rate = phase6(card)
         lap("6 train step")
+        batch_norm_kernels(card)
+        lap("6 BatchNorm kernels")
         launches["engine"], root, ckpt = phase7(card, tmp, step_rate)
         lap("7 engine")
         launches["export"] = phase8(card, tmp, root, ckpt)
@@ -5206,6 +5439,7 @@ def main():
     # K4 at the sharded gathers' local select (8, 512, 8192) k=64
     line[3]["sharded_gather"] = shard_k4
     print(json.dumps({"kernels": line}), flush=True)
+    check(not DEFERRED, "; ".join(DEFERRED))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -217,6 +217,36 @@ def test_batchnorm_over_ranks_matches_usip_tpu_and_one_rank(ranks):
                                    rtol=1e-5, atol=1e-5)
 
 
+def test_batchnorm_function_over_ranks_matches_one_rank(ranks):
+    """The CUDA route's ``_TrainBatchNorm`` (its plain stages) at 2
+    ranks over ``make_mesh``'s default group: outputs, ``dx``, the summed
+    parameter gradients and the running statistics within the tolerances
+    of the test above of the one-rank layer on the whole batch."""
+    p, _, results = ranks
+    x = p["bn_x"].clone().requires_grad_(True)
+    bn = BatchNorm(x.shape[-1]).train()
+    bn.momentum = 0.3
+    with torch.no_grad():
+        bn.weight.copy_(p["bn_w"])
+        bn.bias.copy_(p["bn_b"])
+    y = bn(x)
+    (y * p["bn_up"]).sum().backward()
+    got_y = torch.cat([r["bn_function"]["y"] for r in results])
+    got_dx = torch.cat([r["bn_function"]["dx"] for r in results])
+    np.testing.assert_allclose(got_y.numpy(), y.detach().numpy(), atol=1e-5)
+    np.testing.assert_allclose(got_dx.numpy(), x.grad.numpy(), atol=1e-5)
+    for res in results:
+        b = res["bn_function"]
+        for got, ref in ((b["mean"], bn.running_mean),
+                         (b["var"], bn.running_var)):
+            np.testing.assert_allclose(np.asarray(got), np.asarray(ref),
+                                       rtol=2e-5, atol=2e-5)
+        np.testing.assert_allclose(b["dw"].numpy(), bn.weight.grad.numpy(),
+                                   rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(b["db"].numpy(), bn.bias.grad.numpy(),
+                                   rtol=1e-5, atol=1e-5)
+
+
 # --------------------------------------------------------------- steps ----
 
 def _check_against_one_rank(res, model, metrics, rtol_jax, jmetrics):

@@ -7,6 +7,7 @@ imports JAX."""
 
 from __future__ import annotations
 
+import contextlib
 import os
 import traceback
 
@@ -17,6 +18,27 @@ import torch.multiprocessing as mp
 # seconds a rank waits in a collective before it fails (a rank that died
 # must not leave the other waiting for torch's default half hour)
 RANK_TIMEOUT = 120
+
+
+# the train-mode BatchNorm stages that ``nn/layers.py _TrainBatchNorm``
+# calls through ``ops/kernels.py``
+BN_STAGES = ("batch_norm_stats", "batch_norm_finalise", "batch_norm_apply",
+             "batch_norm_backward_reduce", "batch_norm_backward_apply")
+
+
+@contextlib.contextmanager
+def plain_bn_stages():
+    """``_TrainBatchNorm`` on CPU tensors: the kernels' wrappers (CUDA
+    only) stand replaced by their plain stages while the block runs."""
+    from usip_tpu_torch.ops import kernels
+    saved = {n: getattr(kernels, n) for n in BN_STAGES}
+    try:
+        for n in BN_STAGES:
+            setattr(kernels, n, getattr(kernels, n + "_plain"))
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(kernels, n, fn)
 
 
 def _entry(rank: int, world: int, root: str, fn, args) -> None:
@@ -115,6 +137,24 @@ def parallel_checks(rank: int, world: int, p: dict) -> dict:
     out["bn"] = {"y": y.detach(), "dx": x.grad, "dw": bn.weight.grad,
                  "db": bn.bias.grad, "mean": bn.running_mean.clone(),
                  "var": bn.running_var.clone()}
+    # the same rows through the CUDA route's autograd Function (its plain
+    # stages here), its all-reduces over the mesh's default group
+    from usip_tpu_torch.nn.layers import _TrainBatchNorm
+    x = p["bn_x"][batch_sharding(mesh, p["bn_x"].shape[0])].clone()
+    x.requires_grad_(True)
+    bn = BatchNorm(x.shape[-1], process_group=mesh).train()
+    bn.momentum = 0.3
+    with torch.no_grad():
+        bn.weight.copy_(p["bn_w"])
+        bn.bias.copy_(p["bn_b"])
+    with plain_bn_stages():
+        y = _TrainBatchNorm.apply(x, bn.weight, bn.bias, bn, False)
+        (y * w_up).sum().backward()
+    all_reduce_grads(bn.parameters(), mesh)
+    out["bn_function"] = {"y": y.detach(), "dx": x.grad,
+                          "dw": bn.weight.grad, "db": bn.bias.grad,
+                          "mean": bn.running_mean.clone(),
+                          "var": bn.running_var.clone()}
 
     # the detector's step on this rank's rows with the global draws
     d = p["det"]

@@ -23,7 +23,8 @@ import tempfile
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
-KERNELS = ("fps", "min_argmin", "fusion_chain", "smallest_k", "scatter_max")
+KERNELS = ("fps", "min_argmin", "fusion_chain", "smallest_k", "scatter_max",
+           "batch_norm")
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "usip_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",

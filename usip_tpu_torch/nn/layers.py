@@ -9,7 +9,10 @@ loads with ``load_state_dict(strict=True)``.
 ``BatchNorm`` has usip_tpu's train mode: batch statistics, the running
 statistics updated with a momentum that the train step sets from
 ``bn_momentum_schedule``; with a ``process_group`` (usip_tpu's
-``axis_name``) the statistics are those of the rows of every rank.
+``axis_name``) the statistics are those of the rows of every rank. On CUDA
+tensors train mode runs the kernels of ``csrc/batch_norm.cu``
+(``ops/kernels.py batch_norm_*``), the layer's ReLU fused into them; on the
+CPU ``batch_norm_plain``.
 """
 
 from __future__ import annotations
@@ -18,8 +21,11 @@ import math
 from typing import Optional, Sequence
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
+
+from usip_tpu_torch.ops import kernels
 
 Tensor = torch.Tensor
 
@@ -52,6 +58,91 @@ def bn_momentum_schedule(base: float, epoch: Optional[int],
     return max(base * decay ** math.floor(epoch / decay_step), 0.01)
 
 
+def batch_norm_plain(bn: "BatchNorm", x: Tensor) -> Tensor:
+    """``bn`` on ``x`` in plain PyTorch: its train mode (batch statistics,
+    the running statistics updated) or eval mode (the running statistics).
+    The CPU's path, and the reference of the train-mode kernels."""
+    x32 = x.float()
+    if bn.training:
+        dims = tuple(range(x.dim() - 1))
+        count = x.numel() // x.shape[-1]
+        group = bn.process_group
+        if group is not None and group.size > 1:
+            from usip_tpu_torch.parallel.collectives import sync_sum
+            c = x.shape[-1]
+            stats = sync_sum(torch.cat([
+                x32.sum(dims), x32.square().sum(dims),
+                x32.new_full((1,), float(count))]), group)
+            # the global count stays on the device (no host sync)
+            count = stats[-1].detach()
+            mean = stats[:c] / count
+            var = (stats[c:2 * c] / count - mean.square()).clamp_min(0.0)
+        else:
+            mean = x32.mean(dims)
+            var = (x32.square().mean(dims)
+                   - mean.square()).clamp_min(0.0)
+        with torch.no_grad():
+            m = bn.momentum
+            if torch.is_tensor(count):
+                unbiased = var * (count / (count - 1).clamp_min(1.0))
+            else:
+                unbiased = var * (count / max(count - 1, 1))
+            bn.running_mean.copy_((1.0 - m) * bn.running_mean
+                                  + m * mean)
+            bn.running_var.copy_((1.0 - m) * bn.running_var
+                                 + m * unbiased)
+            bn.num_batches_tracked.add_(1)
+    else:
+        mean, var = bn.running_mean, bn.running_var
+    y = (x32 - mean) * torch.rsqrt(var + bn.eps)
+    return (y * bn.weight + bn.bias).to(x.dtype)
+
+
+def _mesh(bn: "BatchNorm"):
+    """The mesh of ``bn``'s statistics, None for one rank (a mesh's own
+    ``group`` may be None: the default group)."""
+    mesh = bn.process_group
+    return mesh if mesh is not None and mesh.size > 1 else None
+
+
+class _TrainBatchNorm(torch.autograd.Function):
+    """Train-mode BatchNorm on CUDA rows through the kernels: statistics
+    (all-reduced over the layer's group), finalise, apply with the ReLU
+    fused where asked; the backward's sums, all-reduced over the group for
+    ``dx`` while the weight's and bias's gradients keep this rank's own
+    (the data-parallel gradient sum adds the ranks' later). Saves the input,
+    the mean, 1/std and the count: no fp32 copy of an activation."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, bn, relu):
+        x = x.contiguous()
+        totals = kernels.batch_norm_stats(x)
+        mesh = _mesh(bn)
+        if mesh is not None:
+            dist.all_reduce(totals, group=mesh.group)
+        mean, rstd = kernels.batch_norm_finalise(
+            totals, bn.running_mean, bn.running_var, bn.num_batches_tracked,
+            bn.momentum, bn.eps)
+        ctx.save_for_backward(x, weight, bias, mean, rstd, totals[-1:])
+        ctx.relu, ctx.mesh = relu, mesh
+        return kernels.batch_norm_apply(x, mean, rstd, weight, bias, relu)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, weight, bias, mean, rstd, count = ctx.saved_tensors
+        dy = dy.contiguous()
+        sum_g, sum_gx = kernels.batch_norm_backward_reduce(
+            dy, x, mean, rstd, weight, bias, ctx.relu)
+        tot_g, tot_gx = sum_g, sum_gx
+        if ctx.mesh is not None:
+            both = torch.cat([sum_g, sum_gx])
+            dist.all_reduce(both, group=ctx.mesh.group)
+            tot_g, tot_gx = both.chunk(2)
+        dx = kernels.batch_norm_backward_apply(
+            dy, x, mean, rstd, weight, bias, tot_g, tot_gx, count, ctx.relu)
+        return dx, sum_gx, sum_g, None, None
+
+
 class BatchNorm(nn.Module):
     """Batch norm over the trailing channel axis, in fp32, returned in the
     input's dtype: ``(x - mean) * rsqrt(var + eps) * weight + bias``.
@@ -60,7 +151,9 @@ class BatchNorm(nn.Module):
     (``nn/layers.py BatchNorm``): the batch mean and the biased variance
     ``E[x^2] - E[x]^2`` (clamped at 0) normalize; the unbiased variance feeds
     the running statistics, ``running = (1 - m) running + m batch`` with
-    ``m = self.momentum`` (``set_bn_momentum``).
+    ``m = self.momentum`` (``set_bn_momentum``). On CUDA tensors train mode
+    runs the kernels of ``csrc/batch_norm.cu`` (``_TrainBatchNorm``), else
+    ``batch_norm_plain``.
 
     ``process_group`` (a ``parallel.Mesh``; ``set_bn_process_group``) makes
     the train-mode statistics global over its ranks, as usip_tpu's
@@ -82,41 +175,14 @@ class BatchNorm(nn.Module):
         self.register_buffer("num_batches_tracked",
                              torch.tensor(0, dtype=torch.long))
 
-    def forward(self, x: Tensor) -> Tensor:
-        x32 = x.float()
-        if self.training:
-            dims = tuple(range(x.dim() - 1))
-            count = x.numel() // x.shape[-1]
-            group = self.process_group
-            if group is not None and group.size > 1:
-                from usip_tpu_torch.parallel.collectives import sync_sum
-                c = x.shape[-1]
-                stats = sync_sum(torch.cat([
-                    x32.sum(dims), x32.square().sum(dims),
-                    x32.new_full((1,), float(count))]), group)
-                # the global count stays on the device (no host sync)
-                count = stats[-1].detach()
-                mean = stats[:c] / count
-                var = (stats[c:2 * c] / count - mean.square()).clamp_min(0.0)
-            else:
-                mean = x32.mean(dims)
-                var = (x32.square().mean(dims)
-                       - mean.square()).clamp_min(0.0)
-            with torch.no_grad():
-                m = self.momentum
-                if torch.is_tensor(count):
-                    unbiased = var * (count / (count - 1).clamp_min(1.0))
-                else:
-                    unbiased = var * (count / max(count - 1, 1))
-                self.running_mean.copy_((1.0 - m) * self.running_mean
-                                        + m * mean)
-                self.running_var.copy_((1.0 - m) * self.running_var
-                                       + m * unbiased)
-                self.num_batches_tracked.add_(1)
-        else:
-            mean, var = self.running_mean, self.running_var
-        y = (x32 - mean) * torch.rsqrt(var + self.eps)
-        return (y * self.weight + self.bias).to(x.dtype)
+    def forward(self, x: Tensor, relu: bool = False) -> Tensor:
+        """The normalised ``x``; ``relu`` applies a ReLU after it (fused
+        into the kernels' passes in train mode on CUDA)."""
+        if self.training and x.device.type == "cuda":
+            return _TrainBatchNorm.apply(x, self.weight, self.bias, self,
+                                         relu)
+        y = batch_norm_plain(self, x)
+        return torch.relu(y) if relu else y
 
 
 def set_bn_process_group(module: nn.Module, mesh) -> None:
@@ -179,6 +245,7 @@ class PointwiseLayer(nn.Module):
         self.conv = Conv1x1(cin, cout, kernel_dims)
         self.norm = BatchNorm(cout) if normalization == "batch" else None
         self.act = activation_fn(activation)
+        self.relu = activation == "relu"
         self.dtype = dtype
 
     def forward(self, x) -> Tensor:
@@ -194,9 +261,11 @@ class PointwiseLayer(nn.Module):
             y = y + self.conv.bias.to(dt)
         else:
             y = self.conv(x, self.dtype)
-        if self.norm is not None:
-            y = self.norm(y)
-        return self.act(y)
+        if self.norm is None:
+            return self.act(y)
+        if self.relu:
+            return self.norm(y, relu=True)
+        return self.act(self.norm(y))
 
 
 class SharedMLP(nn.Module):

@@ -1,6 +1,8 @@
-"""The hand-written CUDA kernels of the serving path, with their plain versions.
+"""The hand-written CUDA kernels of the port, with their plain versions.
 
-Counterpart of ``usip_tpu/ops/pallas_kernels.py``. Each kernel has:
+Counterpart of ``usip_tpu/ops/pallas_kernels.py`` (five kernels), plus
+train-mode BatchNorm (``csrc/batch_norm.cu``, five stages as ops
+``usip::batch_norm_*``, which no TPU kernel had). Each kernel has:
 
 * a plain PyTorch version (``*_plain``), the reference that the CPU tests and
   ``chip_smoke.py`` hold the kernel against;
@@ -15,6 +17,10 @@ Counterpart of ``usip_tpu/ops/pallas_kernels.py``. Each kernel has:
   and CUDA is refused);
 * an integer launch count in ``LAUNCHES``, raised by one where the CUDA
   kernel of the op launches and nowhere else.
+
+The BatchNorm stages' ops have a CUDA kernel and a fake kernel only: on the
+CPU train mode is ``nn/layers.py batch_norm_plain``, and the stages' plain
+versions are the references of the kernels alone.
 
 Importing this module registers the ops, so a program exported with
 ``torch.export`` that calls them loads once it is imported. The kernels
@@ -35,7 +41,7 @@ from usip_tpu_torch.ops.geometry import pairwise_sqdist
 Tensor = torch.Tensor
 
 LAUNCHES = {"fps": 0, "min_argmin": 0, "fusion_chain": 0, "smallest_k": 0,
-            "scatter_max": 0}
+            "scatter_max": 0, "batch_norm": 0}
 
 # the largest dynamic shared memory one block may take on Hopper
 _MAX_SMEM = 232448
@@ -76,9 +82,14 @@ _MA_PPT = (8, 4, 2, 1)
 _MA_TILE = 2048
 _MA_MIN_CHUNK = 64
 _MA_MAX_SPLIT = 16
+# BatchNorm: threads a block (csrc/batch_norm.cu kThreads), blocks a launch
+_BN_THREADS = 256
+_BN_BLOCKS = 4 * _SMS
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
+_D = ctypes.c_double
 _SIGNATURES = {
     # points, first, out, B, S, k, threads, points a thread, registers,
     # stream
@@ -92,6 +103,25 @@ _SIGNATURES = {
     "smallest_k": ("usip_smallest_k", [_P, _P, _P, _I, _I, _I, _P]),
     # f, ids, out, B, N, M, C, cluster, tile, vec, stream
     "scatter_max": ("usip_scatter_max", [_P, _P, _P] + [_I] * 7 + [_P]),
+    # csrc/batch_norm.cu's entry points, "batch_norm" its statistics pass
+    # (stage 1), each counted under "batch_norm": x, partials, rows, C,
+    # bf16, then the form (vec, tile, tiles, rows a block, blocks), stream
+    "batch_norm": ("usip_bn_stats", [_P, _P] + [_I] * 8 + [_P]),
+    # partials, parts, C, out0, out1, count out (or NULL), count, stream
+    "batch_norm.merge": ("usip_bn_merge", [_P, _I, _I, _P, _P, _P, _F, _P]),
+    # totals, C, running mean, running var, batches, momentum, eps, mean,
+    # rstd, stream
+    "batch_norm.finalise": ("usip_bn_finalise",
+                            [_P, _I, _P, _P, _P, _D, _D, _P, _P, _P]),
+    # x, mean, rstd, w, b, y, rows, C, bf16, relu, form, stream
+    "batch_norm.apply": ("usip_bn_apply", [_P] * 6 + [_I] * 9 + [_P]),
+    # dy, x, mean, rstd, w, b, partials, rows, C, bf16, relu, form, stream
+    "batch_norm.backward_reduce": ("usip_bn_backward_reduce",
+                                   [_P] * 7 + [_I] * 9 + [_P]),
+    # dy, x, mean, rstd, w, b, sum_g, sum_gx, count, dx, rows, C, bf16,
+    # relu, form, stream
+    "batch_norm.backward_apply": ("usip_bn_backward_apply",
+                                  [_P] * 10 + [_I] * 9 + [_P]),
 }
 _FNS = {}
 
@@ -118,12 +148,18 @@ def add_launches(counts: dict, made: dict) -> None:
         counts[name] += n
 
 
+def _library(name: str) -> str:
+    """The library (``csrc/<library>.cu``, the ``LAUNCHES`` key) of an
+    entry point: its name up to the first dot."""
+    return name.split(".")[0]
+
+
 def _kernel_fn(name: str):
     """The ctypes entry point of one kernel, built and loaded at first use."""
     if name not in _FNS:
         from usip_tpu_torch import _build
         symbol, argtypes = _SIGNATURES[name]
-        fn = getattr(_build.load(name), symbol)
+        fn = getattr(_build.load(_library(name)), symbol)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         _FNS[name] = fn
@@ -139,7 +175,7 @@ def _launch(name: str, device: torch.device, *args) -> None:
         err = _kernel_fn(name)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
-    LAUNCHES[name] += 1
+    LAUNCHES[_library(name)] += 1
 
 
 def _check(t: Tensor, what: str, dtype: torch.dtype, shape: Sequence,
@@ -824,3 +860,338 @@ def _scatter_max_cuda(f: Tensor, ids: Tensor, m: int) -> Tensor:
         _launch("scatter_max", dev, f.data_ptr(), ids.data_ptr(),
                 out.data_ptr(), b, n, m, c, form.cluster, form.tile, int(vec))
     return out
+
+
+# -------------------------------------------------- train-mode BatchNorm --
+#
+# Five stages over rows of C channels (``x (..., C)``, bf16 or fp32): the
+# statistics (``batch_norm_stats``: sum, sum of squares and count, one read),
+# the finalise (``batch_norm_finalise``: mean, 1/std, the running statistics
+# in place), the apply (``batch_norm_apply``: normalise, affine, optional
+# ReLU, cast, one read and one write), the backward sums
+# (``batch_norm_backward_reduce``: of g and g * x_hat, the bias's and the
+# weight's gradients) and the backward apply (``batch_norm_backward_apply``:
+# dx). A process group's all-reduce goes between the first two and between
+# the last two (``nn/layers.py BatchNorm``). The wrappers take CUDA tensors
+# only; the ``*_plain`` stages are the kernels' references.
+
+def batch_norm_stats_plain(x: Tensor) -> Tensor:
+    """``(2C + 1,)`` fp32: the per-channel sum of ``x (..., C)`` in fp32, the
+    sum of squares, and the count of rows."""
+    c = x.shape[-1]
+    x32 = x.float().reshape(-1, c)
+    return torch.cat([x32.sum(0), x32.square().sum(0),
+                      x32.new_full((1,), float(x32.shape[0]))])
+
+
+def batch_norm_finalise_plain(totals: Tensor, running_mean: Tensor,
+                              running_var: Tensor,
+                              num_batches_tracked: Tensor, momentum: float,
+                              eps: float) -> Tuple[Tensor, Tensor]:
+    """``(mean, rstd)`` from ``batch_norm_stats``' totals (of one rank or
+    all-reduced over a group): the biased variance ``E[x^2] - E[x]^2``
+    clamped at 0; the running statistics move by ``momentum`` towards the
+    mean and the unbiased variance, in place, and the batch count rises by
+    one (usip_tpu's ``nn/layers.py BatchNorm``)."""
+    c = running_mean.shape[0]
+    count = totals[2 * c:]
+    mean = totals[:c] / count
+    var = (totals[c:2 * c] / count - mean.square()).clamp_min(0.0)
+    unbiased = var * (count / (count - 1).clamp_min(1.0))
+    running_mean.copy_((1.0 - momentum) * running_mean + momentum * mean)
+    running_var.copy_((1.0 - momentum) * running_var + momentum * unbiased)
+    num_batches_tracked.add_(1)
+    return mean, torch.rsqrt(var + eps)
+
+
+def batch_norm_apply_plain(x: Tensor, mean: Tensor, rstd: Tensor,
+                           weight: Tensor, bias: Tensor, relu: bool
+                           ) -> Tensor:
+    """``act((x - mean) * rstd * weight + bias)`` in fp32, rounded to
+    ``x``'s dtype before the ReLU (which keeps the sign)."""
+    y = ((x.float() - mean) * rstd * weight + bias).to(x.dtype)
+    return torch.relu(y) if relu else y
+
+
+def _bn_grad_out(dy: Tensor, x: Tensor, mean: Tensor, rstd: Tensor,
+                 weight: Tensor, bias: Tensor, relu: bool
+                 ) -> Tuple[Tensor, Tensor]:
+    """``(g, x_hat)`` fp32: ``dy`` masked by the forward's ReLU (where its
+    output, rounded to ``x``'s dtype, is not positive), and ``x_hat``."""
+    xhat = (x.float() - mean) * rstd
+    g = dy.float()
+    if relu:
+        z = (xhat * weight + bias).to(x.dtype)
+        g = torch.where(z > 0, g, 0.0)
+    return g, xhat
+
+
+def batch_norm_backward_reduce_plain(dy: Tensor, x: Tensor, mean: Tensor,
+                                     rstd: Tensor, weight: Tensor,
+                                     bias: Tensor, relu: bool
+                                     ) -> Tuple[Tensor, Tensor]:
+    """``(sum g, sum g * x_hat)`` over the rows, by channel, fp32: the
+    bias's and the weight's gradients."""
+    g, xhat = _bn_grad_out(dy, x, mean, rstd, weight, bias, relu)
+    c = x.shape[-1]
+    return g.reshape(-1, c).sum(0), (g * xhat).reshape(-1, c).sum(0)
+
+
+def batch_norm_backward_apply_plain(dy: Tensor, x: Tensor, mean: Tensor,
+                                    rstd: Tensor, weight: Tensor,
+                                    bias: Tensor, sum_g: Tensor,
+                                    sum_gx: Tensor, count: Tensor,
+                                    relu: bool) -> Tensor:
+    """``dx = rstd * weight * (g - sum_g / n - x_hat * sum_gx / n)`` in
+    ``x``'s dtype; ``sum_g``, ``sum_gx`` and ``count (1,)`` are the group's
+    totals where the statistics were."""
+    g, xhat = _bn_grad_out(dy, x, mean, rstd, weight, bias, relu)
+    dx = rstd * weight * (g - sum_g / count - xhat * (sum_gx / count))
+    return dx.to(x.dtype)
+
+
+class BatchNormForm(NamedTuple):
+    """The form of a ``csrc/batch_norm.cu`` row pass: rows cut into vectors
+    of ``vec`` channels; a block of 256 threads covers ``tile`` vectors of
+    ``256 // tile`` rows at a time, ``tiles`` blocks across a row, and walks
+    ``rows_per_block`` rows; ``blocks`` blocks down the rows."""
+    vec: int
+    tile: int
+    tiles: int
+    rows_per_block: int
+    blocks: int
+
+
+def batch_norm_form(rows: int, c: int, itemsize: int,
+                    pointers: Sequence[int]) -> BatchNormForm:
+    """The row passes' form for ``rows`` rows of ``c`` channels of
+    ``itemsize`` bytes: the widest vector (16 bytes, then 8, 4, 2, one
+    element) that divides ``c`` and to which every pointer is aligned; up to
+    256 vectors a block, rows of more in several channel tiles; rows cut
+    into chunks (whole multiples of the rows a block covers at a time) for
+    about four blocks an SM. (262144, 64) bf16 -> 8 channels a thread, 32
+    rows at a time, 512 blocks of 512 rows; (8192, 512) fp32 -> 4 channels,
+    2 rows, 512 blocks of 16."""
+    if c < 1:
+        raise ValueError("batch_norm: rows must have at least one channel")
+    vec = 16 // itemsize
+    while vec > 1 and (c % vec or any(p % (vec * itemsize)
+                                      for p in pointers)):
+        vec //= 2
+    slots = c // vec
+    tile = min(slots, _BN_THREADS)
+    tiles = -(-slots // tile)
+    per = _BN_THREADS // tile
+    want = max(1, _BN_BLOCKS // tiles)
+    rows_per_block = -(-max(-(-rows // want), 1) // per) * per
+    return BatchNormForm(vec, tile, tiles, rows_per_block,
+                         -(-rows // rows_per_block))
+
+
+def _bn_rows(x: Tensor, what: str, dev: torch.device) -> Tuple[int, int, int]:
+    """``(rows, C, bf16)`` of a row tensor the kernels take."""
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"{what} has dtype {x.dtype}: the BatchNorm kernels "
+                        "take bfloat16 and float32")
+    if x.dim() < 1:
+        raise ValueError(f"{what} must have a channel axis")
+    _check(x, what, x.dtype, x.shape, dev)
+    c = x.shape[-1]
+    return x.numel() // max(c, 1), c, int(x.dtype == torch.bfloat16)
+
+
+def _bn_vectors(dev: torch.device, c: int, **vectors: Tensor) -> None:
+    for what, t in vectors.items():
+        _check(t, what, torch.float32, (c,), dev)
+
+
+def batch_norm_stats(x: Tensor) -> Tensor:
+    """``batch_norm_stats_plain``'s totals; kernel ``csrc/batch_norm.cu``
+    for CUDA tensors (one read of ``x``, per-block partials merged in a
+    fixed order). The op is ``usip::batch_norm_stats``."""
+    _cuda_device(x, "x")
+    return torch.ops.usip.batch_norm_stats(x)
+
+
+def _bn_merge(dev: torch.device, partials: Tensor, parts: int, c: int,
+              out0: int, out1: int, count_out, count: float) -> None:
+    _launch("batch_norm.merge", dev, partials.data_ptr(), parts, c, out0,
+            out1, count_out, count)
+
+
+@torch.library.custom_op("usip::batch_norm_stats", mutates_args=(),
+                         device_types="cuda")
+def _bn_stats_op(x: Tensor) -> Tensor:
+    dev = _cuda_device(x, "x")
+    rows, c, bf16 = _bn_rows(x, "x", dev)
+    form = batch_norm_form(rows, c, x.element_size(), (x.data_ptr(),))
+    partials = torch.empty((form.blocks, 2 * c), dtype=torch.float32,
+                           device=dev)
+    totals = torch.empty((2 * c + 1,), dtype=torch.float32, device=dev)
+    if form.blocks:
+        _launch("batch_norm", dev, x.data_ptr(), partials.data_ptr(), rows,
+                c, bf16, *form)
+    base = totals.data_ptr()
+    _bn_merge(dev, partials, form.blocks, c, base, base + 4 * c,
+              base + 8 * c, float(rows))
+    return totals
+
+
+@_bn_stats_op.register_fake
+def _bn_stats_fake(x: Tensor) -> Tensor:
+    return x.new_empty((2 * x.shape[-1] + 1,), dtype=torch.float32)
+
+
+def batch_norm_finalise(totals: Tensor, running_mean: Tensor,
+                        running_var: Tensor, num_batches_tracked: Tensor,
+                        momentum: float, eps: float) -> Tuple[Tensor, Tensor]:
+    """``batch_norm_finalise_plain``; kernel ``csrc/batch_norm.cu`` for
+    CUDA tensors (one thread a channel, the count read on the device). The
+    op is ``usip::batch_norm_finalise``."""
+    _cuda_device(totals, "totals")
+    return torch.ops.usip.batch_norm_finalise(
+        totals, running_mean, running_var, num_batches_tracked, momentum, eps)
+
+
+@torch.library.custom_op(
+    "usip::batch_norm_finalise",
+    mutates_args=("running_mean", "running_var", "num_batches_tracked"),
+    device_types="cuda")
+def _bn_finalise_op(totals: Tensor, running_mean: Tensor, running_var: Tensor,
+                    num_batches_tracked: Tensor, momentum: float, eps: float
+                    ) -> Tuple[Tensor, Tensor]:
+    dev = _cuda_device(totals, "totals")
+    c = running_mean.shape[0]
+    _check(totals, "totals", torch.float32, (2 * c + 1,), dev)
+    _bn_vectors(dev, c, running_mean=running_mean, running_var=running_var)
+    _check(num_batches_tracked, "num_batches_tracked", torch.int64, (), dev)
+    mean = torch.empty((c,), dtype=torch.float32, device=dev)
+    rstd = torch.empty((c,), dtype=torch.float32, device=dev)
+    _launch("batch_norm.finalise", dev, totals.data_ptr(), c,
+            running_mean.data_ptr(), running_var.data_ptr(),
+            num_batches_tracked.data_ptr(), float(momentum), float(eps),
+            mean.data_ptr(), rstd.data_ptr())
+    return mean, rstd
+
+
+@_bn_finalise_op.register_fake
+def _bn_finalise_fake(totals, running_mean, running_var, num_batches_tracked,
+                      momentum, eps):
+    c = running_mean.shape[0]
+    return totals.new_empty((c,)), totals.new_empty((c,))
+
+
+def batch_norm_apply(x: Tensor, mean: Tensor, rstd: Tensor, weight: Tensor,
+                     bias: Tensor, relu: bool) -> Tensor:
+    """``batch_norm_apply_plain``; kernel ``csrc/batch_norm.cu`` for CUDA
+    tensors (one read of ``x``, one write in its dtype). The op is
+    ``usip::batch_norm_apply``."""
+    _cuda_device(x, "x")
+    return torch.ops.usip.batch_norm_apply(x, mean, rstd, weight, bias, relu)
+
+
+@torch.library.custom_op("usip::batch_norm_apply", mutates_args=(),
+                         device_types="cuda")
+def _bn_apply_op(x: Tensor, mean: Tensor, rstd: Tensor, weight: Tensor,
+                 bias: Tensor, relu: bool) -> Tensor:
+    dev = _cuda_device(x, "x")
+    rows, c, bf16 = _bn_rows(x, "x", dev)
+    _bn_vectors(dev, c, mean=mean, rstd=rstd, weight=weight, bias=bias)
+    y = torch.empty_like(x)
+    form = batch_norm_form(rows, c, x.element_size(),
+                           (x.data_ptr(), y.data_ptr()))
+    if form.blocks:
+        _launch("batch_norm.apply", dev, x.data_ptr(), mean.data_ptr(),
+                rstd.data_ptr(), weight.data_ptr(), bias.data_ptr(),
+                y.data_ptr(), rows, c, bf16, int(relu), *form)
+    return y
+
+
+@_bn_apply_op.register_fake
+def _bn_apply_fake(x, mean, rstd, weight, bias, relu):
+    return x.new_empty(x.shape)
+
+
+def batch_norm_backward_reduce(dy: Tensor, x: Tensor, mean: Tensor,
+                               rstd: Tensor, weight: Tensor, bias: Tensor,
+                               relu: bool) -> Tuple[Tensor, Tensor]:
+    """``batch_norm_backward_reduce_plain``; kernel ``csrc/batch_norm.cu``
+    for CUDA tensors (one read of ``dy`` and ``x``, per-block partials
+    merged in a fixed order). The op is ``usip::batch_norm_backward_reduce``.
+    """
+    _cuda_device(x, "x")
+    return torch.ops.usip.batch_norm_backward_reduce(dy, x, mean, rstd,
+                                                     weight, bias, relu)
+
+
+@torch.library.custom_op("usip::batch_norm_backward_reduce", mutates_args=(),
+                         device_types="cuda")
+def _bn_bwd_reduce_op(dy: Tensor, x: Tensor, mean: Tensor, rstd: Tensor,
+                      weight: Tensor, bias: Tensor, relu: bool
+                      ) -> Tuple[Tensor, Tensor]:
+    dev = _cuda_device(x, "x")
+    rows, c, bf16 = _bn_rows(x, "x", dev)
+    _check(dy, "dy", x.dtype, x.shape, dev)
+    _bn_vectors(dev, c, mean=mean, rstd=rstd, weight=weight, bias=bias)
+    form = batch_norm_form(rows, c, x.element_size(),
+                           (x.data_ptr(), dy.data_ptr()))
+    partials = torch.empty((form.blocks, 2 * c), dtype=torch.float32,
+                           device=dev)
+    sum_g = torch.empty((c,), dtype=torch.float32, device=dev)
+    sum_gx = torch.empty((c,), dtype=torch.float32, device=dev)
+    if form.blocks:
+        _launch("batch_norm.backward_reduce", dev, dy.data_ptr(),
+                x.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
+                weight.data_ptr(), bias.data_ptr(), partials.data_ptr(),
+                rows, c, bf16, int(relu), *form)
+    _bn_merge(dev, partials, form.blocks, c, sum_g.data_ptr(),
+              sum_gx.data_ptr(), None, 0.0)
+    return sum_g, sum_gx
+
+
+@_bn_bwd_reduce_op.register_fake
+def _bn_bwd_reduce_fake(dy, x, mean, rstd, weight, bias, relu):
+    c = x.shape[-1]
+    return (x.new_empty((c,), dtype=torch.float32),
+            x.new_empty((c,), dtype=torch.float32))
+
+
+def batch_norm_backward_apply(dy: Tensor, x: Tensor, mean: Tensor,
+                              rstd: Tensor, weight: Tensor, bias: Tensor,
+                              sum_g: Tensor, sum_gx: Tensor, count: Tensor,
+                              relu: bool) -> Tensor:
+    """``batch_norm_backward_apply_plain``; kernel ``csrc/batch_norm.cu``
+    for CUDA tensors (one read of ``dy`` and ``x``, one write of ``dx`` in
+    ``x``'s dtype). The op is ``usip::batch_norm_backward_apply``."""
+    _cuda_device(x, "x")
+    return torch.ops.usip.batch_norm_backward_apply(
+        dy, x, mean, rstd, weight, bias, sum_g, sum_gx, count, relu)
+
+
+@torch.library.custom_op("usip::batch_norm_backward_apply", mutates_args=(),
+                         device_types="cuda")
+def _bn_bwd_apply_op(dy: Tensor, x: Tensor, mean: Tensor, rstd: Tensor,
+                     weight: Tensor, bias: Tensor, sum_g: Tensor,
+                     sum_gx: Tensor, count: Tensor, relu: bool) -> Tensor:
+    dev = _cuda_device(x, "x")
+    rows, c, bf16 = _bn_rows(x, "x", dev)
+    _check(dy, "dy", x.dtype, x.shape, dev)
+    _bn_vectors(dev, c, mean=mean, rstd=rstd, weight=weight, bias=bias,
+                sum_g=sum_g, sum_gx=sum_gx)
+    _check(count, "count", torch.float32, (1,), dev)
+    dx = torch.empty_like(x)
+    form = batch_norm_form(rows, c, x.element_size(),
+                           (x.data_ptr(), dy.data_ptr(), dx.data_ptr()))
+    if form.blocks:
+        _launch("batch_norm.backward_apply", dev, dy.data_ptr(),
+                x.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
+                weight.data_ptr(), bias.data_ptr(), sum_g.data_ptr(),
+                sum_gx.data_ptr(), count.data_ptr(), dx.data_ptr(), rows, c,
+                bf16, int(relu), *form)
+    return dx
+
+
+@_bn_bwd_apply_op.register_fake
+def _bn_bwd_apply_fake(dy, x, mean, rstd, weight, bias, sum_g, sum_gx, count,
+                       relu):
+    return x.new_empty(x.shape)
