@@ -139,7 +139,7 @@ def _read(w):
 
 def test_replay_reader_is_an_entry_of_the_cell():
     m = {m["name"]: m for m in harness.spec()["per_layer"]}[READER]
-    assert m["workloads"] == ["kitti-som.train"]
+    assert m["workloads"] == ["kitti-som.train", "oxford-ball.train"]
     assert (m["moves"], m["layer"], m["unit"], m["better"], m["source"]) == (
         "train_clouds_per_s", "train steps", "%", "lower", "device_trace")
 

@@ -40,6 +40,7 @@ from usip_tpu_torch.nn.layers import (PointwiseLayer, SharedMLP,
 from usip_tpu_torch.ops import (assign_points_to_nodes, ball_query,
                                 gather_points, knn, masked_scatter_max,
                                 scatter_back, segment_mean_count)
+from usip_tpu_torch.utils.logging import span
 
 Tensor = torch.Tensor
 
@@ -193,9 +194,15 @@ class Detector(nn.Module):
 
     def group_trunk(self, pc: Tensor, sn: Tensor, node: Tensor
                     ) -> Tuple[Tensor, Tensor]:
-        """kNN/ball trunk: anchors are the nodes themselves."""
-        return node, self.group_features(pc, sn, node,
-                                         self.group_indices(pc, node))
+        """kNN/ball trunk: anchors are the nodes themselves. Its two parts
+        are spans: the neighbourhoods (``usip.trunk.ball_query``, or
+        ``usip.trunk.knn_query``) and ``usip.trunk.group_features``."""
+        query = ("usip.trunk.ball_query" if self.cfg.grouping == "ball"
+                 else "usip.trunk.knn_query")
+        with span(query):
+            idx = self.group_indices(pc, node)
+        with span("usip.trunk.group_features"):
+            return node, self.group_features(pc, sn, node, idx)
 
     def keypoint_head(self, feature: Tensor, anchors: Tensor
                       ) -> Tuple[Tensor, Tensor]:
